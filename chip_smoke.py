@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the result lines:
+
+  1. setup    — the card's name and power limit (nvidia-smi), then every
+                hand-written kernel built from the sources in this
+                checkout (one nvcc per source, all in parallel).
+  2. kernels  — each kernel at the main path's shapes (tinyllama-1.1b:
+                H=32, Hkv=4, hd=64, bf16) against its plain PyTorch version
+                on the card (max abs error within 2e-2), timed with CUDA
+                events beside its plain version, one
+                ``scaled_dot_product_attention`` call for the same work
+                (timed only; the port never calls it) and its bound.
+  3. reference — each served model at full width, cut to one layer, on
+                the card (kernels, bf16): ``forward`` and one row and one
+                paged decode step held against the plain path on the CPU
+                in float32 on the same weights.
+  4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
+                supersub-super at their published widths, requests
+                alternating contexts, through ContinuousScheduler(paged),
+                ContinuousScheduler(row) and SwitchScheduler.  Every
+                request must resolve with the right shape, and each
+                kernel's launch count (zeroed right before a pass) must
+                rise in the pass that uses it.
+  5. profile  — steady decode steps of a full tinyllama-1.1b step engine
+                (row and paged, 8 rows): step wall time, device kernel
+                time and busy share, top kernels (torch.profiler).
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+port's sources beside this script, it exits non-zero and prints neither.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+TOL = 2e-2                   # bf16 kernel vs plain version on the card
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+H, HKV, HD = 32, 4, 64       # tinyllama-1.1b attention
+PROMPT_LENS = (128, 512)     # serving prompt range
+NEW_TOKENS = 32
+N_REQUESTS = 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events
+    around each launch), after 3 warm-ups; ``flush()`` runs between
+    launches, outside the timed window, to start each one with a cold L2
+    the way the serving loop finds it (22 layers of cache > 50 MB)."""
+    import torch
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_reference)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         mha_reference)
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_decode_attention, paged_decode_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        l2.zero_()
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    out = []
+
+    def record(name, source, replaces, got, ref, t_k, t_p, t_l, nbytes,
+               flops):
+        err = (got.float() - ref.float()).abs().max().item()
+        bms, by = bound_ms(nbytes, flops)
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": 0, "max_abs_err": err,
+               "ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+               "library_ms": t_l}
+        log(f"kernel {name}: max_abs_err={err:.3e} ms={t_k:.4f} "
+            f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.4f} "
+            f"({by})")
+        if not err <= TOL:
+            raise AssertionError(f"{name}: max abs error {err} > {TOL}")
+        out.append(rec)
+
+    # flash prefill: B=4, S=512
+    B, S = 4, 512
+    q, k, v = rn(B, H, S, HD), rn(B, HKV, S, HD), rn(B, HKV, S, HD)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = mha_reference(q, k, v)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 4 * HD * B * H * S * (S + 1) / 2          # causal pairs only
+    record("flash_attention",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", got, ref,
+           time_ms(lambda: flash_attention(q, k, v), flush=flush),
+           time_ms(lambda: mha_reference(q, k, v), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True), flush=flush),
+           nbytes, flops)
+
+    # row decode: B=8 rows at mixed positions up to 640, cache S=768
+    B, S = 8, 768
+    pos = torch.tensor([5, 77, 130, 255, 256, 400, 511, 640],
+                       dtype=torch.int32, device=dev)
+    q, k, v = rn(B, H, HD), rn(B, HKV, S, HD), rn(B, HKV, S, HD)
+    got = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    ref = decode_reference(q, k, v, pos)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])
+    mask = mask[:, None, None, :]
+    live = int((pos + 1).sum())
+    nbytes = 2 * 2 * q.numel() + 4 * B + 2 * 2 * live * HKV * HD
+    flops = 4 * live * H * HD
+    record("decode_attention",
+           "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+           "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
+           time_ms(lambda: decode_attention(q, k, v, pos), flush=flush),
+           time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+               flush=flush),
+           nbytes, flops)
+
+    # paged decode: page 256, 3 pages a row, tables in shuffled page
+    # order, entries past a row's position -> the park page 0
+    page, P = 256, 3
+    NP = B * P + 1
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
+    table = ids.reshape(B, P).to(torch.int32)
+    dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
+    table = torch.where(dead, torch.zeros_like(table), table).contiguous()
+    got = paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    ref = paged_decode_reference(q, kp, vp, table, pos)
+    kg, vg = gather_pages(kp, table), gather_pages(vp, table)   # the library
+    nbytes += 4 * B * P                  # call reads rows gathered untimed
+    record("paged_decode_attention",
+           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
+           time_ms(lambda: paged_decode_attention(q, kp, vp, table, pos),
+                   flush=flush),
+           time_ms(lambda: paged_decode_reference(q, kp, vp, table, pos),
+                   flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
+               flush=flush),
+           nbytes, flops)
+    del l2
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: reference check
+# ---------------------------------------------------------------------------
+
+REF_LAYERS = 1      # depth of the reference check (full width)
+REF_TOL = 0.1       # relative L2 error of bf16 logits vs float32
+
+
+def reference_phase(dev) -> None:
+    """Each served model at full width, cut to ``REF_LAYERS`` layer, run
+    on the card (bf16 activations, kernels) and on the CPU through the
+    plain path in float32 on the same weights.  Three card paths are held
+    against the CPU forward's logits: ``forward`` (flash kernel), and one
+    decode step after a 47-token prefill through the row cache (decode
+    kernel) and through a page pool with shuffled tables (paged kernel).
+    Each must be finite, of the expected shape, and within ``REF_TOL``
+    relative L2 error.  Why one layer: with random weights, bf16 rounding
+    of the activations grows several-fold per layer, so a deeper check
+    would measure the weights' conditioning, not the port."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(1)
+    S, page = 48, 16
+    for name in ("supersub-super", "tinyllama-1.1b"):
+        cfg = override(get_arch(name), param_dtype="bfloat16",
+                       num_layers=REF_LAYERS)
+        gpu = build_model(cfg, device=dev)
+        params = gpu.init(seed=7)
+        toks = rng.integers(0, cfg.vocab_size, (2, S))
+        cpu = build_model(override(cfg, dtype="float32",
+                                   param_dtype="float32"),
+                          cache_dtype=torch.float32, device="cpu")
+        ref = cpu.forward(_tree(lambda t: t.float().cpu(), params), toks)
+
+        fwd = gpu.forward(params, toks)
+        _, rows = gpu.prefill(params, toks[:, :S - 1], max_len=4 * page)
+        pool = gpu.init_page_pool(num_pages=9, page=page)
+        tables = (torch.randperm(8, generator=torch.Generator().manual_seed(
+            3)) + 1).reshape(2, 4).to(torch.int32).to(dev)
+        gpu.insert_cache_pages(pool, rows, tables)
+        pos = torch.full((2,), S - 1, dtype=torch.int32, device=dev)
+        last = toks[:, S - 1:]
+        row, _ = gpu.decode_step(params, rows, last, pos)
+        paged, _ = gpu.decode_step_pages(params, pool, last, pos, tables)
+        for label, got, want in (("forward", fwd, ref),
+                                 ("decode_row", row[:, 0], ref[:, -1]),
+                                 ("decode_paged", paged[:, 0], ref[:, -1])):
+            got = got.float().cpu()
+            if got.shape != want.shape:
+                raise AssertionError(f"{name} {label}: shape "
+                                     f"{tuple(got.shape)} != "
+                                     f"{tuple(want.shape)}")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {label}: non-finite logits")
+            rel = ((got - want).norm() / want.norm()).item()
+            log(f"reference {name} {label} ({REF_LAYERS} layer): "
+                f"rel_l2={rel:.4e}")
+            if not rel <= REF_TOL:
+                raise AssertionError(f"{name} {label}: card vs CPU float32 "
+                                     f"reference rel L2 {rel} > {REF_TOL}")
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving at full width
+# ---------------------------------------------------------------------------
+
+def serving_phase(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.launch.serve import build_server
+    from repro_torch.serve.scheduler import ContinuousScheduler, SwitchScheduler
+
+    names = ["tinyllama-1.1b", "supersub-super"]
+    page = 256
+    max_len = -(-(PROMPT_LENS[1] + NEW_TOKENS) // page) * page      # 768
+    rng = np.random.default_rng(0)
+    reqs = []
+    for r in range(N_REQUESTS):                    # contexts alternate
+        name = names[r % 2]
+        S = int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        reqs.append((name, rng.integers(0, get_arch(name).vocab_size,
+                                        (1, S))))
+
+    passes = [
+        ("continuous_paged", lambda s: ContinuousScheduler(
+            s, batch_size=8, paged=True, page_size=page),
+         {"flash_attention", "paged_decode_attention"}),
+        ("continuous_row", lambda s: ContinuousScheduler(s, batch_size=8),
+         {"flash_attention", "decode_attention"}),
+        ("switch_scheduler", SwitchScheduler,
+         {"flash_attention", "decode_attention"}),
+    ]
+    fns = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention,
+           "paged_decode_attention": paged_decode_attention}
+    totals = {n: 0 for n in fns}
+    outputs = {}
+    for label, make_sched, used in passes:
+        server, cfgs = build_server(
+            names, slots=2, max_len=max_len, reduce=False, device=dev,
+            arch_overrides={"param_dtype": "bfloat16"})
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with make_sched(server) as sched:
+                futs = [sched.submit(n, t, steps=NEW_TOKENS) for n, t in reqs]
+                outs = [f.result(timeout=600) for f in futs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: fn.launches for n, fn in fns.items()}
+            for (name, toks), o in zip(reqs, outs):
+                assert o.shape == (1, NEW_TOKENS), (label, o.shape)
+                assert ((o >= 0) & (o < cfgs[name].vocab_size)).all(), label
+            for n in used:
+                if counts[n] <= 0:
+                    raise AssertionError(f"{label}: kernel {n} was not "
+                                         "launched on the serving path")
+            st = server.engine.stats
+            rep = {"pass": label, "requests": len(outs),
+                   "tokens_per_s": N_REQUESTS * NEW_TOKENS / wall,
+                   "wall_s": wall,
+                   "hidden_load_fraction":
+                       server.engine.hidden_load_fraction(),
+                   "loads": st["loads"], "context_changes":
+                       st["context_changes"],
+                   "mean_switch_us": 1e6 * st["switch_seconds"]
+                       / max(st["switches"], 1),
+                   "max_memory_allocated":
+                       torch.cuda.max_memory_allocated(dev),
+                   "launches": counts}
+            log("serving " + json.dumps(rep))
+            for n in fns:
+                totals[n] += counts[n]
+            outputs[label] = outs
+        finally:
+            server.shutdown()
+
+    def agree(a, b):
+        same = sum(int((x == y).sum()) for x, y in zip(a, b))
+        return same / (N_REQUESTS * NEW_TOKENS)
+
+    log("serving greedy agreement: " + json.dumps({
+        "paged_vs_row": agree(outputs["continuous_paged"],
+                              outputs["continuous_row"]),
+        "switch_vs_row": agree(outputs["switch_scheduler"],
+                               outputs["continuous_row"])}))
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where a decode step's time goes
+# ---------------------------------------------------------------------------
+
+def profile_phase(dev, steps: int = 8) -> None:
+    """A full tinyllama-1.1b ``StepEngine`` (8 rows admitted with 256- to
+    512-token prompts), row and paged: the wall time of ``steps`` steady
+    decode steps (host clock, ending in a synchronize), then, from
+    ``torch.profiler`` over ``steps`` more, the device's kernel time
+    per step, its busy share of the unprofiled wall time and the five
+    kernels that take the most of it.  Runs after the serving passes, so none of its launches
+    enters the kernels' counts."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import StepEngine
+
+    cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, int(S)))
+               for S in rng.integers(256, 513, 8)]
+    for paged in (False, True):
+        eng = StepEngine(model, batch_size=8, max_len=768, paged=paged,
+                         page_size=256)
+        for p in prompts:
+            eng.admit(params, p, max_new=2 * steps + 8)
+        for _ in range(4):                                  # warm-up
+            eng.step(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step(params)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step(params)
+            torch.cuda.synchronize()
+        per = {}                 # device kernels only: a CPU op's device
+        for e in prof.key_averages():      # time repeats its kernels'
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            per[e.key] = per.get(e.key, 0.0) + us / 1e3 / steps
+        dev_ms = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        log("profile " + json.dumps({
+            "engine": "paged" if paged else "row", "rows": 8,
+            "step_wall_ms": wall_ms,
+            "device_kernel_ms_per_step":
+                dev_ms if per else "not measured",
+            "device_busy_share": dev_ms / wall_ms if per else "not measured",
+            "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}))
+        del eng
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from repro_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kernels.build_all()
+    log(f"kernel build seconds: {time.perf_counter() - t0:.2f}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    records = kernel_phase(dev)
+    reference_phase(dev)
+    totals = serving_phase(dev)
+    profile_phase(dev)
+    for rec in records:
+        rec["launches"] = totals[rec["name"]]
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""Architecture registry of the PyTorch port.
+
+A copy of the JAX package's registry restricted to the dense models the
+port serves so far (``supersub-super``, ``supersub-sub`` and
+``tinyllama-1.1b``); every other architecture of the JAX package raises
+``KeyError(... not yet ported)``.  ``base.py`` is a verbatim copy of the
+JAX package's stdlib-only config module: the port imports nothing of
+``repro``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (
+    ArchConfig, FrontendConfig, MoEConfig, SSMConfig, XLSTMConfig, override,
+)
+
+_ARCH_MODULES = {
+    "tinyllama-1.1b": "tinyllama_11b",
+    # the paper's own application config (Super-Sub cascade members)
+    "supersub-super": "supersub",
+    "supersub-sub": "supersub",
+}
+
+# architectures of the JAX package the port does not serve yet
+_NOT_PORTED = ("xlstm-125m", "codeqwen1.5-7b", "starcoder2-7b",
+               "deepseek-7b", "musicgen-medium", "qwen3-moe-235b-a22b",
+               "mixtral-8x7b", "jamba-v0.1-52b", "pixtral-12b")
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not yet ported to repro_torch; "
+                       f"ported: {sorted(_ARCH_MODULES)}")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.get(name) if hasattr(mod, "get") else mod.CONFIG
+
+
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
+def reduced(cfg: ArchConfig, **extra) -> ArchConfig:
+    """A smoke-test-sized config of the same family (CPU-runnable); the
+    same cut as the JAX package's ``reduced`` for the dense family."""
+    kw = dict(
+        num_layers=min(cfg.num_layers, 2),
+        d_model=128,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2),
+        head_dim=32,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=256,
+    )
+    kw.update(extra)
+    return override(cfg, name=cfg.name + "-reduced", **kw)
+
+
+__all__ = ["ArchConfig", "FrontendConfig", "MoEConfig", "SSMConfig",
+           "XLSTMConfig", "get_arch", "list_archs", "override", "reduced"]

@@ -1,0 +1,69 @@
+// One-token flash-decode over a row KV cache, for Hopper (sm_90a).
+//
+// Replaces: repro/kernels/decode_attention/kernel.py ::
+//   decode_attention_kernel (body _decode_kernel), ring=False.
+//
+// What bounds it on an H100: bytes.  A decode step reads each row's cache
+// up to its position once (2 * (pos+1) * hd bf16 per kv head) and does
+// 4 * G * hd flops per key -- about 2 * G flops per byte, far below the
+// ~295 flop/byte ridge of the card, so HBM bandwidth is the limit.
+//
+// What the design does about it: one block per (row, kv head) with the G
+// query heads of that kv head batched together, so every K/V byte is
+// loaded from HBM once and reused G times from registers; keys past the
+// row's position are never loaded (the per-row skip of the TPU kernel's
+// `k_start <= pos` tile gate, at key granularity); the running softmax
+// state (m, l, acc) lives in registers for the whole scan -- the loop
+// inside the block replaces the TPU grid's sequential "arbitrary" axis.
+// Not yet done: splitting one row's keys over several blocks, so a small
+// batch (B * Hkv blocks) fills only part of the 132 SMs.
+#include "attn_common.cuh"
+
+namespace {
+
+using repro::bf16;
+
+template <int HD>
+struct RowRows {
+  const bf16* k;   // (S, HD) keys of one (row, kv head)
+  const bf16* v;
+  __device__ __forceinline__ const bf16* key(int t) const {
+    return k + (size_t)t * HD;
+  }
+  __device__ __forceinline__ const bf16* value(int t) const {
+    return v + (size_t)t * HD;
+  }
+};
+
+template <int HD, int G, int NW>
+__global__ void __launch_bounds__(NW * 32)
+decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const int* __restrict__ pos,
+              bf16* __restrict__ out, int Hkv, int S, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t bh = (size_t)b * Hkv + h;
+  RowRows<HD> rows{k + bh * S * HD, v + bh * S * HD};
+  const int n = min(pos[b], S - 1) + 1;     // keys 0..pos are valid
+  repro::decode_block<HD, G, NW>(q + bh * G * HD, rows, n, scale,
+                                 out + bh * G * HD);
+}
+
+}  // namespace
+
+// q (B, Hkv, G, hd), k/v (B, Hkv, S, hd) bf16, pos (B,) int32,
+// out (B, Hkv, G, hd) bf16; all contiguous.  Returns a cudaError_t.
+extern "C" int decode_attention_bf16(const void* q, const void* k,
+                                     const void* v, const void* pos,
+                                     void* out, int B, int Hkv, int G,
+                                     int S, int hd, float scale,
+                                     void* stream) {
+  constexpr int NW = 8;
+  const dim3 grid(Hkv, B);
+#define LAUNCH(HD_, G_)                                                    \
+  decode_kernel<HD_, G_, NW><<<grid, NW * 32, 0, (cudaStream_t)stream>>>( \
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)pos,    \
+      (bf16*)out, Hkv, S, scale)
+  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}

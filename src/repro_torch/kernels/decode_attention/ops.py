@@ -1,0 +1,53 @@
+"""Public wrapper of the flash-decode kernel (row cache).
+
+A CPU tensor runs the plain version (``ref.decode_reference``); a CUDA
+tensor launches ``csrc/decode_attention.cu`` or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.decode_attention.ref import decode_reference
+
+_fn = None
+
+
+def decode_attention(q, k, v, pos, *, scale: float | None = None
+                     ) -> torch.Tensor:
+    """q: (B, H, hd); k/v: (B, Hkv, S, hd); pos: () or (B,) int32 ->
+    (B, H, hd).  Row b attends to cache slots [0, pos[b]]."""
+    B, H, hd = q.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    pos = pos.expand(B).contiguous()
+    if K.on_cpu(q, k, v, pos):
+        return decode_reference(q, k, v, pos, scale=scale)
+    global _fn
+    Hkv, S = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
+    G = H // Hkv
+    if hd not in (32, 64, 128) or G not in (1, 2, 4, 8):
+        raise ValueError(f"decode kernel takes head_dim 32/64/128 and "
+                         f"group 1/2/4/8, got {hd}, {G}")
+    q = q.contiguous()
+    K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
+    K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, hd))
+    K.check_cuda_input("v", v, torch.bfloat16, (B, Hkv, S, hd))
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    out = torch.empty_like(q)
+    if _fn is None:
+        _fn = K.c_function("decode_attention", "decode_attention_bf16",
+                           [K.P] * 5 + [K.I] * 5 + [K.F, K.P])
+    rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), B, Hkv, G, S, hd, float(scale),
+             K.stream_ptr(q))
+    K.check_launch("decode_attention", rc)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+__all__ = ["decode_attention", "decode_reference"]

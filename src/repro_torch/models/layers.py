@@ -1,0 +1,257 @@
+"""Dense transformer layers of the port: RMSNorm, RoPE, GQA attention and
+the gated MLP, with row and paged KV caches.
+
+Plain functions: ``params`` (a dict of tensors) in, tensors out, in the
+JAX package's layouts (q ``(B, S, H, hd)``, row cache ``(B, Hkv, S,
+hd)``, page pool ``(NP, Hkv, page, hd)``, page table ``(B, P)`` int32).
+Attention goes through the kernel wrappers of ``repro_torch.kernels``:
+the hand-written kernel for CUDA tensors, its plain version for CPU
+tensors.  Where the JAX package returned an updated cache (buffer
+donation), these functions write the cache IN PLACE and return it.
+
+Entry points by execution mode:
+  * ``attention``               — forward over a whole sequence, no cache
+  * ``attention_prefill``       — same, plus the populated row cache
+  * ``attention_decode``        — one token against the row cache
+  * ``attention_decode_pages``  — one token against the shared page pool
+Sliding-window rings are not ported yet (``LM`` refuses such configs).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.models.common import PSpec
+
+NEG_INF = -1e30  # bf16-safe large negative
+
+
+# ---------------------------------------------------------------------------
+# norms / mlp
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+def mlp_specs(d: int, f: int, gated: bool = True) -> dict:
+    out = {"w_up": PSpec((d, f)), "w_down": PSpec((f, d))}
+    if gated:
+        out["w_gate"] = PSpec((d, f))
+    return out
+
+
+def mlp(params, x):
+    if "w_gate" in params:
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")   # jax.nn.gelu
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (hd/2,)
+    ang = positions[..., None].float() * freqs                   # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Contiguous row KV cache (full attention: S == max_len)."""
+    k: torch.Tensor       # (B, Hkv, S, hd)
+    v: torch.Tensor       # (B, Hkv, S, hd)
+
+
+def attn_specs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "wq": PSpec((d, cfg.num_heads, cfg.head_dim)),
+        "wk": PSpec((d, cfg.num_kv_heads, cfg.head_dim)),
+        "wv": PSpec((d, cfg.num_kv_heads, cfg.head_dim)),
+        "wo": PSpec((cfg.num_heads, cfg.head_dim, d)),
+    }
+
+
+def _qkv(params, x, positions, cfg: ArchConfig):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(params, o, x):
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"].to(x.dtype))
+
+
+def _sdpa_auto(q, k, v, cfg: ArchConfig):
+    """q: (B, S, H, hd), k/v: (B, S, Hkv, hd) self-attention over one
+    position range -> (B, S, H, hd), through the flash kernel (its plain
+    version on the CPU).  The JAX package's chunked and masked-einsum
+    paths are what its flash kernel replaces off the TPU; here the kernel
+    or its plain version always runs."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True,
+                          window=cfg.sliding_window)
+    return out.transpose(1, 2)
+
+
+def attention(params, x, positions, cfg: ArchConfig):
+    """Forward over a whole sequence (no cache)."""
+    q, k, v = _qkv(params, x, positions, cfg)
+    return _out(params, _sdpa_auto(q, k, v, cfg), x)
+
+
+def attention_prefill(params, x, positions, cfg: ArchConfig, max_len: int,
+                      cache_dtype=torch.bfloat16):
+    """Prefill from position 0: returns the output and a fresh
+    ``max_len``-long row cache holding the prompt's k/v (zero tail)."""
+    q, k, v = _qkv(params, x, positions, cfg)
+    out = _out(params, _sdpa_auto(q, k, v, cfg), x)
+    S = x.shape[1]
+    cache = init_kv_cache(cfg, x.shape[0], max_len, cache_dtype, x.device)
+    cache.k[:, :, :S] = k.transpose(1, 2).to(cache_dtype)
+    cache.v[:, :, :S] = v.transpose(1, 2).to(cache_dtype)
+    return out, cache
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> KVCache:
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_decode(params, x, pos, cache: KVCache, cfg: ArchConfig):
+    """One-step decode against the row cache.  x: (B, 1, D); pos: scalar
+    (whole batch at one position) or (B,) int32 (every row at its own
+    position).  The new token's k/v are written IN PLACE at slot
+    ``min(pos, S-1)`` first (freed rows park at S-1), then row b attends
+    to slots [0, pos[b]].  Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    q, k, v = _qkv(params, x, pos[:, None], cfg)          # q: (B, 1, H, hd)
+    S = cache.k.shape[2]
+    rows = torch.arange(B, device=x.device)
+    slot = pos.clamp(max=S - 1).long()
+    cache.k[rows, :, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[rows, :, slot] = v[:, 0].to(cache.v.dtype)
+    out = decode_attention(q[:, 0], cache.k, cache.v, pos)[:, None]
+    return _out(params, out, x), cache
+
+
+# ---------------------------------------------------------------------------
+# paged slot pool: per-row page tables over ONE shared page pool
+#
+# Page 0 is the PARK page: never allocated to a request and never read for
+# a live position -- dead table entries point at it (every table entry
+# must be a valid pool index), and non-live rows' per-step writes are
+# routed into it, so a retired slot's stale writes never disturb pages
+# already recycled to a neighbor.
+# ---------------------------------------------------------------------------
+
+class PagedKV(NamedTuple):
+    """Shared page pool: position j*page+s of a request lives at
+    ``pool[table[j], :, s]`` for that request's page table."""
+    k: torch.Tensor       # (NP, Hkv, page, hd)
+    v: torch.Tensor
+
+
+PARK_PAGE = 0
+
+
+def init_page_pool(cfg: ArchConfig, num_pages: int, page: int,
+                   dtype=torch.bfloat16, device=None) -> PagedKV:
+    shape = (num_pages, cfg.num_kv_heads, page, cfg.head_dim)
+    return PagedKV(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _page_write(cache: PagedKV, k, v, tables, positions, wmask=None):
+    """Scatter (B, K) tokens' k/v into the shared pool, IN PLACE.
+
+    k/v: (B, K, Hkv, hd); tables: (B, P) int32; positions: (B, K) int
+    positions; ``wmask`` ((B, K) bool, optional) routes False tokens'
+    writes to the PARK page instead (non-live rows' per-step decode
+    writes land in garbage space without touching any request's pages).
+    Lands where the JAX package's ``pool.at[pids, :, slots, :].set``
+    does."""
+    P = tables.shape[1]
+    page = cache.k.shape[2]
+    positions = positions.long()
+    pidx = torch.clamp(positions // page, max=P - 1)       # parked rows
+    pids = torch.gather(tables.long(), 1, pidx)
+    if wmask is not None:
+        pids = torch.where(wmask, pids, torch.full_like(pids, PARK_PAGE))
+    slots = positions % page
+    cache.k[pids, :, slots, :] = k.to(cache.k.dtype)
+    cache.v[pids, :, slots, :] = v.to(cache.v.dtype)
+    return cache
+
+
+def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
+                           cfg: ArchConfig, wmask=None):
+    """One-step decode against the shared page pool.  x: (B, 1, D);
+    pos: (B,) int32 (or scalar, broadcast); tables: (B, P) int32;
+    ``wmask`` ((B,) bool, optional): False rows write to the park page.
+
+    Write-then-read in the same order as ``attention_decode`` -- the new
+    token's k/v land in its page first, then row b attends to its
+    positions [0, pos[b]] through its table -- so live rows' outputs equal
+    the row cache's.  Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    positions = pos[:, None]
+    q, k, v = _qkv(params, x, positions, cfg)              # q: (B, 1, H, hd)
+    _page_write(cache, k, v, tables, positions,
+                wmask=None if wmask is None else wmask[:, None])
+    out = paged_decode_attention(q[:, 0], cache.k, cache.v, tables,
+                                 pos)[:, None]
+    return _out(params, out, x), cache
+
+
+def insert_pages(cache: PagedKV, rows: KVCache, tables) -> PagedKV:
+    """Admission: scatter freshly prefilled cache rows (B, Hkv, S, hd)
+    into the shared pool through (B, P) page tables (S == P*page), IN
+    PLACE.  Dead table entries point at the park page, so the
+    unconditional all-P scatter parks the rows' zero tails instead of
+    touching anyone's pages.  Only the named pages change."""
+    B, Hkv, S, hd = rows.k.shape
+    P = tables.shape[1]
+    page = cache.k.shape[2]
+    if S != P * page:
+        raise ValueError(f"row length {S} != {P} pages x {page}")
+    t = tables.long()
+
+    def paged_view(r):                     # (B, P, Hkv, page, hd)
+        return r.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
+
+    cache.k[t] = paged_view(rows.k).to(cache.k.dtype)
+    cache.v[t] = paged_view(rows.v).to(cache.v.dtype)
+    return cache

@@ -1,0 +1,599 @@
+"""Serving execution layer: continuous-batching step engine + batch loops.
+
+The core abstraction is ``StepEngine`` — a persistent, fixed-shape decode
+batch advanced one token at a time:
+
+  * ``DecodeState``  — slot-pooled KV cache (one cache row per slot, or
+                       per-slot page tables over one shared page pool) +
+                       per-slot token/position, with a free-list over slots
+  * ``admit``        — prefill a prompt into a free slot's cache row
+                       (``LM.insert_cache_rows``: only that row changes) or
+                       into its own pages (``LM.insert_cache_pages``)
+  * ``step``         — one decode step for every live slot; per-request
+                       positions go down to the attention kernel as a
+                       ``(B,)`` vector
+  * retirement       — EOS / step-limit frees the slot back to the pool
+
+Requests join, leave, and (one level up, in ``serve/scheduler.py``) switch
+model contexts at *step* boundaries — the paper's hide-the-load principle
+at token granularity instead of batch granularity.
+
+``ServingEngine`` keeps the classic run-to-completion API; ``generate`` is
+a thin wrapper that admits the whole batch into a ``StepEngine`` and steps
+it to completion.  Sampling is ``argmax(logits / T + gumbel)`` (greedy at
+T == 0); the gumbel fields come from a ``GumbelDraws`` object, which tests
+may replace to inject another framework's draws.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.env import synchronize
+from repro_torch.models.model import LM
+from repro_torch.serve.pool import Generation, PagePool, SlotPool
+from repro_torch.serve.telemetry import Telemetry, safe_ratio
+
+__all__ = ["DecodeState", "EngineKey", "Generation", "GumbelDraws",
+           "PagePool", "ServeStats", "ServingEngine", "SlotPool",
+           "StepEngine"]
+
+_M64 = (1 << 64) - 1
+
+
+def _mix(*xs: int) -> int:
+    """Deterministic 63-bit seed from a sequence of ints (splitmix64
+    finalizer chained over the inputs): the port's stand-in for JAX's
+    ``fold_in`` key derivation."""
+    h = 0x9E3779B97F4A7C15
+    for x in xs:
+        h = (h ^ (int(x) & _M64)) & _M64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _M64
+        h ^= h >> 31
+    return h & ((1 << 63) - 1)
+
+
+class GumbelDraws:
+    """The step engine's random draws, as explicit torch generator state.
+
+    The schedule is the JAX engine's, with ``_mix`` for ``fold_in``:
+
+      * ``reset(seed)`` — key := seed, t := 0
+      * ``advance()``   — every decode step: key := mix(key, t), t += 1;
+                          returns the step's key
+      * ``admit_key()`` — an admission draws from the current key at
+                          t == 0 and from mix(key, 2^30 ^ t) afterwards
+                          (a slot retired by step t-1 and recycled here
+                          must not hand the newcomer the old occupant's
+                          last gumbel row)
+      * ``salt()``      — after an instant retire: key := mix(key, 2^30 | t)
+      * ``field(key, shape)``          — the gumbel field of one key
+      * ``rows(seeds, produced_at, V)`` — seeded rows: row i draws from
+                          mix(seeds[i], produced_at[i]), independent of
+                          slot, admission boundary and pool traffic
+
+    A field is drawn with a ``torch.Generator`` on the engine's device
+    seeded from the key.  Tests subclass this to feed the JAX engine's
+    own gumbel fields (torch and JAX generators differ)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.reset(0)
+
+    def reset(self, seed: int):
+        self.key = _mix(seed)
+        self.t = 0
+
+    def advance(self):
+        self.key = _mix(self.key, self.t)
+        self.t += 1
+        return self.key
+
+    def admit_key(self):
+        return self.key if self.t == 0 else _mix(self.key, (1 << 30) ^ self.t)
+
+    def salt(self):
+        self.key = _mix(self.key, (1 << 30) | self.t)
+
+    def field(self, key, shape) -> torch.Tensor:
+        gen = torch.Generator(device=self.device).manual_seed(int(key))
+        u = torch.rand(shape, generator=gen, device=self.device)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+    def rows(self, seeds, produced_at, V: int) -> torch.Tensor:
+        return torch.stack([self.field(_mix(_mix(s), p), (V,))
+                            for s, p in zip(seeds, produced_at)])
+
+
+def _sample(logits, temperature: float, gumbel=None) -> torch.Tensor:
+    """The sampling rule: greedy argmax at ``temperature <= 0``, else
+    ``argmax(logits / temperature + gumbel)`` with ``gumbel`` a field of
+    logits' shape (the Gumbel-max form of a categorical draw)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.argmax(logits / temperature + gumbel,
+                        dim=-1).to(torch.int32)
+
+
+class EngineKey(NamedTuple):
+    """Frozen cache key for ONE step-engine configuration: every knob that
+    changes the cache layout is a named field.  ``page_size is None``
+    means the row cache layout (``paged=False``)."""
+    name: Optional[str] = None          # model context (None: single-model)
+    batch_size: int = 1
+    page_size: Optional[int] = None     # None == row layout (paged off)
+
+
+class ServeStats:
+    """Run-to-completion loop accounting, stored in the shared
+    ``MetricRegistry`` (``serve.*`` under a server) so one snapshot sees
+    the batch loops next to the step engines and the context engine."""
+
+    __slots__ = ("_v",)
+    _FLOATS = ("prefill_s", "decode_s")
+
+    def __init__(self, view=None):
+        if view is None:
+            view = Telemetry().view()
+        object.__setattr__(self, "_v", view)
+        for k in self._FLOATS:
+            view.setdefault(k, 0.0)
+        view.setdefault("tokens", 0)
+
+    def __getattr__(self, k):
+        try:
+            return self._v[k]
+        except KeyError:
+            raise AttributeError(k) from None
+
+    def __setattr__(self, k, v):
+        self._v[k] = v
+
+    @property
+    def tok_per_s(self) -> float:
+        return safe_ratio(self._v["tokens"], self._v["decode_s"])
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching step engine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DecodeState:
+    """The batch state.  ``caches`` live on the device and are written in
+    place; the per-slot columns are host arrays (uploaded per step, a few
+    bytes per row) so the host never waits on the device to read them.
+
+    ``rseed``/``seeded`` are the per-request seed column: a seeded slot
+    draws from its own generator state (``GumbelDraws.rows``) folded with
+    the position of the token being produced instead of the pool
+    schedule, so a seeded resubmission reproduces its tokens exactly
+    regardless of which slot it lands in or what else shares the pool."""
+    caches: Any            # per layer: KVCache (B, ...) or PagedKV (NP, ...)
+    tok: np.ndarray        # (B,) int32 — last sampled token per slot
+    pos: np.ndarray        # (B,) int32 — cache position `tok` is fed at
+    rseed: np.ndarray      # (B,) int64 — per-slot request seed
+    seeded: np.ndarray     # (B,) bool — slot draws from rseed, not the pool
+    table: np.ndarray      # (B, P) int32 — per-slot page table (paged)
+    table_dev: Optional[torch.Tensor] = None   # device copy of ``table``
+
+
+_NOT_PORTED = ("prefill_chunk", "multi_step", "quantize_kv", "prefix_cache",
+               "bank", "shards", "mesh", "local_read")
+
+
+class StepEngine(SlotPool):
+    """Continuous-batching decode engine for one model context.
+
+    Fixed batch shape ``batch_size``; requests occupy slots.  The engine
+    is deliberately un-timed and thread-free: callers (the classic
+    ``generate`` wrapper, the token-granular ``ContinuousScheduler``)
+    decide when to step, when to switch contexts, and what to measure.
+
+    ``params`` is passed per call: under the context-switching server the
+    weights live in a ``ContextSwitchEngine`` slot that may be evicted and
+    reloaded between steps; the engine never captures them.
+
+    ``paged=True`` swaps the row-granular cache for a *paged slot pool*:
+    one shared bank of ``num_pages`` pages of ``page_size`` tokens, each
+    admitted row owning only the ``ceil((S+max_new-1)/page)`` pages its
+    own lifetime needs, and a per-slot page table mapping positions onto
+    pool pages (down to the ``paged_attention`` kernel).  ``num_pages``
+    defaults to ``batch_size * max_len/page_size + 1`` (the row layout's
+    capacity); a smaller bank serves more concurrent short requests in
+    the same memory (admission gates on ``can_admit``: free slots AND free
+    pages).  Retirement returns pages; non-live rows' per-step writes go
+    to the park page so a freed page can be recycled at once.  Sampling
+    never sees the cache layout, so paged and row streams are identical.
+
+    The JAX engine's other options — ``prefill_chunk``, ``multi_step``,
+    ``quantize_kv``, ``prefix_cache``, ``bank``, ``shards``/``mesh``/
+    ``local_read`` — are not ported yet and raise ``NotImplementedError``.
+    """
+
+    def __init__(self, model: LM, batch_size: int, max_len: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 eos_id: Optional[int] = None,
+                 paged: bool = False, page_size: int = 256,
+                 num_pages: Optional[int] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 sampler: Optional[GumbelDraws] = None,
+                 prefill_chunk: Optional[int] = None, multi_step: int = 1,
+                 quantize_kv: Optional[str] = None,
+                 prefix_cache: bool = False, bank=None,
+                 shards: Optional[int] = None, mesh=None,
+                 local_read: bool = False):
+        unported = dict(prefill_chunk=prefill_chunk is not None,
+                        multi_step=multi_step != 1,
+                        quantize_kv=quantize_kv is not None,
+                        prefix_cache=bool(prefix_cache),
+                        bank=bank is not None,
+                        shards=shards not in (None, 1),
+                        mesh=mesh is not None, local_read=bool(local_read))
+        asked = [k for k in _NOT_PORTED if unported[k]]
+        if asked:
+            raise NotImplementedError(
+                f"StepEngine option(s) {asked} are not yet ported to "
+                "repro_torch")
+        self.model = model
+        self.device = model.device
+        telemetry = telemetry if telemetry is not None else Telemetry()
+        self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        self.eos_id = eos_id
+        self.sampler = sampler if sampler is not None else GumbelDraws(
+            model.device)
+
+        self.paged = paged
+        if paged:
+            page_size = min(page_size, max_len)
+            if max_len % page_size:
+                raise ValueError(
+                    f"page_size {page_size} must divide max_len "
+                    f"{max_len}: a row's virtual space is a whole number "
+                    "of pages (and the gathered view must equal the row "
+                    "cache elementwise for the identity guarantees)")
+            self.page_size = page_size
+            self.pages_per_row = max_len // page_size
+            if num_pages is None:
+                num_pages = batch_size * self.pages_per_row + 1
+            if num_pages - 1 < self.pages_per_row:
+                raise ValueError(
+                    f"num_pages {num_pages} cannot hold one worst-case "
+                    f"row ({self.pages_per_row} pages) plus the reserved "
+                    "park page")
+            self.num_pages = num_pages
+            self._pages = PagePool(num_pages, telemetry=telemetry)
+        else:
+            self.page_size = None
+            self.pages_per_row = 0
+            self.num_pages = 0
+            self._pages = None
+
+        # Execution hook: when set, every device program runs as
+        # ``runner(fn, params, *args)`` — the continuous scheduler points
+        # this at ``ContextSwitchEngine.run_step`` so steps execute
+        # against the ACTIVE slot's buffers with hidden-load accounting.
+        self.runner = None
+
+        self.state: Optional[DecodeState] = None
+        self._pool_init(batch_size, telemetry=telemetry)
+        self.reset()
+
+    # ------------------------------------------------------------- lifecycle
+    def reset(self, seed: Optional[int] = None):
+        """Empty pool + restarted draw schedule.  Cache buffers are reused
+        when they exist: a freed slot's stale row is dead weight that the
+        next admission overwrites in full (a freed page is rewritten
+        before any of its positions is read), so only the first reset
+        pays the allocation."""
+        B = self.batch_size
+        if self._pages is not None:
+            self._pages.reset()
+        caches = self.state.caches if self.state is not None else None
+        if caches is None:
+            caches = (self.model.init_page_pool(self.num_pages,
+                                                self.page_size)
+                      if self.paged else
+                      self.model.init_cache(B, self.max_len))
+        table = np.zeros((B, self.pages_per_row), np.int32)
+        self.state = DecodeState(
+            caches=caches, tok=np.zeros((B,), np.int32),
+            pos=np.zeros((B,), np.int32), rseed=np.zeros((B,), np.int64),
+            seeded=np.zeros((B,), bool),
+            # every table entry must be a valid pool index; park (0) is
+            # the safe default — empty slots read/write garbage space
+            table=table,
+            table_dev=(torch.from_numpy(table).to(self.device)
+                       if self.paged else None))
+        self.sampler.reset(self.seed if seed is None else seed)
+        self._pool_reset()
+
+    def _call(self, fn, params, *args):
+        if self.runner is None:
+            return fn(params, *args)
+        return self.runner(fn, params, *args)
+
+    # -------------------------------------------------------------- queries
+    def free_pages(self) -> int:
+        return self._pages.free_pages() if self.paged else 0
+
+    def pages_needed(self, prompt_len: int, max_new: int) -> int:
+        """Pages one row needs for its whole lifetime: positions
+        ``0 .. prompt_len + max_new - 2`` are written/read (the final
+        sampled token is never fed back)."""
+        return max(1, -(-(prompt_len + max_new - 1) // self.page_size))
+
+    def can_admit(self, tokens, max_new: int) -> bool:
+        if not super().can_admit(tokens, max_new):
+            return False                 # super set last_admit_block
+        if not self.paged:
+            return True
+        tokens = np.asarray(tokens)
+        b, S = (1, tokens.shape[0]) if tokens.ndim == 1 else tokens.shape
+        ok = b * self.pages_needed(S, max_new) <= self._pages.free_pages()
+        self.last_admit_block = None if ok else "pages"
+        return ok
+
+    # ------------------------------------------------------ page allocation
+    def _take_pages(self, b: int, S: int, max_new: int):
+        """Allocate each admitted row its pages and build the (b, P)
+        tables (unused tail entries point at the park page).  Returns
+        (tables, flat page list for failure restore)."""
+        npages = self.pages_needed(S, max_new)
+        pages = self._pages.take(b * npages)
+        tables = np.full((b, self.pages_per_row), PagePool.PARK, np.int32)
+        for i in range(b):
+            tables[i, :npages] = pages[i * npages:(i + 1) * npages]
+        return tables, pages
+
+    # ------------------------------------------------------- device programs
+    def _admit_fn(self, params, tokens, slots, tables, rseeds, seeded):
+        """Prefill (b, S) prompts into cache rows `slots` (paged: into the
+        rows' own pages through ``tables``) and sample their first tokens
+        from the admission draw; row r of a (B, V) field indexed by slot,
+        so a single-row admission in a half-full batch samples the same
+        token it would in a full batched prefill.  Seeded rows draw from
+        their own generator (folded with S: the first token is produced
+        at position S).  Sampling never sees the cache layout."""
+        st, model, T = self.state, self.model, self.temperature
+        b, S = tokens.shape
+        logits, rows = model.prefill(params, tokens, self.max_len)
+        last = logits[:, -1]                                  # (b, V) f32
+        g = None
+        if T > 0.0:
+            V = last.shape[-1]
+            g = self.sampler.field(self.sampler.admit_key(),
+                                   (self.batch_size, V))
+            g = g[torch.as_tensor(slots, device=g.device)]
+            if seeded.any():
+                idx = np.nonzero(seeded)[0]
+                g[torch.as_tensor(idx, device=g.device)] = self.sampler.rows(
+                    rseeds[idx], [S] * len(idx), V)
+        first = _sample(last, T, g).cpu().numpy()
+        if self.paged:
+            model.insert_cache_pages(st.caches, rows, tables)
+            st.table[slots] = tables
+            st.table_dev[torch.as_tensor(slots, device=self.device).long()
+                         ] = torch.from_numpy(tables).to(self.device)
+        else:
+            model.insert_cache_rows(st.caches, rows, slots)
+        st.tok[slots] = first
+        st.pos[slots] = S
+        st.rseed[slots] = rseeds
+        st.seeded[slots] = seeded
+        return first
+
+    def _step_fn(self, params, live):
+        """One decode step for the whole batch; ``live`` ((B,) bool) rows
+        advance, the others park (paged: their writes go to the park
+        page; row: to their own dead row at slot ``min(pos, S-1)``)."""
+        st, model, T = self.state, self.model, self.temperature
+        dev = self.device
+        tok = torch.from_numpy(st.tok[:, None]).to(dev)
+        pos = torch.from_numpy(st.pos).to(dev)
+        if self.paged:
+            logits, _ = model.decode_step_pages(
+                params, st.caches, tok, pos, st.table_dev,
+                live=torch.from_numpy(live).to(dev))
+        else:
+            logits, _ = model.decode_step(params, st.caches, tok, pos)
+        last = logits[:, -1]
+        key = self.sampler.advance()
+        g = None
+        if T > 0.0:
+            B, V = last.shape
+            g = self.sampler.field(key, (B, V))
+            sl = st.seeded & live
+            if sl.any():
+                idx = np.nonzero(sl)[0]
+                g[torch.as_tensor(idx, device=g.device)] = self.sampler.rows(
+                    st.rseed[idx], st.pos[idx] + 1, V)
+        nxt = _sample(last, T, g).cpu().numpy()
+        st.tok = nxt.astype(np.int32)
+        st.pos = np.minimum(np.where(live, st.pos + 1, st.pos),
+                            self.max_len - 1).astype(np.int32)
+        return nxt
+
+    # ------------------------------------------------------------- admission
+    def admit(self, params, tokens, max_new: int,
+              metas: Optional[list] = None,
+              seeds: Optional[list] = None,
+              submitted_at: Optional[float] = None) -> list[Generation]:
+        """Admit (b, S) prompt rows into b free slots: prefill + first
+        token in one whole-prompt program.  Raises if the pool lacks room
+        or the request would run past the cache; callers gate on
+        ``can_admit``.
+
+        ``seeds``: optional per-row sampling seeds — ``None`` entries keep
+        the pool's shared draw schedule; an int pins that row to its own
+        generator state, making its draws reproducible independent of
+        slot, admission boundary, and surrounding traffic.
+        """
+        tokens, rseeds, seeded = self._admit_args(tokens, metas, seeds)
+        b, S = tokens.shape
+        if S + max_new > self.max_len:
+            raise ValueError(f"prompt {S} + {max_new} new tokens exceeds "
+                             f"max_len {self.max_len}")
+        slots = self._take_slots(b)
+        tables, pages = None, []
+        if self.paged:
+            try:
+                tables, pages = self._take_pages(b, S, max_new)
+            except BaseException:
+                self._restore_slots(slots)
+                raise
+        try:
+            first = self._call(self._admit_fn, params, tokens,
+                               np.asarray(slots, np.int64), tables, rseeds,
+                               seeded)
+        except BaseException:
+            self._restore_slots(slots)   # failed admit must not leak slots
+            if pages:                    # nor pages (front, original order)
+                self._pages.restore(pages)
+            raise
+        gens = self._register(slots, S, max_new, metas, first=first,
+                              submitted_at=submitted_at)
+        if self.paged:
+            npages = self.pages_needed(S, max_new)
+            for i, g in enumerate(gens):
+                g.pages = pages[i * npages:(i + 1) * npages]
+        if self._retire_done(gens):
+            # a slot freed with no step in between (steps==1 / EOS at
+            # admission): advance the draws so a same-boundary
+            # re-admission of that slot cannot reuse this draw field.
+            self._salt_admit_key()
+        return gens
+
+    # ----------------------------------------------------------- retirement
+    def _retire_done(self, gens: list[Generation]) -> list[Generation]:
+        """Retire finished rows AND release their pages (FIFO: to the
+        back of the page free-list).  No device-side table reset is
+        needed: the retired slot stops being ``live``, so its per-step
+        writes route to the park page from the next step on."""
+        finished = super()._retire_done(gens)
+        if self.paged:
+            for g in finished:
+                if g.pages:
+                    self._pages.release(g.pages)
+                    g.pages = None
+        return finished
+
+    # ---------------------------------------------------------------- step
+    def step(self, params) -> list[Generation]:
+        """One engine tick: one decode step for every live slot.  Returns
+        the generations that finished (EOS or step limit) at this
+        boundary; their slots are already back on the free-list."""
+        if not self._live.any():
+            return []
+        t0 = self.telemetry.clock()
+        nxt = self._call(self._step_fn, params, self._live.copy())
+        now = self.telemetry.clock()
+        self.stats["host_ticks"] += 1
+        self.stats["device_steps"] += 1
+        stepped = []
+        for s in range(self.batch_size):
+            g = self.slots[s]
+            if g is None or not self._live[s]:
+                continue
+            g.tokens.append(int(nxt[s]))
+            stepped.append(g)
+        self.stats["tokens_out"] += len(stepped)
+        self._note_tick(t0, now, 1, len(stepped))
+        return self._retire_done(stepped)
+
+
+# ---------------------------------------------------------------------------
+# classic run-to-completion engine (wrappers over StepEngine)
+# ---------------------------------------------------------------------------
+
+class ServingEngine:
+    def __init__(self, model: LM, params, max_len: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 telemetry: Optional[Telemetry] = None):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.stats = ServeStats(self.telemetry.view())
+        self._eng_seq = 0            # per-engine metric namespace counter
+        # Per-(batch, layout) engine cache, LRU-bounded: each entry pins a
+        # full KV pool, so traffic with many distinct batch shapes must
+        # not accumulate pools without limit.
+        self.max_cached_pools = 4
+        self._step_engines: "OrderedDict[EngineKey, StepEngine]" = (
+            OrderedDict())
+
+    def step_engine(self, batch_size: int, paged: bool = False,
+                    page_size: int = 256) -> StepEngine:
+        """The continuous-batching engine behind ``generate`` /
+        ``generate_paged`` (cached per (batch shape, page layout); least
+        recently used idle keys beyond ``max_cached_pools`` are dropped to
+        free their KV pools)."""
+        key = EngineKey(batch_size=batch_size,
+                        page_size=page_size if paged else None)
+        eng = self._step_engines.get(key)
+        if eng is None:
+            eng = StepEngine(self.model, batch_size, self.max_len,
+                             temperature=self.temperature, seed=self.seed,
+                             paged=paged, page_size=page_size,
+                             telemetry=self.telemetry.scoped(
+                                 f"eng.{self._eng_seq}."))
+            self._eng_seq += 1
+            self._step_engines[key] = eng
+        self._step_engines.move_to_end(key)
+        if len(self._step_engines) > self.max_cached_pools:
+            for b in [b for b, e in self._step_engines.items()
+                      if e is not eng and not e.live_slots()]:
+                if len(self._step_engines) <= self.max_cached_pools:
+                    break
+                del self._step_engines[b]
+        return eng
+
+    def _run(self, eng: StepEngine, tokens, steps: int,
+             seed: Optional[int]) -> np.ndarray:
+        B = tokens.shape[0]
+        t0 = self.telemetry.clock()
+        eng.reset(seed=self.seed if seed is None else seed)
+        gens = eng.admit(self.params, tokens, max_new=steps)
+        synchronize(self.model.device)
+        self.stats.prefill_s += self.telemetry.clock() - t0
+
+        t0 = self.telemetry.clock()
+        while eng.live_slots():
+            eng.step(self.params)
+        synchronize(self.model.device)
+        self.stats.decode_s += self.telemetry.clock() - t0
+        self.stats.tokens += B * steps
+        return np.stack([np.asarray(g.tokens, np.int32) for g in gens])
+
+    def generate(self, tokens, steps: int,
+                 seed: Optional[int] = None) -> np.ndarray:
+        """tokens: (B, S) prompt; returns (B, steps) generated ids.
+
+        Thin wrapper over ``StepEngine``: the whole batch is admitted at
+        t=0 and stepped to completion — the degenerate (static-batch) case
+        of continuous batching, with identical sampling draws."""
+        tokens = np.asarray(tokens)
+        return self._run(self.step_engine(tokens.shape[0]), tokens, steps,
+                         seed)
+
+    def generate_paged(self, tokens, steps: int, page: int = 256,
+                       seed: Optional[int] = None) -> np.ndarray:
+        """Paged-cache decode loop — the same wrapper over
+        ``StepEngine(paged=True)``: the whole batch is admitted at t=0
+        into per-slot page tables over one shared page pool.  Identical
+        outputs to ``generate``."""
+        tokens = np.asarray(tokens)
+        eng = self.step_engine(tokens.shape[0], paged=True,
+                               page_size=min(page, self.max_len))
+        return self._run(eng, tokens, steps, seed)

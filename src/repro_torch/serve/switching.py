@@ -1,0 +1,185 @@
+"""Context-switching serving — the paper's architecture applied to the
+serving tier.
+
+``SwitchableServer`` keeps N model contexts behind a ``ContextSwitchEngine``:
+the active model serves batched requests while the next model's weights
+stream into the shadow slot; switching models is an O(1) activation flip.
+Which context loads/evicts when is decided by the engine's shared
+``ReconfigPolicy`` — the same object the analytical simulator runs.
+
+One ``ServingEngine`` is cached per context and one ``StepEngine`` per
+(context, pool shape); sampling threads a fresh per-request seed so
+temperature>0 requests are independent draws.  The JAX package's
+speculative engines, shared page banks and state snapshots are not
+ported yet.
+
+For request-level scheduling (queueing, coalescing, shadow-slot prefetch
+under mixed traffic) see ``repro_torch.serve.scheduler``.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+
+from repro_torch.core.context import ContextDescriptor, ContextSwitchEngine
+from repro_torch.core.policy import ReconfigPolicy
+from repro_torch.models.model import LM
+from repro_torch.serve.engine import (EngineKey, GumbelDraws, ServingEngine,
+                                      StepEngine, _sample)
+from repro_torch.serve.telemetry import Telemetry
+
+
+@dataclass
+class ServedModel:
+    name: str
+    model: LM
+    weights_fn: Callable[[], Any]
+    max_len: int = 256
+    temperature: float = 0.0
+
+
+class SwitchableServer:
+    def __init__(self, num_slots: int = 2, device=None,
+                 policy: Optional[ReconfigPolicy] = None,
+                 telemetry: Optional[Telemetry] = None):
+        # one shared registry/tracer/clock for the whole serving stack:
+        # the context engine writes ``ctx.*``, each pooled engine gets
+        # ``eng.<i>.*``, schedulers write ``sched.*``, and request-level
+        # histograms land unprefixed — one snapshot sees every layer
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.engine = ContextSwitchEngine(num_slots=num_slots, device=device,
+                                          policy=policy,
+                                          telemetry=self.telemetry)
+        self.device = self.engine.device
+        self._served: dict[str, ServedModel] = {}
+        self._engines: dict[str, ServingEngine] = {}   # one per context
+        self._step_engines: dict[EngineKey, StepEngine] = {}
+        self._eng_seq = itertools.count()   # telemetry namespace ids
+        self._req_seq = itertools.count()
+        self.log: list[dict] = []
+
+    # ------------------------------------------------------------------
+    def register(self, sm: ServedModel):
+        if sm.model.device != self.device:
+            raise ValueError(f"model {sm.name!r} lives on "
+                             f"{sm.model.device}, the server on "
+                             f"{self.device}")
+        self._served[sm.name] = sm
+
+        def apply_fn(params, tokens, seed):
+            """One-token service: prefill + the first token, sampled from
+            the same draw a fresh engine's t=0 admission makes."""
+            logits, _ = sm.model.prefill(params, tokens, sm.max_len)
+            last = logits[:, -1]
+            g = None
+            if sm.temperature > 0.0:
+                draws = GumbelDraws(sm.model.device)
+                draws.reset(seed)
+                g = draws.field(draws.admit_key(), tuple(last.shape))
+            return _sample(last, sm.temperature, g).cpu().numpy()
+
+        self.engine.register(ContextDescriptor(
+            name=sm.name, apply_fn=apply_fn, weights_fn=sm.weights_fn))
+
+    def served(self) -> list[str]:
+        return list(self._served)
+
+    def preload(self, name: str, block: bool = False):
+        return self.engine.preload(name, block=block)
+
+    def next_seed(self) -> int:
+        """Monotonic per-request sampling seed (identical prompts at
+        temperature>0 must be independent draws, not clones)."""
+        return next(self._req_seq)
+
+    def _serving_engine(self, name: str, params) -> ServingEngine:
+        """Per-context ServingEngine cache: reused across every request
+        and every switch — only the params pointer is refreshed (the slot
+        may have been evicted and reloaded since)."""
+        eng = self._engines.get(name)
+        if eng is None:
+            sm = self._served[name]
+            eng = ServingEngine(sm.model, params, sm.max_len, sm.temperature,
+                                telemetry=self.telemetry.scoped(
+                                    f"eng.{next(self._eng_seq)}."))
+            self._engines[name] = eng
+        else:
+            eng.params = params
+        return eng
+
+    def step_engine(self, name: str, batch_size: int, paged: bool = False,
+                    page_size: int = 256) -> StepEngine:
+        """Per-context continuous-batching engine (one per pool shape).
+        Its decode state — slot-pooled KV rows or pages, positions,
+        free-list — persists across context switches, so a paused context
+        resumes exactly where its last step left off; weights are NOT
+        captured (every call runs against the engine slot's current
+        buffers via the scheduler's runner hook)."""
+        sm = self._served[name]
+        eff_ps = min(page_size, sm.max_len) if paged else None
+        key = EngineKey(name=name, batch_size=batch_size, page_size=eff_ps)
+        eng = self._step_engines.get(key)
+        if eng is None:
+            eng = StepEngine(sm.model, batch_size, sm.max_len,
+                             temperature=sm.temperature, paged=paged,
+                             page_size=page_size,
+                             telemetry=self.telemetry.scoped(
+                                 f"eng.{next(self._eng_seq)}."))
+            self._step_engines[key] = eng
+        return eng
+
+    # ------------------------------------------------------------------
+    def serve_batch(self, name: str, tokens, steps: int = 1,
+                    seed: Optional[int] = None) -> np.ndarray:
+        """Serve one batch on `name`, switching contexts if needed.
+
+        The switch is O(1) when `name` is resident (paper case 2); if it is
+        still loading, the visible stall is only the *remaining* load time
+        (paper case 3 — reconfiguration partially hidden).
+        """
+        t0 = self.telemetry.clock()
+        if seed is None:
+            seed = self.next_seed()
+        active = self.engine.active
+        if active is not None and active.name == name:
+            sw = 0.0                         # already selected: no flip
+        else:
+            self.engine.preload(name)        # no-op if resident
+            sw = self.engine.switch(name, wait=True)
+        slot = self.engine.active
+        tokens = np.asarray(tokens)
+        if steps == 1:
+            out = self.engine.run(tokens, seed)
+        else:
+            eng = self._serving_engine(name, slot.buffers)
+            out = eng.generate(tokens, steps, seed=seed)
+        self.log.append({"name": name, "switch_s": sw,
+                         "total_s": self.telemetry.clock() - t0,
+                         "batch": int(tokens.shape[0]),
+                         "steps": steps, "seed": seed})
+        return out
+
+    def serve_stream(self, requests: list[tuple[str, Any]],
+                     lookahead: bool = True) -> list[np.ndarray]:
+        """Serve a stream of (model_name, batch) requests.
+
+        With ``lookahead`` the policy streams the next needed model into
+        the shadow slot while the current batch executes — the paper's
+        dynamic reconfiguration (victim choice and all, via
+        ``engine.prefetch``; no inline slot logic here).
+        """
+        outs = []
+        for i, (name, toks) in enumerate(requests):
+            self.engine.preload(name)
+            self.engine.switch(name, wait=True)
+            if lookahead:
+                self.engine.prefetch([n for n, _ in requests[i + 1:]],
+                                     limit=1)   # hidden behind this batch
+            outs.append(self.serve_batch(name, toks))
+        return outs
+
+    def shutdown(self):
+        self.engine.shutdown()
