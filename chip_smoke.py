@@ -8,23 +8,29 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. setup    — the card's name and power limit (nvidia-smi), then every
                 hand-written kernel built from the sources in this
                 checkout (one nvcc per source, all in parallel).
-  2. kernels  — each kernel at the main path's shapes (tinyllama-1.1b:
-                H=32, Hkv=4, hd=64, bf16) against its plain PyTorch version
-                on the card (max abs error within 2e-2), timed with CUDA
-                events beside its plain version, one
+  2. kernels  — each kernel body at the main path's shapes (tinyllama-1.1b:
+                H=32, Hkv=4, hd=64, bf16; the verify bodies at chunk
+                width 128, the tree mask at 8) against its plain PyTorch
+                version on the card (max abs error within 2e-2), timed
+                with CUDA events beside its plain version, one masked
                 ``scaled_dot_product_attention`` call for the same work
                 (timed only; the port never calls it) and its bound.
   3. reference — each served model at full width, cut to one layer, on
-                the card (kernels, bf16): ``forward`` and one row and one
-                paged decode step held against the plain path on the CPU
-                in float32 on the same weights.
+                the card (kernels, bf16): ``forward``, one row and one
+                paged decode step, chunked prefill on the row cache and
+                on a page pool, and one decode step over an int8 pool,
+                held against the plain path on the CPU in float32 on the
+                same weights.  Then, logged only, how far an int8 pool
+                moves the full-depth tinyllama-1.1b's logits.
   4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
                 supersub-super at their published widths, requests
                 alternating contexts, through ContinuousScheduler(paged),
-                ContinuousScheduler(row) and SwitchScheduler.  Every
-                request must resolve with the right shape, and each
-                kernel's launch count (zeroed right before a pass) must
-                rise in the pass that uses it.
+                ContinuousScheduler(row), SwitchScheduler, and
+                ContinuousScheduler with chunked prefill (C=128) on the
+                row cache, on a page pool and on an int8 page pool.
+                Every request must resolve with the right shape, and each
+                kernel body's launch count (zeroed right before a pass)
+                must rise in the pass that uses it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
                 (row and paged, 8 rows): step wall time, device kernel
                 time and busy share, top kernels (torch.profiler).
@@ -51,6 +57,7 @@ H, HKV, HD = 32, 4, 64       # tinyllama-1.1b attention
 PROMPT_LENS = (128, 512)     # serving prompt range
 NEW_TOKENS = 32
 N_REQUESTS = 8
+CHUNK = 128                  # chunked-prefill width of the serving passes
 
 
 def log(msg: str) -> None:
@@ -96,7 +103,11 @@ def kernel_phase(dev) -> list[dict]:
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          mha_reference)
     from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_decode_attention, paged_decode_reference)
+        gather_pages, paged_decode_attention, paged_decode_reference,
+        paged_verify_attention, paged_verify_reference)
+    from repro_torch.kernels.verify_attention.ops import (verify_attention,
+                                                          verify_reference)
+    from repro_torch.models.layers import PagedKV, _gather_dequant
 
     gen = torch.Generator(device=dev).manual_seed(0)
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -189,6 +200,117 @@ def kernel_phase(dev) -> list[dict]:
                q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
                flush=flush),
            nbytes, flops)
+    # int8 paged decode: the same rows, codes and per-token scales
+    def int8_pool(n):
+        codes = torch.randint(-127, 128, (n, HKV, page, HD), generator=gen,
+                              device=dev, dtype=torch.int8)
+        return codes, torch.rand((n, HKV, page), generator=gen,
+                                 device=dev) / 64
+
+    (kq, ks), (vq, vs) = int8_pool(NP), int8_pool(NP)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    got = paged_decode_attention(q, kq, vq, table, pos, **i8)
+    ref = paged_decode_reference(q, kq, vq, table, pos, **i8)
+    kd, vd = _gather_dequant(PagedKV(kq, vq, ks, vs), table, torch.bfloat16)
+    nbytes = 2 * 2 * q.numel() + 4 * B + 4 * B * P + \
+        2 * (HD + 4) * live * HKV           # codes + one f32 scale a row
+    record("paged_decode_attention_int8",
+           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
+           time_ms(lambda: paged_decode_attention(q, kq, vq, table, pos,
+                                                  **i8), flush=flush),
+           time_ms(lambda: paged_decode_reference(q, kq, vq, table, pos,
+                                                  **i8), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True),
+               flush=flush),
+           nbytes, flops)
+
+    # verify (chunked prefill): B=4 rows, a K=128 chunk each at positions
+    # 0, mid-page, a page boundary and mid second page; pages of 256
+    B, K = 4, CHUNK
+    vpos = torch.tensor([0, 100, 256, 384], dtype=torch.int32, device=dev)
+    P = 3
+    S = P * page                                             # 768 slots
+    NP = B * P + 1
+    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
+    vtable = ids.reshape(B, P).to(torch.int32)
+    dead = torch.arange(P, device=dev)[None, :] * page >= vpos[:, None] + K
+    vtable = torch.where(dead, torch.zeros_like(vtable), vtable).contiguous()
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    (kq, ks), (vq, vs) = int8_pool(NP), int8_pool(NP)
+    kr, vr = rn(B, HKV, S, HD), rn(B, HKV, S, HD)            # row cache
+    cache_keys = int(vpos.sum())
+
+    def verify_case(Kb, tree=None):
+        qv = rn(B, Kb, H, HD)
+        bk, bv = rn(B, Kb, HKV, HD), rn(B, Kb, HKV, HD)
+        ar = torch.arange(Kb, device=dev)
+        if tree is None:
+            vis = (ar[None, :] <= ar[:, None])[None].expand(B, Kb, Kb)
+        else:
+            vis = ((tree[:, :, None] >> ar[None, None, :]) & 1) == 1
+        cols = torch.arange(S, device=dev)[None, None, :] < vpos[:, None,
+                                                                 None]
+        vmask = torch.cat([cols.expand(B, Kb, S), vis], dim=-1)[:, None]
+        pairs = Kb * cache_keys + int(vis.sum())     # (query, key) pairs
+        flops = 4 * HD * (H // HKV) * HKV * pairs
+        qbytes = 2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
+        if tree is not None:
+            qbytes += 4 * tree.numel()
+        return qv.transpose(1, 2), qv, bk, bv, vmask, flops, qbytes
+
+    def lib(qt, kc, vc, bk, bv, vmask):
+        kall = torch.cat([kc, bk.transpose(1, 2)], dim=2)
+        vall = torch.cat([vc, bv.transpose(1, 2)], dim=2)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kall, vall, attn_mask=vmask, enable_gqa=True)
+
+    paged_src = ("src/repro_torch/kernels/paged_attention/csrc/"
+                 "paged_attention.cu")
+    tree8 = torch.randint(0, 1 << 30, (B, 8), generator=gen, device=dev,
+                          dtype=torch.int32)
+    bit = torch.ones(8, device=dev, dtype=torch.int32) << torch.arange(
+        8, device=dev, dtype=torch.int32)
+    tree8 = ((tree8 & (bit - 1)) | bit).contiguous()   # self + ancestors
+    kgp, vgp = gather_pages(kp, vtable), gather_pages(vp, vtable)
+    kgq, vgq = _gather_dequant(PagedKV(kq, vq, ks, vs), vtable,
+                               torch.bfloat16)
+    for name, Kb, tree, pool, scales, gathered, kv_bytes in (
+            ("paged_verify_attention", K, None, (kp, vp), {}, (kgp, vgp),
+             2 * 2 * HD),
+            ("paged_verify_attention_tree", 8, tree8, (kp, vp), {},
+             (kgp, vgp), 2 * 2 * HD),
+            ("paged_verify_attention_int8", K, None, (kq, vq),
+             dict(k_scale=ks, v_scale=vs), (kgq, vgq), 2 * (HD + 4))):
+        qt, qv, bk, bv, vmask, flops, qbytes = verify_case(Kb, tree)
+        args = (qv, *pool, bk, bv, vtable, vpos)
+        kw = dict(tree=tree, **scales)
+        got = paged_verify_attention(*args, **kw)
+        ref = paged_verify_reference(*args, **kw)
+        nbytes = qbytes + 4 * B * P + kv_bytes * cache_keys * HKV
+        record(name, paged_src,
+               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
+               time_ms(lambda: paged_verify_attention(*args, **kw),
+                       flush=flush),
+               time_ms(lambda: paged_verify_reference(*args, **kw),
+                       flush=flush),
+               time_ms(lib(qt, *gathered, bk, bv, vmask), flush=flush),
+               nbytes, flops)
+
+    qt, qv, bk, bv, vmask, flops, qbytes = verify_case(K)
+    got = verify_attention(qv, kr, vr, bk, bv, vpos)
+    ref = verify_reference(qv, kr, vr, bk, bv, vpos)
+    record("verify_attention",
+           "src/repro_torch/kernels/verify_attention/csrc/"
+           "verify_attention.cu",
+           "src/repro/kernels/verify_attention/kernel.py:113", got, ref,
+           time_ms(lambda: verify_attention(qv, kr, vr, bk, bv, vpos),
+                   flush=flush),
+           time_ms(lambda: verify_reference(qv, kr, vr, bk, bv, vpos),
+                   flush=flush),
+           time_ms(lib(qt, kr, vr, bk, bv, vmask), flush=flush),
+           qbytes + 2 * 2 * HD * cache_keys * HKV, flops)
     del l2
     return out
 
@@ -204,14 +326,18 @@ REF_TOL = 0.1       # relative L2 error of bf16 logits vs float32
 def reference_phase(dev) -> None:
     """Each served model at full width, cut to ``REF_LAYERS`` layer, run
     on the card (bf16 activations, kernels) and on the CPU through the
-    plain path in float32 on the same weights.  Three card paths are held
-    against the CPU forward's logits: ``forward`` (flash kernel), and one
+    plain path in float32 on the same weights.  Six card paths are held
+    against the CPU forward's logits: ``forward`` (flash kernel); one
     decode step after a 47-token prefill through the row cache (decode
-    kernel) and through a page pool with shuffled tables (paged kernel).
-    Each must be finite, of the expected shape, and within ``REF_TOL``
-    relative L2 error.  Why one layer: with random weights, bf16 rounding
-    of the activations grows several-fold per layer, so a deeper check
-    would measure the weights' conditioning, not the port."""
+    kernel), through a page pool with shuffled tables (paged kernel) and
+    through an int8 page pool (its int8 body); and the 48-token prompt
+    streamed in 16-token chunks into the row cache (verify kernel) and
+    into the page pool (paged verify kernel), every chunk's logits
+    compared.  Each must be finite, of the expected shape, and within
+    ``REF_TOL`` relative L2 error.  Why one layer: with random weights,
+    bf16 rounding of the activations grows several-fold per layer, so a
+    deeper check would measure the weights' conditioning, not the
+    port."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, override
@@ -238,11 +364,29 @@ def reference_phase(dev) -> None:
         gpu.insert_cache_pages(pool, rows, tables)
         pos = torch.full((2,), S - 1, dtype=torch.int32, device=dev)
         last = toks[:, S - 1:]
+        pool8 = gpu.init_page_pool(num_pages=9, page=page, quantized=True)
+        gpu.insert_cache_pages(pool8, rows, tables)
         row, _ = gpu.decode_step(params, rows, last, pos)
         paged, _ = gpu.decode_step_pages(params, pool, last, pos, tables)
+        int8, _ = gpu.decode_step_pages(params, pool8, last, pos, tables)
+        crow, cpaged = [], []
+        rows = gpu.init_cache(2, 4 * page)
+        pool = gpu.init_page_pool(num_pages=9, page=page)
+        slots = torch.arange(2, device=dev)
+        for start in range(0, S, 16):
+            chunk = toks[:, start:start + 16]
+            p = torch.full((2,), start, dtype=torch.int32, device=dev)
+            crow.append(gpu.prefill_chunk(params, rows, chunk, p, slots)[0])
+            cpaged.append(gpu.prefill_chunk_pages(params, pool, chunk, p,
+                                                  tables)[0])
         for label, got, want in (("forward", fwd, ref),
                                  ("decode_row", row[:, 0], ref[:, -1]),
-                                 ("decode_paged", paged[:, 0], ref[:, -1])):
+                                 ("decode_paged", paged[:, 0], ref[:, -1]),
+                                 ("decode_paged_int8", int8[:, 0],
+                                  ref[:, -1]),
+                                 ("chunked_row", torch.cat(crow, 1), ref),
+                                 ("chunked_paged", torch.cat(cpaged, 1),
+                                  ref)):
             got = got.float().cpu()
             if got.shape != want.shape:
                 raise AssertionError(f"{name} {label}: shape "
@@ -256,6 +400,47 @@ def reference_phase(dev) -> None:
             if not rel <= REF_TOL:
                 raise AssertionError(f"{name} {label}: card vs CPU float32 "
                                      f"reference rel L2 {rel} > {REF_TOL}")
+
+
+def int8_drift(dev, steps: int = 8) -> None:
+    """Logged, not gated: how far an int8 page pool moves the logits of
+    the full-depth tinyllama-1.1b (random bf16 weights).  One prefill of
+    two 256-token prompts goes into a bf16 and an int8 pool; the bf16
+    greedy stream is teacher-forced through both for ``steps`` decode
+    steps.  Reports the worst logit error over the logit spread and the
+    steps whose greedy picks agree (``test_int8_logit_divergence_bounded``
+    at full size)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models.model import build_model
+
+    cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=5)
+    B, L, page, P = 2, 256, 256, 2
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, L))
+    logits, rows = model.prefill(params, toks, P * page)
+    tables = torch.arange(1, 1 + B * P, dtype=torch.int32,
+                          device=dev).reshape(B, P)
+    pools = [model.insert_cache_pages(
+        model.init_page_pool(1 + B * P, page, quantized=q), rows, tables)
+        for q in (False, True)]
+    tok = logits[:, -1].argmax(-1)
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    worst, same = 0.0, 0
+    for _ in range(steps):
+        lf, lq = (model.decode_step_pages(params, pool, tok[:, None], pos,
+                                          tables)[0][:, -1]
+                  for pool in pools)
+        rel = (lf - lq).abs().amax(-1) / (lf.amax(-1) - lf.amin(-1))
+        worst = max(worst, float(rel.max()))
+        same += int((lf.argmax(-1) == lq.argmax(-1)).all())
+        tok, pos = lf.argmax(-1), pos + 1
+    log(f"reference tinyllama-1.1b int8 pool, teacher-forced "
+        f"({cfg.num_layers} layers, logged only): worst logit error / "
+        f"spread={worst:.4e}, greedy agreement {same}/{steps} steps")
+    del model, params, rows, pools
 
 
 def _tree(fn, tree):
@@ -277,7 +462,9 @@ def serving_phase(dev) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_verify_attention)
+    from repro_torch.kernels.verify_attention.ops import verify_attention
     from repro_torch.launch.serve import build_server
     from repro_torch.serve.scheduler import ContinuousScheduler, SwitchScheduler
 
@@ -300,10 +487,30 @@ def serving_phase(dev) -> dict:
          {"flash_attention", "decode_attention"}),
         ("switch_scheduler", SwitchScheduler,
          {"flash_attention", "decode_attention"}),
+        ("continuous_row_chunked", lambda s: ContinuousScheduler(
+            s, batch_size=8, prefill_chunk=CHUNK),
+         {"verify_attention", "decode_attention"}),
+        ("continuous_paged_chunked", lambda s: ContinuousScheduler(
+            s, batch_size=8, paged=True, page_size=page,
+            prefill_chunk=CHUNK),
+         {"paged_verify_attention", "paged_decode_attention"}),
+        ("continuous_paged_chunked_int8", lambda s: ContinuousScheduler(
+            s, batch_size=8, paged=True, page_size=page,
+            prefill_chunk=CHUNK, quantize_kv="int8"),
+         {"paged_verify_attention_int8", "paged_decode_attention_int8"}),
     ]
-    fns = {"flash_attention": flash_attention,
-           "decode_attention": decode_attention,
-           "paged_decode_attention": paged_decode_attention}
+    # one launch count per kernel body (the int8 bodies count apart)
+    fns = {"flash_attention": lambda: flash_attention.launches,
+           "decode_attention": lambda: decode_attention.launches,
+           "paged_decode_attention":
+               lambda: paged_decode_attention.launches,
+           "paged_decode_attention_int8":
+               lambda: paged_decode_attention.launches_int8,
+           "verify_attention": lambda: verify_attention.launches,
+           "paged_verify_attention":
+               lambda: paged_verify_attention.launches,
+           "paged_verify_attention_int8":
+               lambda: paged_verify_attention.launches_int8}
     totals = {n: 0 for n in fns}
     outputs = {}
     for label, make_sched, used in passes:
@@ -320,7 +527,7 @@ def serving_phase(dev) -> dict:
                 outs = [f.result(timeout=600) for f in futs]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {n: fn.launches for n, fn in fns.items()}
+            counts = {n: count() for n, count in fns.items()}
             for (name, toks), o in zip(reqs, outs):
                 assert o.shape == (1, NEW_TOKENS), (label, o.shape)
                 assert ((o >= 0) & (o < cfgs[name].vocab_size)).all(), label
@@ -352,11 +559,22 @@ def serving_phase(dev) -> dict:
         same = sum(int((x == y).sum()) for x, y in zip(a, b))
         return same / (N_REQUESTS * NEW_TOKENS)
 
+    # logged only: bf16 rounding differs between the paths, and int8 is
+    # tolerance-close by design
     log("serving greedy agreement: " + json.dumps({
         "paged_vs_row": agree(outputs["continuous_paged"],
                               outputs["continuous_row"]),
         "switch_vs_row": agree(outputs["switch_scheduler"],
-                               outputs["continuous_row"])}))
+                               outputs["continuous_row"]),
+        "chunked_vs_one_shot_row": agree(outputs["continuous_row_chunked"],
+                                         outputs["continuous_row"]),
+        "chunked_paged_vs_chunked_row": agree(
+            outputs["continuous_paged_chunked"],
+            outputs["continuous_row_chunked"]),
+        "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
+                                  outputs["continuous_paged_chunked"])}))
+    # the tree record times the fp paged verify body with a tree mask
+    totals["paged_verify_attention_tree"] = totals["paged_verify_attention"]
     return totals
 
 
@@ -446,6 +664,7 @@ def main() -> int:
 
     records = kernel_phase(dev)
     reference_phase(dev)
+    int8_drift(dev)
     totals = serving_phase(dev)
     profile_phase(dev)
     for rec in records:

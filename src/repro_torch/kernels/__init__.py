@@ -83,13 +83,71 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
+MAX_TREE = 31       # a tree bitmask lives in a non-negative int32
+
+
+def check_group(name: str, hd: int, G: int) -> None:
+    if hd not in (32, 64, 128) or G not in (1, 2, 4, 8):
+        raise ValueError(f"{name}: kernel takes head_dim 32/64/128 and "
+                         f"group 1/2/4/8, got {hd}, {G}")
+
+
+def verify_operands(name: str, q, blk_k, blk_v, tree, Hkv: int):
+    """Check the block side of a verify call for the kernels and lay it
+    out as they take it: q (B, Kb, H, hd) -> (B, Hkv, Kb*G, hd) score rows
+    (row r = block query r // G under head r % G), blk_k/blk_v (B, Kb,
+    Hkv, hd) -> (B, Hkv, Kb, hd), all contiguous bf16.  -> (qg, kb, vb,
+    tree, G)."""
+    B, Kb, H, hd = q.shape
+    if H % Hkv:
+        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
+    G = H // Hkv
+    check_group(name, hd, G)
+    if Kb < 1:
+        raise ValueError(f"{name}: empty block")
+    for label, t in (("q", q), ("blk_k", blk_k), ("blk_v", blk_v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{label}: kernel takes torch.bfloat16, got "
+                            f"{t.dtype}")
+    if tuple(blk_k.shape) != (B, Kb, Hkv, hd) or blk_v.shape != blk_k.shape:
+        raise ValueError(f"blk_k/blk_v: expected shape {(B, Kb, Hkv, hd)}, "
+                         f"got {tuple(blk_k.shape)}, {tuple(blk_v.shape)}")
+    if tree is not None:
+        if Kb > MAX_TREE:
+            raise ValueError(f"{name}: a tree mask takes at most "
+                             f"{MAX_TREE} block tokens, got {Kb}")
+        tree = tree.expand(B, Kb).contiguous()
+        check_cuda_input("tree", tree, torch.int32, (B, Kb))
+    qg = (q.reshape(B, Kb, Hkv, G, hd).permute(0, 2, 1, 3, 4)
+          .reshape(B, Hkv, Kb * G, hd).contiguous())
+    kb = blk_k.transpose(1, 2).contiguous()
+    vb = blk_v.transpose(1, 2).contiguous()
+    check_cuda_input("q", qg, torch.bfloat16, (B, Hkv, Kb * G, hd))
+    check_cuda_input("blk_k", kb, torch.bfloat16, (B, Hkv, Kb, hd))
+    check_cuda_input("blk_v", vb, torch.bfloat16, (B, Hkv, Kb, hd))
+    return qg, kb, vb, tree, G
+
+
+def verify_output(out, Kb: int, H: int):
+    """The verify kernels' (B, Hkv, Kb*G, hd) rows -> (B, Kb, H, hd)."""
+    B, Hkv, _, hd = out.shape
+    return (out.reshape(B, Hkv, Kb, H // Hkv, hd).permute(0, 2, 1, 3, 4)
+            .reshape(B, Kb, H, hd))
+
 
 def reset_launch_counts() -> None:
+    """Zero every kernel body's launch count (the int8 bodies of the
+    paged wrappers count apart, in ``launches_int8``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-    for fn in (flash_attention, decode_attention, paged_decode_attention):
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_verify_attention)
+    from repro_torch.kernels.verify_attention.ops import verify_attention
+    for fn in (flash_attention, decode_attention, verify_attention):
         fn.launches = 0
+    for fn in (paged_decode_attention, paged_verify_attention):
+        fn.launches = 0
+        fn.launches_int8 = 0
 
 
 build_all = _build.build_all

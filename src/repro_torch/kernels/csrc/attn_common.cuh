@@ -1,12 +1,15 @@
-// Shared device code of the attention kernels: warp reductions, bf16 row
-// loads, and the one-token flash-decode block that the row-cache and the
-// paged-cache decode kernels both run (they differ only in where key t of
-// a (row, kv head) lives, which the Rows functor answers).
+// Shared device code of the attention kernels: warp reductions, row loads
+// (bf16, or int8 codes times a per-row scale), the Rows functor that says
+// where key t of one (row, kv head) lives and how it is stored, the
+// one-token flash-decode block (row and paged decode) and the multi-query
+// verify block (row and paged verify / chunked prefill).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -27,30 +30,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// N bf16 values at a 16-byte aligned address -> N floats (N % 8 == 0).
+// N consecutive bf16 values -> floats.  N % 8 == 0 loads 16-byte vectors
+// (the address must be 16-byte aligned); N of 1, 2 or 4 loads one word.
 template <int N>
-__device__ __forceinline__ void load_bf16x8(const bf16* __restrict__ src,
-                                            float* dst) {
-  static_assert(N % 8 == 0, "rows are loaded 8 values at a time");
-  const uint4* s = reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void load_row(const bf16* __restrict__ src,
+                                         float* dst) {
+  if constexpr (N % 8 == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
 #pragma unroll
-  for (int i = 0; i < N / 8; ++i) {
-    uint4 u = s[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    for (int i = 0; i < N / 8; ++i) {
+      uint4 u = s[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float2 f = __bfloat1622float2(h[j]);
-      dst[8 * i + 2 * j] = f.x;
-      dst[8 * i + 2 * j + 1] = f.y;
+      for (int j = 0; j < 4; ++j) {
+        float2 f = __bfloat1622float2(h[j]);
+        dst[8 * i + 2 * j] = f.x;
+        dst[8 * i + 2 * j + 1] = f.y;
+      }
     }
-  }
-}
-
-// N (1, 2 or 4) consecutive bf16 values -> floats.
-template <int N>
-__device__ __forceinline__ void load_bf16_small(const bf16* __restrict__ src,
-                                                float* dst) {
-  if constexpr (N == 1) {
+  } else if constexpr (N == 1) {
     dst[0] = __bfloat162float(src[0]);
   } else if constexpr (N == 2) {
     float2 f = __bfloat1622float2(
@@ -58,13 +56,111 @@ __device__ __forceinline__ void load_bf16_small(const bf16* __restrict__ src,
     dst[0] = f.x;
     dst[1] = f.y;
   } else {
-    static_assert(N == 4, "2 or 4 dims per lane");
+    static_assert(N == 4, "1, 2, 4 or a multiple of 8 values");
     uint2 u = *reinterpret_cast<const uint2*>(src);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
     float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
     dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
   }
 }
+
+// N consecutive int8 codes -> floats, each times `scale` (the JAX int8
+// bank's dequantization, codes * scale in f32).  N % 16 == 0 loads
+// 16-byte vectors; N of 1, 2, 4 or 8 loads one word of N bytes (the
+// address must be aligned to the load).
+template <int N>
+__device__ __forceinline__ void load_row(const int8_t* __restrict__ src,
+                                         float scale, float* dst) {
+  if constexpr (N % 16 == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      uint4 u = s[i];
+      const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) dst[16 * i + j] = (float)c[j] * scale;
+    }
+  } else {
+    static_assert(N == 1 || N == 2 || N == 4 || N == 8,
+                  "1, 2, 4, 8 or a multiple of 16 codes");
+    using W = typename std::conditional<
+        N == 8, uint2,
+        typename std::conditional<
+            N == 4, uint32_t,
+            typename std::conditional<N == 2, uint16_t,
+                                      uint8_t>::type>::type>::type;
+    W u = *reinterpret_cast<const W*>(src);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < N; ++j) dst[j] = (float)c[j] * scale;
+  }
+}
+
+// How keys and values are stored.  Both index an (HD,) key or value row
+// by its flat row number r in the cache tensor (row cache: (b*Hkv+h)*S+t;
+// page pool: (pid*Hkv+h)*page+slot).
+template <int HD>
+struct Bf16KV {                   // full precision
+  const bf16* k;
+  const bf16* v;
+  template <int N>
+  __device__ __forceinline__ void key(size_t r, int c, float* dst) const {
+    load_row<N>(k + r * HD + c, dst);
+  }
+  template <int N>
+  __device__ __forceinline__ void value(size_t r, int c, float* dst) const {
+    load_row<N>(v + r * HD + c, dst);
+  }
+};
+
+template <int HD>
+struct Int8KV {                   // int8 codes + one f32 scale per row
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;                // (NP, Hkv, page): the same flat rows
+  const float* vs;
+  template <int N>
+  __device__ __forceinline__ void key(size_t r, int c, float* dst) const {
+    load_row<N>(k + r * HD + c, ks[r], dst);
+  }
+  template <int N>
+  __device__ __forceinline__ void value(size_t r, int c, float* dst) const {
+    load_row<N>(v + r * HD + c, vs[r], dst);
+  }
+};
+
+// Where key t of one (row, kv head) lives: a contiguous run of rows...
+struct ContigMap {
+  size_t base;
+  __device__ __forceinline__ size_t operator()(int t) const {
+    return base + t;
+  }
+};
+
+// ... or slot t % page of pool page table[t / page].
+struct PagedMap {
+  const int* table;               // (P,) page ids of this row
+  int page, Hkv, h;
+  __device__ __forceinline__ size_t operator()(int t) const {
+    return ((size_t)table[t / page] * Hkv + h) * page + (t % page);
+  }
+};
+
+// Key / value t of one (row, kv head): N values from head dim c, as
+// floats.  The attention blocks below read every key through this.
+template <class KV, class Map>
+struct Rows {
+  KV kv;
+  Map map;
+  template <int N>
+  __device__ __forceinline__ void key(int t, int c, float* dst) const {
+    kv.template key<N>(map(t), c, dst);
+  }
+  template <int N>
+  __device__ __forceinline__ void value(int t, int c, float* dst) const {
+    kv.template value<N>(map(t), c, dst);
+  }
+};
 
 // One-token flash-decode for one (row, kv head): the G query heads of the
 // kv head attend over keys [0, n).  NW warps split the keys into 32-key
@@ -77,9 +173,9 @@ __device__ __forceinline__ void load_bf16_small(const bf16* __restrict__ src,
 // shared memory at the end merges the NW partial states.  Keys at or past
 // n are never loaded, so a row's unwritten tail (and, paged, its park
 // page) is never read.
-template <int HD, int G, int NW, class Rows>
+template <int HD, int G, int NW, class R>
 __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
-                                             const Rows& rows, int n,
+                                             const R& rows, int n,
                                              float scale,
                                              bf16* __restrict__ out) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
@@ -111,7 +207,7 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
     float s[G];
     if (valid) {
       float kr[HD];
-      load_bf16x8<HD>(rows.key(t), kr);
+      rows.template key<HD>(t, 0, kr);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
@@ -138,7 +234,7 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
     const int cnt = min(32, n - t0);
     for (int j = 0; j < cnt; ++j) {
       float vv[DPL];
-      load_bf16_small<DPL>(rows.value(t0 + j) + lane * DPL, vv);
+      rows.template value<DPL>(t0 + j, lane * DPL, vv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = p_s[warp][g][j];
@@ -178,6 +274,180 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Multi-query verify block (chunked prefill, speculative verify)
+// ---------------------------------------------------------------------------
+
+constexpr int VQ = 64;          // score rows per verify block
+constexpr int VTHREADS = 128;   // two threads per score row
+
+// Key tile width of the verify block: the two f32 tiles stay under 48 KB.
+template <int HD>
+struct VerifyTile {
+  static constexpr int BK = HD >= 128 ? 32 : 64;
+};
+
+// Fold keys [0, n) of `rows` into one thread's running softmax state
+// (m, l, acc).  n is the same for the whole block.  Each tile of BK keys
+// is staged once in shared memory as f32 (int8 codes dequantized on the
+// way in), rows padded by one word against bank conflicts, and shared by
+// the block's VQ score rows.  Thread (row, half) scores the tile's keys
+// 2i + half (vis(col) says whether its row sees key col) and owns head
+// dims [half * HD/2, (half + 1) * HD/2) of the PV update; the partner's
+// probabilities arrive through one shuffle.  Keys at or past n are never
+// loaded.
+template <int HD, int BK, class R, class Vis>
+__device__ __forceinline__ void fold_keys(const R& rows, int n, Vis vis,
+                                          const float* qr,
+                                          float (&k_s)[BK][HD + 1],
+                                          float (&v_s)[BK][HD + 1], float& m,
+                                          float& l, float* acc) {
+  constexpr int KPT = BK / 2;   // keys of a tile per thread
+  constexpr int DH = HD / 2;    // head dims per thread in the PV update
+  const int half = threadIdx.x & 1;
+  for (int t0 = 0; t0 < n; t0 += BK) {
+    for (int i = threadIdx.x; i < BK * HD / 8; i += VTHREADS) {
+      const int kk = i / (HD / 8), c = (i % (HD / 8)) * 8;
+      float kf[8], vf[8];
+      if (t0 + kk < n) {
+        rows.template key<8>(t0 + kk, c, kf);
+        rows.template value<8>(t0 + kk, c, vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        k_s[kk][c + e] = kf[e];
+        v_s[kk][c + e] = vf[e];
+      }
+    }
+    __syncthreads();
+
+    float p[KPT];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const int kk = 2 * i + half;
+      const int col = t0 + kk;
+      const bool valid = col < n && vis(col);
+      float s = NEG_INF;
+      if (valid) {
+        s = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) s += qr[d] * k_s[kk][d];
+      }
+      p[i] = valid ? s : -INFINITY;   // -inf marks masked for the exp below
+      mx = fmaxf(mx, s);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      p[i] = (p[i] == -INFINITY) ? 0.f : expf(p[i] - m_new);
+      psum += p[i];
+    }
+    psum += __shfl_xor_sync(FULL, psum, 1);
+    l = alpha * l + psum;
+    m = m_new;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
+
+    const int dbase = half * DH;
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const float mine = p[i];
+      const float other = __shfl_xor_sync(FULL, mine, 1);
+      const float* va = v_s[2 * i + half] + dbase;
+      const float* vo = v_s[2 * i + 1 - half] + dbase;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[d] += mine * va[d] + other * vo[d];
+    }
+    __syncthreads();
+  }
+}
+
+// Keys [0, n) of `a`, then the keys of `b`, as one key range: the verify
+// block's cache before the block, followed by the block's own keys.
+template <class A, class B>
+struct Concat {
+  A a;
+  B b;
+  int n;
+  template <int N>
+  __device__ __forceinline__ void key(int t, int c, float* dst) const {
+    if (t < n) a.template key<N>(t, c, dst);
+    else b.template key<N>(t - n, c, dst);
+  }
+  template <int N>
+  __device__ __forceinline__ void value(int t, int c, float* dst) const {
+    if (t < n) a.template value<N>(t, c, dst);
+    else b.template value<N>(t - n, c, dst);
+  }
+};
+
+// K block queries of one (row, kv head) at positions pos .. pos+K-1, the
+// score rows [row0, row0 + VQ) of this block.  q holds the (K*G, HD) score
+// rows: row r is block query i = r / G under query head r % G.  Every row
+// sees the n_cache cache keys (the cache BEFORE the block: positions
+// < pos), then block key j when j <= i (anc == nullptr) or when bit j of
+// anc[i] is set (tree verify, K <= 31).  Cache and block fold as one key
+// range into one softmax, so the result is the JAX kernel's
+// cache-plus-block joint softmax.  Under the causal mask the range stops
+// after the last block key any row of this block sees; block key i is
+// visible to query i, so l > 0 even at pos == 0 where the cache is empty.
+template <int HD, class CacheRows, class BlockRows>
+__device__ __forceinline__ void verify_block(
+    const bf16* __restrict__ q, const CacheRows& cache, int n_cache,
+    const BlockRows& blk, int K, int G, const int* __restrict__ anc,
+    float scale, bf16* __restrict__ out, int row0) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int BK = VerifyTile<HD>::BK;
+  constexpr int DH = HD / 2;
+  __shared__ float k_s[BK][HD + 1];
+  __shared__ float v_s[BK][HD + 1];
+
+  const int KG = K * G;
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int qrow = row0 + r;
+  const bool live = qrow < KG;          // rows past KG compute, never store
+  const int i = (live ? qrow : KG - 1) / G;
+
+  float qr[HD];
+  if (live) {
+    load_row<HD>(q + (size_t)qrow * HD, qr);
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qr[d] *= scale;
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qr[d] = 0.f;
+  }
+  float m = NEG_INF, l = 0.f, acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+
+  const bool tree = anc != nullptr;
+  const unsigned bits = tree ? (unsigned)anc[i] : 0u;
+  const int n_blk = tree ? K : min(K, (min(row0 + VQ, KG) - 1) / G + 1);
+  const Concat<CacheRows, BlockRows> keys{cache, blk, n_cache};
+  fold_keys<HD, BK>(keys, n_cache + n_blk,
+                    [=](int col) {
+                      const int j = col - n_cache;
+                      return j < 0 || (tree ? ((bits >> j) & 1u) != 0u
+                                            : j <= i);
+                    },
+                    qr, k_s, v_s, m, l, acc);
+
+  if (live) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* o = out + (size_t)qrow * HD + half * DH;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] = __float2bfloat16(acc[d] * inv);
+  }
+}
+
 }  // namespace repro
 
 // Instantiate LAUNCH(HD, G) for every supported (head dim, group) pair;
@@ -196,5 +466,16 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
     else if (hd == 128 && G == 2) { LAUNCH(128, 2); }               \
     else if (hd == 128 && G == 4) { LAUNCH(128, 4); }               \
     else if (hd == 128 && G == 8) { LAUNCH(128, 8); }               \
+    else { return (int)cudaErrorInvalidValue; }                     \
+  } while (0)
+
+// Instantiate LAUNCH(HD) for every supported head dim of the verify block,
+// after checking the shape arguments every verify entry point takes.
+#define REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH)                     \
+  do {                                                              \
+    if (G < 1 || K < 1) return (int)cudaErrorInvalidValue;          \
+    if (hd == 32) { LAUNCH(32); }                                   \
+    else if (hd == 64) { LAUNCH(64); }                              \
+    else if (hd == 128) { LAUNCH(128); }                            \
     else { return (int)cudaErrorInvalidValue; }                     \
   } while (0)

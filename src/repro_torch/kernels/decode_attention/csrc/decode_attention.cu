@@ -23,18 +23,6 @@ namespace {
 
 using repro::bf16;
 
-template <int HD>
-struct RowRows {
-  const bf16* k;   // (S, HD) keys of one (row, kv head)
-  const bf16* v;
-  __device__ __forceinline__ const bf16* key(int t) const {
-    return k + (size_t)t * HD;
-  }
-  __device__ __forceinline__ const bf16* value(int t) const {
-    return v + (size_t)t * HD;
-  }
-};
-
 template <int HD, int G, int NW>
 __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -42,7 +30,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               bf16* __restrict__ out, int Hkv, int S, float scale) {
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t bh = (size_t)b * Hkv + h;
-  RowRows<HD> rows{k + bh * S * HD, v + bh * S * HD};
+  // key t of this (row, kv head) is row bh*S + t of the cache
+  repro::Rows<repro::Bf16KV<HD>, repro::ContigMap> rows{{k, v}, {bh * S}};
   const int n = min(pos[b], S - 1) + 1;     // keys 0..pos are valid
   repro::decode_block<HD, G, NW>(q + bh * G * HD, rows, n, scale,
                                  out + bh * G * HD);

@@ -27,9 +27,7 @@ def decode_attention(q, k, v, pos, *, scale: float | None = None
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
     G = H // Hkv
-    if hd not in (32, 64, 128) or G not in (1, 2, 4, 8):
-        raise ValueError(f"decode kernel takes head_dim 32/64/128 and "
-                         f"group 1/2/4/8, got {hd}, {G}")
+    K.check_group("decode_attention", hd, G)
     q = q.contiguous()
     K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
     K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, hd))

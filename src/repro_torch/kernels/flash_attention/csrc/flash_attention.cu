@@ -52,7 +52,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float qr[HD];
   if (qrow < S) {
-    repro::load_bf16x8<HD>(q + (((size_t)b * H + h) * S + qrow) * HD, qr);
+    repro::load_row<HD>(q + (((size_t)b * H + h) * S + qrow) * HD, qr);
 #pragma unroll
     for (int d = 0; d < HD; ++d) qr[d] *= scale;
   } else {
@@ -75,8 +75,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
       float kf[8], vf[8];
       if (k_start + row < S) {
-        repro::load_bf16x8<8>(kb + (size_t)(k_start + row) * HD + c, kf);
-        repro::load_bf16x8<8>(vb + (size_t)(k_start + row) * HD + c, vf);
+        repro::load_row<8>(kb + (size_t)(k_start + row) * HD + c, kf);
+        repro::load_row<8>(vb + (size_t)(k_start + row) * HD + c, vf);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;

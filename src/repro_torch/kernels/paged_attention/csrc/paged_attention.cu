@@ -1,58 +1,74 @@
-// One-token flash-decode through a page table, for Hopper (sm_90a).
+// Paged attention through a page table, for Hopper (sm_90a): one-token
+// decode and K-query verify (chunked prefill, speculative verify), each
+// over a full-precision or an int8 page pool.
 //
 // Replaces: repro/kernels/paged_attention/kernel.py ::
-//   paged_decode_attention_kernel (body _paged_decode_kernel), the
-//   full-precision body; the int8 body (_paged_decode_kernel_q) is not
-//   ported yet.
+//   paged_decode_attention_kernel (bodies _paged_decode_kernel and
+//   _paged_decode_kernel_q) and paged_verify_attention_kernel (bodies
+//   _paged_verify_kernel and _paged_verify_kernel_q, causal or tree).
 //
-// What bounds it on an H100: bytes, as for the row-cache decode: each
-// live key of a row is read once from the shared page pool, at about
-// 2 * G flops per byte.
+// What bounds it on an H100: bytes for decode, as for the row-cache
+// decode: each live key of a row is read once from the shared page pool,
+// at about 2 * G flops per byte (int8 halves the bytes).  Verify reads the
+// same keys once for K * G query rows, about 2 * K * G flops per byte
+// (2048 at K = 128, G = 8): bound by operations on paper, and this first
+// version runs its products on the CUDA cores in f32.
 //
-// What the design does about it: the decode block of attn_common.cuh
-// with a paged key address.  The TPU kernel's scalar-prefetched BlockSpec
-// index map (pt[b, j]) becomes the block reading its own page ids: key t
-// of row b lives at pool[table[b, t / page], h, t % page].  Only keys
-// 0..pos are visited, so a page starting past pos -- and the park page 0
-// that dead table entries point at -- is never read.  G query heads share
-// every K/V byte; (m, l, acc) stay in registers across all pages.
+// What the design does about it: the TPU kernel's scalar-prefetched
+// BlockSpec index map (pt[b, j]) becomes the block reading its own page
+// ids: key t of row b lives at pool[table[b, t / page], h, t % page]
+// (attn_common.cuh's PagedMap).  The storage is a template argument of the
+// same body (Bf16KV, or Int8KV: codes and the (NP, Hkv, page) f32 scales,
+// flat-indexed alike and dequantized in registers before the dot product).
+//   * decode: the decode block of attn_common.cuh, one block per (row, kv
+//     head), the G query heads sharing every K/V byte.  Only keys 0..pos
+//     are visited.
+//   * verify: the verify block of attn_common.cuh, one block per (tile of
+//     64 score rows, kv head, row).  The cache side walks keys 0..pos-1
+//     (the pool BEFORE the block's writes), then the block's own K keys
+//     and values (bf16: not yet written to the pool, even for an int8
+//     pool) fold in under the causal or tree mask.
+// In both, a page starting past the last read position -- and the park
+// page 0 that dead table entries point at -- is never read.
 #include "attn_common.cuh"
 
 namespace {
 
 using repro::bf16;
 
-template <int HD>
-struct PagedRows {
-  const bf16* kp;       // (NP, Hkv, page, HD) pools
-  const bf16* vp;
-  const int* table;     // (P,) page ids of this row
-  int page, Hkv, h;
-  __device__ __forceinline__ size_t off(int t) const {
-    const int pid = table[t / page];
-    return (((size_t)pid * Hkv + h) * page + (t % page)) * HD;
-  }
-  __device__ __forceinline__ const bf16* key(int t) const {
-    return kp + off(t);
-  }
-  __device__ __forceinline__ const bf16* value(int t) const {
-    return vp + off(t);
-  }
-};
-
-template <int HD, int G, int NW>
+template <int HD, int G, int NW, class KV>
 __global__ void __launch_bounds__(NW * 32)
-paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                    const bf16* __restrict__ vp,
+paged_decode_kernel(const bf16* __restrict__ q, KV kv,
                     const int* __restrict__ table,
                     const int* __restrict__ pos, bf16* __restrict__ out,
                     int Hkv, int P, int page, float scale) {
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t bh = (size_t)b * Hkv + h;
-  PagedRows<HD> rows{kp, vp, table + (size_t)b * P, page, Hkv, h};
+  repro::Rows<KV, repro::PagedMap> rows{kv,
+                                        {table + (size_t)b * P, page, Hkv, h}};
   const int n = min(pos[b], P * page - 1) + 1;
   repro::decode_block<HD, G, NW>(q + bh * G * HD, rows, n, scale,
                                  out + bh * G * HD);
+}
+
+template <int HD, class KV>
+__global__ void __launch_bounds__(repro::VTHREADS)
+paged_verify_kernel(const bf16* __restrict__ q, KV kv,
+                    const bf16* __restrict__ kb, const bf16* __restrict__ vb,
+                    const int* __restrict__ table,
+                    const int* __restrict__ pos, const int* __restrict__ anc,
+                    bf16* __restrict__ out, int Hkv, int G, int K, int P,
+                    int page, float scale) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * Hkv + h;
+  const size_t KG = (size_t)K * G;
+  repro::Rows<KV, repro::PagedMap> cache{
+      kv, {table + (size_t)b * P, page, Hkv, h}};
+  repro::Rows<repro::Bf16KV<HD>, repro::ContigMap> blk{{kb, vb}, {bh * K}};
+  const int n = min(max(pos[b], 0), P * page);   // cache keys < pos
+  repro::verify_block<HD>(q + bh * KG * HD, cache, n, blk, K, G,
+                          anc == nullptr ? nullptr : anc + (size_t)b * K,
+                          scale, out + bh * KG * HD, blockIdx.x * repro::VQ);
 }
 
 }  // namespace
@@ -68,13 +84,84 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* kp,
                                            void* stream) {
   constexpr int NW = 8;
   const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                 \
-  paged_decode_kernel<HD_, G_, NW>                                      \
-      <<<grid, NW * 32, 0, (cudaStream_t)stream>>>(                     \
-          (const bf16*)q, (const bf16*)kp, (const bf16*)vp,             \
-          (const int*)table, (const int*)pos, (bf16*)out, Hkv, P, page, \
+#define LAUNCH(HD_, G_)                                                  \
+  paged_decode_kernel<HD_, G_, NW>                                       \
+      <<<grid, NW * 32, 0, (cudaStream_t)stream>>>(                      \
+          (const bf16*)q,                                                \
+          repro::Bf16KV<HD_>{(const bf16*)kp, (const bf16*)vp},          \
+          (const int*)table, (const int*)pos, (bf16*)out, Hkv, P, page,  \
           scale)
   REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// As paged_decode_attention_bf16 over an int8 pool: k/v codes (NP, Hkv,
+// page, hd) int8 and their scales ks/vs (NP, Hkv, page) f32.
+extern "C" int paged_decode_attention_int8(const void* q, const void* kp,
+                                           const void* vp, const void* ks,
+                                           const void* vs, const void* table,
+                                           const void* pos, void* out, int B,
+                                           int Hkv, int G, int P, int page,
+                                           int hd, float scale,
+                                           void* stream) {
+  constexpr int NW = 8;
+  const dim3 grid(Hkv, B);
+#define LAUNCH(HD_, G_)                                                  \
+  paged_decode_kernel<HD_, G_, NW>                                       \
+      <<<grid, NW * 32, 0, (cudaStream_t)stream>>>(                      \
+          (const bf16*)q,                                                \
+          repro::Int8KV<HD_>{(const int8_t*)kp, (const int8_t*)vp,       \
+                             (const float*)ks, (const float*)vs},        \
+          (const int*)table, (const int*)pos, (bf16*)out, Hkv, P, page,  \
+          scale)
+  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// q (B, Hkv, K*G, hd) bf16 (row r = block query r / G, head r % G), k/v
+// pools (NP, Hkv, page, hd) bf16 as they stood BEFORE the block, kb/vb
+// (B, Hkv, K, hd) bf16 block keys/values, table (B, P) int32, pos (B,)
+// int32 base positions, tree (B, K) int32 ancestor bitmasks or NULL
+// (causal), out like q; all contiguous.  Returns a cudaError_t.
+extern "C" int paged_verify_attention_bf16(
+    const void* q, const void* kp, const void* vp, const void* kb,
+    const void* vb, const void* table, const void* pos, const void* tree,
+    void* out, int B, int Hkv, int G, int K, int P, int page, int hd,
+    float scale, void* stream) {
+  const dim3 grid((K * G + repro::VQ - 1) / repro::VQ, Hkv, B);
+#define LAUNCH(HD_)                                                      \
+  paged_verify_kernel<HD_>                                               \
+      <<<grid, repro::VTHREADS, 0, (cudaStream_t)stream>>>(              \
+          (const bf16*)q,                                                \
+          repro::Bf16KV<HD_>{(const bf16*)kp, (const bf16*)vp},          \
+          (const bf16*)kb, (const bf16*)vb, (const int*)table,           \
+          (const int*)pos, (const int*)tree, (bf16*)out, Hkv, G, K, P,   \
+          page, scale)
+  REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// As paged_verify_attention_bf16 over an int8 pool (codes kp/vp int8,
+// scales ks/vs (NP, Hkv, page) f32); the block's kb/vb stay bf16.
+extern "C" int paged_verify_attention_int8(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* kb, const void* vb, const void* table,
+    const void* pos, const void* tree, void* out, int B, int Hkv, int G,
+    int K, int P, int page, int hd, float scale, void* stream) {
+  const dim3 grid((K * G + repro::VQ - 1) / repro::VQ, Hkv, B);
+#define LAUNCH(HD_)                                                      \
+  paged_verify_kernel<HD_>                                               \
+      <<<grid, repro::VTHREADS, 0, (cudaStream_t)stream>>>(              \
+          (const bf16*)q,                                                \
+          repro::Int8KV<HD_>{(const int8_t*)kp, (const int8_t*)vp,       \
+                             (const float*)ks, (const float*)vs},        \
+          (const bf16*)kb, (const bf16*)vb, (const int*)table,           \
+          (const int*)pos, (const int*)tree, (bf16*)out, Hkv, G, K, P,   \
+          page, scale)
+  REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH);
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

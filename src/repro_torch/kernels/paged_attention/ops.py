@@ -1,8 +1,11 @@
-"""Public wrapper of the paged flash-decode kernel (full-precision pool).
+"""Public wrappers of the paged kernels: one-token decode and K-query
+verify, over a full-precision or an int8 page pool.
 
-A CPU tensor runs the plain version (``ref.paged_decode_reference``); a
-CUDA tensor launches ``csrc/paged_attention.cu`` or raises.  The int8
-pool of the JAX package is not ported yet.
+A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
+``csrc/paged_attention.cu`` or raises.  An int8 pool passes its
+(NP, Hkv, page) f32 ``k_scale``/``v_scale``; its launches count in
+``<wrapper>.launches_int8``, the full-precision body's in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -10,15 +13,54 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                     paged_decode_reference)
+                                                     gather_scales,
+                                                     paged_decode_reference,
+                                                     paged_verify_reference)
 
-_fn = None
+_fns: dict = {}
+
+
+def _pool_args(k_pages, v_pages, k_scale, v_scale, page_table, B):
+    """Check the pool side for the kernels -> (pool pointers, quantized,
+    NP, Hkv, page, P)."""
+    NP, Hkv, page, hd = k_pages.shape
+    P = page_table.shape[1]
+    quant = k_scale is not None
+    dt = torch.int8 if quant else torch.bfloat16
+    K.check_cuda_input("k_pages", k_pages, dt, (NP, Hkv, page, hd))
+    K.check_cuda_input("v_pages", v_pages, dt, (NP, Hkv, page, hd))
+    ptrs = [k_pages.data_ptr(), v_pages.data_ptr()]
+    if quant:
+        K.check_cuda_input("k_scale", k_scale, torch.float32,
+                           (NP, Hkv, page))
+        K.check_cuda_input("v_scale", v_scale, torch.float32,
+                           (NP, Hkv, page))
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    K.check_cuda_input("page_table", page_table, torch.int32, (B, P))
+    return ptrs, quant, NP, Hkv, page, P
+
+
+def _scales(k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 pool passes both k_scale and v_scale")
+    return () if k_scale is None else (k_scale, v_scale)
+
+
+def _c(symbol: str, nptr: int, nint: int):
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = _fns[symbol] = K.c_function(
+            "paged_attention", symbol, [K.P] * nptr + [K.I] * nint
+            + [K.F, K.P])
+    return fn
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
-                           scale: float | None = None) -> torch.Tensor:
-    """q: (B, H, hd); k_pages/v_pages: (NP, Hkv, page, hd) shared pool;
-    page_table: (B, P) int32; pos: () or (B,) int32 -> (B, H, hd).
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """q: (B, H, hd); k_pages/v_pages: (NP, Hkv, page, hd) shared pool
+    (int8 codes with ``k_scale``/``v_scale``); page_table: (B, P) int32;
+    pos: () or (B,) int32 -> (B, H, hd).
 
     Row b attends to its positions [0, pos[b]], key t read from pool
     page ``page_table[b, t // page]``.  Dead table entries (past a row's
@@ -27,40 +69,87 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
     B, H, hd = q.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     pos = pos.expand(B).contiguous()
-    if K.on_cpu(q, k_pages, v_pages, page_table, pos):
+    scales = _scales(k_scale, v_scale)
+    if K.on_cpu(q, k_pages, v_pages, page_table, pos, *scales):
         return paged_decode_reference(q, k_pages, v_pages, page_table, pos,
-                                      scale=scale)
-    global _fn
-    NP, Hkv, page, _ = k_pages.shape
-    P = page_table.shape[1]
+                                      scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale)
+    pool, quant, NP, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
+                                               v_scale, page_table, B)
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
     G = H // Hkv
-    if hd not in (32, 64, 128) or G not in (1, 2, 4, 8):
-        raise ValueError(f"paged kernel takes head_dim 32/64/128 and "
-                         f"group 1/2/4/8, got {hd}, {G}")
+    K.check_group("paged_decode_attention", hd, G)
     q = q.contiguous()
     K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
-    K.check_cuda_input("k_pages", k_pages, torch.bfloat16,
-                       (NP, Hkv, page, hd))
-    K.check_cuda_input("v_pages", v_pages, torch.bfloat16,
-                       (NP, Hkv, page, hd))
-    K.check_cuda_input("page_table", page_table, torch.int32, (B, P))
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     out = torch.empty_like(q)
-    if _fn is None:
-        _fn = K.c_function("paged_attention", "paged_decode_attention_bf16",
-                           [K.P] * 6 + [K.I] * 6 + [K.F, K.P])
-    rc = _fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             B, Hkv, G, P, page, hd, float(scale), K.stream_ptr(q))
-    K.check_launch("paged_decode_attention", rc)
-    paged_decode_attention.launches += 1
+    sym = ("paged_decode_attention_int8" if quant
+           else "paged_decode_attention_bf16")
+    rc = _c(sym, 4 + len(pool), 6)(
+        q.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, Hkv, G, P, page, hd, float(scale),
+        K.stream_ptr(q))
+    K.check_launch(sym, rc)
+    if quant:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0
 
-__all__ = ["gather_pages", "paged_decode_attention",
-           "paged_decode_reference"]
+
+def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
+                           pos, *, scale: float | None = None, k_scale=None,
+                           v_scale=None, tree=None) -> torch.Tensor:
+    """q: (B, Kb, H, hd); the pool (as in ``paged_decode_attention``)
+    holds the cache BEFORE the block's writes; blk_k/blk_v: (B, Kb, Hkv,
+    hd) full precision; page_table: (B, P); pos: () or (B,) int32 base
+    positions; ``tree``: optional (B, Kb) int32 ancestor bitmasks ->
+    (B, Kb, H, hd).  Query i of row b (position pos[b] + i) attends to
+    the row's positions [0, pos[b]-1] through the table plus block
+    tokens j <= i (or the tree's bits)."""
+    B, Kb, H, hd = q.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    pos = pos.expand(B).contiguous()
+    if tree is not None:
+        tree = torch.as_tensor(tree, dtype=torch.int32, device=q.device)
+    scales = _scales(k_scale, v_scale)
+    if K.on_cpu(q, k_pages, v_pages, blk_k, blk_v, page_table, pos,
+                *scales, *(() if tree is None else (tree,))):
+        return paged_verify_reference(q, k_pages, v_pages, blk_k, blk_v,
+                                      page_table, pos, scale=scale,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      tree=tree)
+    pool, quant, NP, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
+                                               v_scale, page_table, B)
+    qg, kb, vb, tree, G = K.verify_operands("paged_verify_attention", q,
+                                            blk_k, blk_v, tree, Hkv)
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    out = torch.empty_like(qg)
+    sym = ("paged_verify_attention_int8" if quant
+           else "paged_verify_attention_bf16")
+    rc = _c(sym, 7 + len(pool), 7)(
+        qg.data_ptr(), *pool, kb.data_ptr(), vb.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(),
+        None if tree is None else tree.data_ptr(), out.data_ptr(),
+        B, Hkv, G, Kb, P, page, hd, float(scale), K.stream_ptr(q))
+    K.check_launch(sym, rc)
+    if quant:
+        paged_verify_attention.launches_int8 += 1
+    else:
+        paged_verify_attention.launches += 1
+    return K.verify_output(out, Kb, H)
+
+
+paged_verify_attention.launches = 0
+paged_verify_attention.launches_int8 = 0
+
+__all__ = ["gather_pages", "gather_scales", "paged_decode_attention",
+           "paged_decode_reference", "paged_verify_attention",
+           "paged_verify_reference"]

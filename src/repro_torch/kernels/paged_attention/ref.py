@@ -1,23 +1,27 @@
-"""Plain PyTorch version of the paged flash-decode kernel: the KV cache
+"""Plain PyTorch version of the paged attention kernels: the KV cache
 rows live as pages of one shared pool, addressed through a per-row page
 table.
 
 Layout:
   * ``k_pages``/``v_pages`` — (NP, Hkv, page, hd): the shared pool.
     Page 0 is the PARK page (dead page-table entries point at it).
+  * ``k_scale``/``v_scale`` — (NP, Hkv, page) f32, present for an int8
+    pool only: entry ``[p, h, s, :]`` is ``codes * scale[p, h, s]``.
   * ``page_table`` — (B, P) int32: row b's positions
     ``[j*page, (j+1)*page)`` live in pool page ``page_table[b, j]``.
   * ``pos`` — (B,) int32 (or scalar, broadcast).
 
-The plain version gathers each row's pages back into a contiguous
-(B, Hkv, P*page, hd) row and defers to the row-cache decode: a paged
-cache read through its table IS the row cache.
+The plain versions gather each row's pages back into a contiguous
+(B, Hkv, P*page, hd) row (dequantized for an int8 pool) and defer to the
+row-cache versions: a paged cache read through its table IS the row
+cache.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.decode_attention.ref import decode_reference
+from repro_torch.kernels.verify_attention.ref import verify_reference
 
 
 def gather_pages(pages, page_table):
@@ -28,9 +32,43 @@ def gather_pages(pages, page_table):
     return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, P * page, hd)
 
 
+def gather_scales(scales, page_table):
+    """(NP, Hkv, page) int8-pool scale leaf + (B, P) table -> (B, Hkv,
+    P*page) per-position scales: ``gather_pages`` minus the head dim."""
+    g = scales[page_table.long()]                   # (B, P, Hkv, page)
+    B, P, Hkv, page = g.shape
+    return g.permute(0, 2, 1, 3).reshape(B, Hkv, P * page)
+
+
+def _dequant(pages, scales, page_table):
+    codes = gather_pages(pages, page_table)
+    return codes.float() * gather_scales(scales, page_table)[..., None]
+
+
+def _rows(k_pages, v_pages, page_table, k_scale, v_scale):
+    if k_scale is not None:
+        return (_dequant(k_pages, k_scale, page_table),
+                _dequant(v_pages, v_scale, page_table))
+    return gather_pages(k_pages, page_table), gather_pages(v_pages,
+                                                           page_table)
+
+
 def paged_decode_reference(q, k_pages, v_pages, page_table, pos, *,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """q: (B, H, hd) -> (B, H, hd); see the module docstring."""
-    k = gather_pages(k_pages, page_table)
-    v = gather_pages(v_pages, page_table)
+    k, v = _rows(k_pages, v_pages, page_table, k_scale, v_scale)
     return decode_reference(q, k, v, pos, scale=scale)
+
+
+def paged_verify_reference(q, k_pages, v_pages, blk_k, blk_v, page_table,
+                           pos, *, scale: float | None = None, k_scale=None,
+                           v_scale=None, tree=None) -> torch.Tensor:
+    """q: (B, K, H, hd); blk_k/blk_v: (B, K, Hkv, hd) block keys/values;
+    the pool holds the cache BEFORE the block's writes -> (B, K, H, hd).
+    An int8 pool dequantizes its pages; the block k/v stay full precision
+    (they have not been written yet).  ``tree`` as in
+    ``verify_reference``."""
+    k, v = _rows(k_pages, v_pages, page_table, k_scale, v_scale)
+    return verify_reference(q, k, v, blk_k, blk_v, pos, scale=scale,
+                            tree=tree)

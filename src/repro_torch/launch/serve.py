@@ -13,7 +13,10 @@ Three modes:
   * ``--mode continuous`` — the token-granular ``ContinuousScheduler``:
     requests join/leave a persistent slot-pooled step engine at every
     decode step (``--pool`` sets the slot-pool width); ``--paged
-    --page-size N`` gives each context a paged slot pool.
+    --page-size N`` gives each context a paged slot pool;
+    ``--prefill-chunk C`` admits prompts in C-token chunks, one per step;
+    ``--quantize-kv int8`` (with ``--paged``) stores the page pools in
+    int8 with per-token-per-head scales.
   * ``--mode sync`` — the synchronous round-robin loop (the baseline the
     paper compares against).
 
@@ -105,8 +108,7 @@ def request_stream(names, cfgs, n_requests, batch, seq, seed):
 # JAX launcher flags whose features the port does not have yet, with the
 # value that means "off"
 _NOT_PORTED = {"draft": None, "spec_k": 4, "spec_tree": 1,
-               "spec_adaptive": False, "prefill_chunk": None,
-               "multi_step": 1, "quantize_kv": "none", "shards": None,
+               "spec_adaptive": False, "multi_step": 1, "shards": None,
                "x64": False, "host_devices": None, "prefix_cache": False}
 
 
@@ -124,6 +126,17 @@ def main(argv=None) -> int:
     ap.add_argument("--page-size", type=int, default=256,
                     help="paged mode: tokens per KV page (must divide "
                          "the serving max_len)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="continuous mode: admit prompts in fixed-size "
+                         "chunks of this many tokens, one chunk per step "
+                         "(admission latency for live rows bounded by one "
+                         "chunk)")
+    ap.add_argument("--quantize-kv", choices=("none", "int8"),
+                    default="none",
+                    help="paged mode: store the shared KV page pool in "
+                         "int8 with per-token-per-head scales — about "
+                         "half the bytes per page (outputs are "
+                         "tolerance-close, not bitwise)")
     ap.add_argument("--platform", default=None, choices=("cpu", "gpu"),
                     help="cpu: the plain PyTorch path on the CPU; gpu "
                          "(the default): the CUDA card")
@@ -151,12 +164,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--spec-adaptive", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--multi-step", type=int, default=1,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--quantize-kv", choices=("none", "int8"),
-                    default="none", help=argparse.SUPPRESS)
     ap.add_argument("--shards", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
@@ -171,6 +180,9 @@ def main(argv=None) -> int:
         asked.insert(0, "--mode speculative")
     if asked:
         ap.error(f"{', '.join(asked)}: not yet ported to repro_torch")
+    if args.quantize_kv != "none" and not args.paged:
+        ap.error("--quantize-kv targets the shared page pool: it requires "
+                 "--paged")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
 
     names = args.archs.split(",")
@@ -201,8 +213,11 @@ def main(argv=None) -> int:
     if args.mode in ("queue", "continuous"):
         sched_cls = (SwitchScheduler if args.mode == "queue" else
                      lambda s: ContinuousScheduler(
-                         s, batch_size=args.pool, paged=args.paged,
-                         page_size=args.page_size))
+                         s, batch_size=args.pool,
+                         prefill_chunk=args.prefill_chunk,
+                         paged=args.paged, page_size=args.page_size,
+                         quantize_kv=(None if args.quantize_kv == "none"
+                                      else args.quantize_kv)))
         with sched_cls(server) as sched:
             futs = [(sched.submit(n, t, steps=args.steps),
                      time.perf_counter()) for n, t in reqs]

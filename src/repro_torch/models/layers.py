@@ -14,11 +14,14 @@ Entry points by execution mode:
   * ``attention_prefill``       — same, plus the populated row cache
   * ``attention_decode``        — one token against the row cache
   * ``attention_decode_pages``  — one token against the shared page pool
+  * ``attention_verify``        — K tokens against the row cache
+  * ``attention_verify_pages``  — K tokens against the shared page pool
+    (both: chunked prefill's chunk, a speculative verify block)
 Sliding-window rings are not ported yet (``LM`` refuses such configs).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +29,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import (
+    gather_pages, gather_scales, paged_decode_attention,
+    paged_verify_attention)
+from repro_torch.kernels.verify_attention.ops import verify_attention
 from repro_torch.models.common import PSpec
 
 NEG_INF = -1e30  # bf16-safe large negative
@@ -166,6 +172,41 @@ def attention_decode(params, x, pos, cache: KVCache, cfg: ArchConfig):
     return _out(params, out, x), cache
 
 
+def attention_verify(params, x, pos, cache: KVCache, cfg: ArchConfig,
+                     wmask=None):
+    """K tokens per row against the row cache: x (B, K, D) at positions
+    ``pos[b] .. pos[b]+K-1`` (``pos``: scalar or (B,) int32).  Attention
+    reads the cache as it stood BEFORE the block plus the block's own k/v
+    under an intra-block causal mask (token i sees what the i-th
+    sequential ``attention_decode`` step would see); then the K tokens'
+    k/v are written IN PLACE at slot ``min(position, S-1)`` (parked rows
+    clamp to their dead last slot).  ``wmask`` ((B, K) bool, optional)
+    gates the writes only: a False token (a chunk's pad) computes normally
+    but its write is skipped, its slot left as it was.  The scatter stays
+    one sync-free ``index_put_``: a False token writes back what its slot
+    already holds.  That is a skip as long as no True token shares the
+    slot, which holds wherever the engine calls this: only pads run past
+    the last slot, where the clamp gathers them.  Returns (out (B, K, D),
+    cache)."""
+    B, K, _ = x.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    positions = pos[:, None] + torch.arange(K, dtype=torch.int32,
+                                            device=x.device)[None]
+    q, k, v = _qkv(params, x, positions, cfg)              # q: (B, K, H, hd)
+    out = verify_attention(q, cache.k, cache.v, k, v, pos)
+    S = cache.k.shape[2]
+    rows = torch.arange(B, device=x.device)[:, None]
+    slots = positions.clamp(max=S - 1).long()
+    kw, vw = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if wmask is not None:
+        m = wmask[:, :, None, None]
+        kw = torch.where(m, kw, cache.k[rows, :, slots])
+        vw = torch.where(m, vw, cache.v[rows, :, slots])
+    cache.k[rows, :, slots] = kw
+    cache.v[rows, :, slots] = vw
+    return _out(params, out, x), cache
+
+
 # ---------------------------------------------------------------------------
 # paged slot pool: per-row page tables over ONE shared page pool
 #
@@ -178,19 +219,51 @@ def attention_decode(params, x, pos, cache: KVCache, cfg: ArchConfig):
 
 class PagedKV(NamedTuple):
     """Shared page pool: position j*page+s of a request lives at
-    ``pool[table[j], :, s]`` for that request's page table."""
-    k: torch.Tensor       # (NP, Hkv, page, hd)
+    ``pool[table[j], :, s]`` for that request's page table.
+
+    ``ks``/``vs`` are the int8 pool's scale leaves ((NP, Hkv, page) f32,
+    ``None`` for a full-precision pool): then ``k``/``v`` hold symmetric
+    absmax int8 codes and entry ``[p, h, s, :]`` is ``k[p, h, s, :] *
+    ks[p, h, s]`` -- one scale per token per kv head, so a decoded token
+    quantizes on its own without rescaling its page."""
+    k: torch.Tensor       # (NP, Hkv, page, hd): cache dtype, or int8
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None     # (NP, Hkv, page) f32 (int8 only)
+    vs: Optional[torch.Tensor] = None
 
 
 PARK_PAGE = 0
 
+KV_QMAX = 127.0           # symmetric int8: codes in [-127, 127]
+
 
 def init_page_pool(cfg: ArchConfig, num_pages: int, page: int,
-                   dtype=torch.bfloat16, device=None) -> PagedKV:
+                   dtype=torch.bfloat16, device=None,
+                   quantized: bool = False) -> PagedKV:
     shape = (num_pages, cfg.num_kv_heads, page, cfg.head_dim)
+    if quantized:
+        return PagedKV(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            ks=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            vs=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     return PagedKV(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def quantize_kv(x):
+    """Symmetric absmax int8 over the last axis: x (..., hd) -> (codes
+    int8 (..., hd), scale f32 (...,)) with ``x ~= codes * scale``.  The
+    JAX package's arithmetic, step for step in f32 (``torch.round``
+    rounds half to even, as ``jnp.round`` does)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / KV_QMAX
+    q = torch.clamp(torch.round(xf / scale[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _page_write(cache: PagedKV, k, v, tables, positions, wmask=None):
@@ -210,9 +283,25 @@ def _page_write(cache: PagedKV, k, v, tables, positions, wmask=None):
     if wmask is not None:
         pids = torch.where(wmask, pids, torch.full_like(pids, PARK_PAGE))
     slots = positions % page
+    if cache.ks is not None:             # int8 pool: quantize on write
+        k, ksc = quantize_kv(k)
+        v, vsc = quantize_kv(v)
+        cache.ks[pids, :, slots] = ksc
+        cache.vs[pids, :, slots] = vsc
     cache.k[pids, :, slots, :] = k.to(cache.k.dtype)
     cache.v[pids, :, slots, :] = v.to(cache.v.dtype)
     return cache
+
+
+def _gather_dequant(cache: PagedKV, tables, dtype):
+    """Reference read of an int8 pool: codes and scales gathered through
+    the tables and dequantized to ``dtype`` -> (kg, vg) (B, Hkv, P*page,
+    hd).  Unwritten positions hold code 0 and read as 0.0."""
+    kg = dequantize_kv(gather_pages(cache.k, tables),
+                       gather_scales(cache.ks, tables), dtype)
+    vg = dequantize_kv(gather_pages(cache.v, tables),
+                       gather_scales(cache.vs, tables), dtype)
+    return kg, vg
 
 
 def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
@@ -231,8 +320,42 @@ def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
     q, k, v = _qkv(params, x, positions, cfg)              # q: (B, 1, H, hd)
     _page_write(cache, k, v, tables, positions,
                 wmask=None if wmask is None else wmask[:, None])
-    out = paged_decode_attention(q[:, 0], cache.k, cache.v, tables,
-                                 pos)[:, None]
+    out = paged_decode_attention(q[:, 0], cache.k, cache.v, tables, pos,
+                                 k_scale=cache.ks,
+                                 v_scale=cache.vs)[:, None]
+    return _out(params, out, x), cache
+
+
+def attention_verify_pages(params, x, pos, cache: PagedKV, tables,
+                           cfg: ArchConfig, wmask=None, offsets=None,
+                           tree=None):
+    """K tokens per row against the shared page pool: x (B, K, D) at
+    positions ``pos[b] .. pos[b]+K-1``.  Attention reads the pool as it
+    stood BEFORE the block (through the tables; an int8 pool dequantized)
+    plus the block's own k/v under an intra-block causal mask -- the same
+    split as ``attention_verify`` -- then the K tokens' k/v are scattered
+    into the rows' pages, IN PLACE (``wmask`` False tokens go to the park
+    page).  A recycled page needs no zeroing: its owner writes each
+    position before that position becomes readable (reads mask ``cols <
+    pos``).
+
+    ``offsets`` ((K,) int32, optional) replaces the ``arange(K)`` position
+    offsets (RoPE and write slots) with per-node tree depths, and ``tree``
+    ((B, K) int32 ancestor bitmasks) the causal mask: bit j of ``tree[b,
+    i]`` makes block token j visible to block query i.  Siblings share a
+    depth, so the caller parks all but one writer per depth through
+    ``wmask``.  Returns (out (B, K, D), cache)."""
+    B, K, _ = x.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    if offsets is None:
+        offsets = torch.arange(K, dtype=torch.int32, device=x.device)
+    offsets = torch.as_tensor(offsets, dtype=torch.int32, device=x.device)
+    positions = pos[:, None] + offsets[None]
+    q, k, v = _qkv(params, x, positions, cfg)              # q: (B, K, H, hd)
+    out = paged_verify_attention(q, cache.k, cache.v, k, v, tables, pos,
+                                 k_scale=cache.ks, v_scale=cache.vs,
+                                 tree=tree)
+    _page_write(cache, k, v, tables, positions, wmask=wmask)
     return _out(params, out, x), cache
 
 
@@ -252,6 +375,12 @@ def insert_pages(cache: PagedKV, rows: KVCache, tables) -> PagedKV:
     def paged_view(r):                     # (B, P, Hkv, page, hd)
         return r.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
 
-    cache.k[t] = paged_view(rows.k).to(cache.k.dtype)
-    cache.v[t] = paged_view(rows.v).to(cache.v.dtype)
+    kr, vr = paged_view(rows.k), paged_view(rows.v)
+    if cache.ks is not None:             # int8 pool: quantize on insert
+        kr, ksc = quantize_kv(kr)
+        vr, vsc = quantize_kv(vr)
+        cache.ks[t] = ksc
+        cache.vs[t] = vsc
+    cache.k[t] = kr.to(cache.k.dtype)
+    cache.v[t] = vr.to(cache.v.dtype)
     return cache

@@ -19,6 +19,10 @@ Execution modes:
   * ``prefill``           — builds the row cache, returns last-position logits
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
+  * ``verify_step``       — K tokens per row against the row cache
+  * ``prefill_chunk``     — a prompt chunk into named rows of the row cache
+  * ``verify_step_pages`` / ``prefill_chunk_pages`` — K tokens per row
+                            against the shared page pool (chunked prefill)
 """
 from __future__ import annotations
 
@@ -146,6 +150,48 @@ class LM:
                 ap, h, pos, c, self.cfg)[0])
         return self._head(params, x), caches
 
+    def verify_step(self, params, caches, tokens, pos, wmask=None,
+                    need_logits: bool = True):
+        """Score K tokens per row in one pass.  tokens: (B, K) int at
+        cache positions ``pos .. pos+K-1`` (pos: scalar or (B,) int32).
+        Returns (logits (B, K, V), caches): ``logits[:, i]`` is what the
+        i-th of K sequential ``decode_step`` calls would give, since each
+        token reads the cache before the block plus the block's earlier
+        tokens.  ``wmask`` ((B, K) bool, optional) keeps False tokens'
+        k/v out of the cache; the logits are None when ``need_logits`` is
+        False."""
+        x = self._embed_in(params, tokens)
+        for p, c in zip(params["blocks"], caches):
+            x = self._block(p, x, lambda ap, h, c=c: layers.attention_verify(
+                ap, h, pos, c, self.cfg, wmask=wmask)[0])
+        return (self._head(params, x) if need_logits else None), caches
+
+    def prefill_chunk(self, params, caches, tokens, pos, slots, wmask=None,
+                      need_logits: bool = True):
+        """Chunked prefill on the row cache: score a (b, C) prompt chunk
+        at per-row offsets ``pos .. pos+C-1`` ((b,) int32) and write its
+        k/v into batch rows ``slots`` ((b,) int) of ``caches``.  The
+        named rows are gathered, rows at ``pos == 0`` zeroed (chunk 0
+        starts from the blank row a fresh ``prefill`` makes: a recycled
+        slot's stale row must not leak into the new request), the
+        chunk runs through ``verify_step``, and the rows are written
+        back: only the named rows change.  ``wmask`` keeps a final
+        chunk's pad tokens out of the cache.  Returns (logits (b, C, V)
+        f32, or None when ``need_logits`` is False, caches)."""
+        dev = self.device
+        slots = torch.as_tensor(slots, device=dev).long()
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        fresh = (pos == 0).view(-1, 1, 1, 1)
+        sub = [layers.KVCache(k=c.k[slots].masked_fill_(fresh, 0),
+                              v=c.v[slots].masked_fill_(fresh, 0))
+               for c in caches]
+        logits, _ = self.verify_step(params, sub, tokens, pos, wmask,
+                                     need_logits)
+        for c, r in zip(caches, sub):
+            c.k[slots] = r.k
+            c.v[slots] = r.v
+        return logits, caches
+
     # ------------------------------------------------------------- row cache
     def init_cache(self, batch: int, max_len: int) -> list:
         return [layers.init_kv_cache(self.cfg, batch, max_len,
@@ -165,20 +211,24 @@ class LM:
         return caches
 
     # ------------------------------------------------------- paged slot pool
-    def init_page_pool(self, num_pages: int, page: int) -> list:
+    def init_page_pool(self, num_pages: int, page: int,
+                       quantized: bool = False) -> list:
         """Shared-page decode cache: one ``layers.PagedKV`` pool (NP, Hkv,
         page, hd) per layer.  Page 0 is the PARK page; the page table is
         shared across layers -- page id p is the same position range of
-        its owning row in every layer's pool."""
+        its owning row in every layer's pool.  ``quantized`` stores int8
+        codes plus (NP, Hkv, page) f32 scales: about half the bytes per
+        page of a bf16 pool."""
         return [layers.init_page_pool(self.cfg, num_pages, page,
-                                      self.cache_dtype, self.device)
+                                      self.cache_dtype, self.device,
+                                      quantized=quantized)
                 for _ in range(self.cfg.num_layers)]
 
     def insert_cache_pages(self, caches, rows, tables):
         """Admission into the page pool, in place: scatter prefilled rows
         (per-layer ``KVCache`` (b, Hkv, S, hd)) through the admitted rows'
-        (b, P) page tables.  Only the named pages (and the park page)
-        change."""
+        (b, P) page tables, quantizing them for an int8 pool.  Only the
+        named pages (and the park page) change."""
         tables = torch.as_tensor(tables, device=self.device)
         for c, r in zip(caches, rows):
             layers.insert_pages(c, r, tables)
@@ -196,6 +246,31 @@ class LM:
                 p, x, lambda ap, h, c=c: layers.attention_decode_pages(
                     ap, h, pos, c, tables, self.cfg, wmask=live)[0])
         return self._head(params, x), caches
+
+    def verify_step_pages(self, params, caches, tokens, pos, tables,
+                          wmask=None, need_logits: bool = True,
+                          offsets=None, tree=None):
+        """K tokens per row against the shared page pool: the (b, K)
+        block at per-row offsets ``pos .. pos+K-1`` through the rows'
+        (b, P) page tables, k/v written into the rows' own pages (False
+        ``wmask`` tokens to the park page).  Unlike ``prefill_chunk`` no
+        whole row moves and nothing is zeroed: a recycled page is
+        rewritten before any of its positions is read.  ``offsets`` /
+        ``tree`` select tree verification (see
+        ``layers.attention_verify_pages``).  Returns (logits (b, K, V) f32
+        or None, caches)."""
+        tables = torch.as_tensor(tables, device=self.device)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        x = self._embed_in(params, tokens)
+        for p, c in zip(params["blocks"], caches):
+            x = self._block(
+                p, x, lambda ap, h, c=c: layers.attention_verify_pages(
+                    ap, h, pos, c, tables, self.cfg, wmask=wmask,
+                    offsets=offsets, tree=tree)[0])
+        return (self._head(params, x) if need_logits else None), caches
+
+    # chunked admission is the verify pass pointed at the page pool
+    prefill_chunk_pages = verify_step_pages
 
 
 def build_model(cfg: ArchConfig, cache_dtype=torch.bfloat16,

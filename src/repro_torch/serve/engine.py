@@ -8,7 +8,9 @@ batch advanced one token at a time:
                        per-slot token/position, with a free-list over slots
   * ``admit``        — prefill a prompt into a free slot's cache row
                        (``LM.insert_cache_rows``: only that row changes) or
-                       into its own pages (``LM.insert_cache_pages``)
+                       into its own pages (``LM.insert_cache_pages``); with
+                       ``prefill_chunk=C`` reserve the slot and stream the
+                       prompt in (b, C) chunks, one per tick, behind decode
   * ``step``         — one decode step for every live slot; per-request
                        positions go down to the attention kernel as a
                        ``(B,)`` vector
@@ -26,7 +28,7 @@ may replace to inject another framework's draws.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -123,11 +125,13 @@ def _sample(logits, temperature: float, gumbel=None) -> torch.Tensor:
 
 class EngineKey(NamedTuple):
     """Frozen cache key for ONE step-engine configuration: every knob that
-    changes the cache layout is a named field.  ``page_size is None``
-    means the row cache layout (``paged=False``)."""
+    changes a device program or the cache layout is a named field.
+    ``page_size is None`` means the row cache layout (``paged=False``)."""
     name: Optional[str] = None          # model context (None: single-model)
     batch_size: int = 1
+    prefill_chunk: Optional[int] = None
     page_size: Optional[int] = None     # None == row layout (paged off)
+    quantize_kv: Optional[str] = None
 
 
 class ServeStats:
@@ -184,8 +188,23 @@ class DecodeState:
     table_dev: Optional[torch.Tensor] = None   # device copy of ``table``
 
 
-_NOT_PORTED = ("prefill_chunk", "multi_step", "quantize_kv", "prefix_cache",
-               "bank", "shards", "mesh", "local_read")
+@dataclass
+class _PendingPrefill:
+    """One admitted-but-still-prefilling request (chunked admission): its
+    slots are reserved, its prompt streams into their cache rows (or
+    pages) one chunk per engine tick."""
+    tokens: np.ndarray                    # (b, S) full prompt, int32
+    gens: list                            # Generation handles (slots set)
+    rseeds: np.ndarray                    # (b,) int64 per-row seeds
+    seeded: np.ndarray                    # (b,) bool
+    done: int = 0                         # prompt tokens already chunked
+    tables: Optional[np.ndarray] = None   # (b, P) page tables (paged mode)
+    started: bool = False                 # first chunk has executed
+    #                                       (admit-to-first-chunk latency)
+
+
+_NOT_PORTED = ("multi_step", "prefix_cache", "bank", "shards", "mesh",
+               "local_read")
 
 
 class StepEngine(SlotPool):
@@ -212,9 +231,24 @@ class StepEngine(SlotPool):
     to the park page so a freed page can be recycled at once.  Sampling
     never sees the cache layout, so paged and row streams are identical.
 
-    The JAX engine's other options — ``prefill_chunk``, ``multi_step``,
-    ``quantize_kv``, ``prefix_cache``, ``bank``, ``shards``/``mesh``/
-    ``local_read`` — are not ported yet and raise ``NotImplementedError``.
+    ``prefill_chunk=C`` switches admission to *chunked prefill*:
+    ``admit`` reserves the slots and queues the prompt, and each tick runs
+    at most ONE (b, C) chunk (``LM.prefill_chunk[_pages]``, the verify
+    pass pointed at admission) before the decode step, so a live row
+    waits for one chunk per step, never a whole prompt.  A short prompt
+    may jump ahead of a long one's queued chunks, at most
+    ``admit_jump_limit`` times in a row.  The final chunk samples the
+    first token under the one-shot admission draw rules, so streams are
+    token-identical across chunk sizes.
+
+    ``quantize_kv="int8"`` (paged only) stores the page pool as int8
+    codes with per-token-per-head f32 scales: about half the bytes per
+    page.  Writes quantize; the paged kernels dequantize in registers.
+    Outputs are close to, not bitwise equal to, the full-precision pool's.
+
+    The JAX engine's other options — ``multi_step``, ``prefix_cache``,
+    ``bank``, ``shards``/``mesh``/``local_read`` — are not ported yet and
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, model: LM, batch_size: int, max_len: int,
@@ -224,14 +258,13 @@ class StepEngine(SlotPool):
                  num_pages: Optional[int] = None,
                  telemetry: Optional[Telemetry] = None,
                  sampler: Optional[GumbelDraws] = None,
-                 prefill_chunk: Optional[int] = None, multi_step: int = 1,
+                 prefill_chunk: Optional[int] = None,
+                 admit_jump_limit: int = 4, multi_step: int = 1,
                  quantize_kv: Optional[str] = None,
                  prefix_cache: bool = False, bank=None,
                  shards: Optional[int] = None, mesh=None,
                  local_read: bool = False):
-        unported = dict(prefill_chunk=prefill_chunk is not None,
-                        multi_step=multi_step != 1,
-                        quantize_kv=quantize_kv is not None,
+        unported = dict(multi_step=multi_step != 1,
                         prefix_cache=bool(prefix_cache),
                         bank=bank is not None,
                         shards=shards not in (None, 1),
@@ -250,6 +283,21 @@ class StepEngine(SlotPool):
         self.eos_id = eos_id
         self.sampler = sampler if sampler is not None else GumbelDraws(
             model.device)
+        if quantize_kv not in (None, "int8"):
+            raise ValueError(f"quantize_kv must be None or 'int8', got "
+                             f"{quantize_kv!r}")
+        if quantize_kv is not None and not paged:
+            raise ValueError(
+                "quantize_kv targets the shared page pool: it needs "
+                "paged=True (the row cache stays full precision)")
+        self.quantize_kv = quantize_kv
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        self.admit_jump_limit = admit_jump_limit
+        self._jumps = 0              # consecutive short-prompt jump-aheads
+        self._pending: deque[_PendingPrefill] = deque()
 
         self.paged = paged
         if paged:
@@ -299,8 +347,9 @@ class StepEngine(SlotPool):
             self._pages.reset()
         caches = self.state.caches if self.state is not None else None
         if caches is None:
-            caches = (self.model.init_page_pool(self.num_pages,
-                                                self.page_size)
+            caches = (self.model.init_page_pool(
+                          self.num_pages, self.page_size,
+                          quantized=self.quantize_kv is not None)
                       if self.paged else
                       self.model.init_cache(B, self.max_len))
         table = np.zeros((B, self.pages_per_row), np.int32)
@@ -315,6 +364,8 @@ class StepEngine(SlotPool):
                        if self.paged else None))
         self.sampler.reset(self.seed if seed is None else seed)
         self._pool_reset()
+        self._pending.clear()
+        self._jumps = 0
 
     def _call(self, fn, params, *args):
         if self.runner is None:
@@ -322,6 +373,9 @@ class StepEngine(SlotPool):
         return self.runner(fn, params, *args)
 
     # -------------------------------------------------------------- queries
+    def pending_slots(self) -> int:
+        return sum(len(ps.gens) for ps in self._pending)
+
     def free_pages(self) -> int:
         return self._pages.free_pages() if self.paged else 0
 
@@ -354,6 +408,32 @@ class StepEngine(SlotPool):
             tables[i, :npages] = pages[i * npages:(i + 1) * npages]
         return tables, pages
 
+    def _reserve(self, b: int, S: int, max_new: int):
+        """Take b slots and, paged, their pages -> (slots, tables or
+        None, flat page list); on a shortage nothing stays taken."""
+        slots = self._take_slots(b)
+        if not self.paged:
+            return slots, None, []
+        try:
+            tables, pages = self._take_pages(b, S, max_new)
+        except BaseException:
+            self._restore_slots(slots)
+            raise
+        return slots, tables, pages
+
+    def _hand_pages(self, gens, pages, S: int, max_new: int) -> None:
+        """Record each generation's own pages (released on retire)."""
+        if self.paged:
+            npages = self.pages_needed(S, max_new)
+            for i, g in enumerate(gens):
+                g.pages = pages[i * npages:(i + 1) * npages]
+
+    def _set_tables(self, slots, tables) -> None:
+        st = self.state
+        st.table[slots] = tables
+        st.table_dev[torch.as_tensor(slots, device=self.device).long()
+                     ] = torch.from_numpy(tables).to(self.device)
+
     # ------------------------------------------------------- device programs
     def _admit_fn(self, params, tokens, slots, tables, rseeds, seeded):
         """Prefill (b, S) prompts into cache rows `slots` (paged: into the
@@ -363,10 +443,30 @@ class StepEngine(SlotPool):
         token it would in a full batched prefill.  Seeded rows draw from
         their own generator (folded with S: the first token is produced
         at position S).  Sampling never sees the cache layout."""
-        st, model, T = self.state, self.model, self.temperature
+        st, model = self.state, self.model
         b, S = tokens.shape
         logits, rows = model.prefill(params, tokens, self.max_len)
-        last = logits[:, -1]                                  # (b, V) f32
+        first = self._admit_sample(logits[:, -1], slots, rseeds, seeded,
+                                   np.full((b,), S))
+        if self.paged:
+            model.insert_cache_pages(st.caches, rows, tables)
+            self._set_tables(slots, tables)
+        else:
+            model.insert_cache_rows(st.caches, rows, slots)
+        st.tok[slots] = first
+        st.pos[slots] = S
+        st.rseed[slots] = rseeds
+        st.seeded[slots] = seeded
+        return first
+
+    def _admit_sample(self, last, slots, rseeds, seeded, plen):
+        """First tokens of admitted rows from their last prompt logits
+        ``last`` ((b, V) f32), under the admission draw: row r of one
+        (B, V) field indexed by slot; seeded rows draw from their own
+        generator folded with the prompt length ``plen`` (the first token
+        is produced there).  One-shot and chunked admission share it, so
+        their streams are token-identical."""
+        T = self.temperature
         g = None
         if T > 0.0:
             V = last.shape[-1]
@@ -376,17 +476,42 @@ class StepEngine(SlotPool):
             if seeded.any():
                 idx = np.nonzero(seeded)[0]
                 g[torch.as_tensor(idx, device=g.device)] = self.sampler.rows(
-                    rseeds[idx], [S] * len(idx), V)
-        first = _sample(last, T, g).cpu().numpy()
+                    rseeds[idx], plen[idx], V)
+        return _sample(last, T, g).cpu().numpy()
+
+    def _chunk_fn(self, params, tokens, pos, slots, tables, final=None):
+        """One prefill chunk: the (b, C) block's k/v go into cache rows
+        ``slots`` at per-row offsets ``pos`` (paged: through the rows'
+        page tables, exactly the chunk's positions).  A streaming chunk
+        stops there: no logits, no sampling.  The final chunk (``final =
+        (nvalid, rseeds, seeded)``) is padded to C with ``nvalid`` real
+        tokens per row (the write mask keeps pad k/v out of the cache);
+        the last real token's logits sample the first token under the
+        one-shot admission draw (``_admit_sample``), and the rows go live
+        at the prompt length ``pos + nvalid``.  Returns the first tokens
+        of a final chunk."""
+        st, model, dev = self.state, self.model, self.device
+        b, W = tokens.shape
+        args = (params, st.caches, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(pos).to(dev))
+        kw = dict(need_logits=final is not None)
+        if final is not None:
+            nv = torch.from_numpy(final[0]).to(dev)
+            kw["wmask"] = torch.arange(W, device=dev)[None, :] < nv[:, None]
         if self.paged:
-            model.insert_cache_pages(st.caches, rows, tables)
-            st.table[slots] = tables
-            st.table_dev[torch.as_tensor(slots, device=self.device).long()
-                         ] = torch.from_numpy(tables).to(self.device)
+            logits, _ = model.prefill_chunk_pages(
+                *args, torch.from_numpy(tables).to(dev), **kw)
         else:
-            model.insert_cache_rows(st.caches, rows, slots)
+            logits, _ = model.prefill_chunk(
+                *args, torch.from_numpy(slots).to(dev), **kw)
+        if final is None:
+            return None
+        nvalid, rseeds, seeded = final
+        last = logits[torch.arange(b, device=dev), nv.long() - 1]  # (b, V)
+        plen = pos + nvalid
+        first = self._admit_sample(last, slots, rseeds, seeded, plen)
         st.tok[slots] = first
-        st.pos[slots] = S
+        st.pos[slots] = plen
         st.rseed[slots] = rseeds
         st.seeded[slots] = seeded
         return first
@@ -427,10 +552,16 @@ class StepEngine(SlotPool):
               metas: Optional[list] = None,
               seeds: Optional[list] = None,
               submitted_at: Optional[float] = None) -> list[Generation]:
-        """Admit (b, S) prompt rows into b free slots: prefill + first
-        token in one whole-prompt program.  Raises if the pool lacks room
-        or the request would run past the cache; callers gate on
-        ``can_admit``.
+        """Admit (b, S) prompt rows into b free slots.  Raises if the pool
+        lacks room or the request would run past the cache; callers gate
+        on ``can_admit``.
+
+        One-shot mode (``prefill_chunk is None``): prefill + first token
+        in one whole-prompt program.  Chunked mode: the slots are
+        reserved and the prompt queued; chunks stream in one per
+        subsequent ``step``/``prefill_tick``, and the returned
+        ``Generation``s stay token-less until their final chunk samples
+        the first token.
 
         ``seeds``: optional per-row sampling seeds — ``None`` entries keep
         the pool's shared draw schedule; an int pins that row to its own
@@ -442,14 +573,10 @@ class StepEngine(SlotPool):
         if S + max_new > self.max_len:
             raise ValueError(f"prompt {S} + {max_new} new tokens exceeds "
                              f"max_len {self.max_len}")
-        slots = self._take_slots(b)
-        tables, pages = None, []
-        if self.paged:
-            try:
-                tables, pages = self._take_pages(b, S, max_new)
-            except BaseException:
-                self._restore_slots(slots)
-                raise
+        if self.prefill_chunk is not None:
+            return self._admit_chunked(tokens, max_new, metas, rseeds,
+                                       seeded, submitted_at=submitted_at)
+        slots, tables, pages = self._reserve(b, S, max_new)
         try:
             first = self._call(self._admit_fn, params, tokens,
                                np.asarray(slots, np.int64), tables, rseeds,
@@ -461,16 +588,130 @@ class StepEngine(SlotPool):
             raise
         gens = self._register(slots, S, max_new, metas, first=first,
                               submitted_at=submitted_at)
-        if self.paged:
-            npages = self.pages_needed(S, max_new)
-            for i, g in enumerate(gens):
-                g.pages = pages[i * npages:(i + 1) * npages]
+        self._hand_pages(gens, pages, S, max_new)
         if self._retire_done(gens):
             # a slot freed with no step in between (steps==1 / EOS at
             # admission): advance the draws so a same-boundary
             # re-admission of that slot cannot reuse this draw field.
             self._salt_admit_key()
         return gens
+
+    def _admit_chunked(self, tokens, max_new, metas, rseeds, seeded,
+                       submitted_at=None) -> list[Generation]:
+        """Reserve slots (and pages) and queue the prompt for chunked
+        prefill.  The reserved rows park at the LAST cache slot: every
+        decode step still writes a (garbage) k/v for every row, and slot
+        ``max_len-1`` is the one slot never read (with ``prompt + max_new
+        <= max_len`` a row's decode feeds stop at ``max_len-2``).  Paged
+        rows' tables go live now: the decode steps that run meanwhile
+        route the reserved rows' writes to the park page, and the final
+        chunk's row needs its table at the next step."""
+        b, S = tokens.shape
+        slots, tables, pages = self._reserve(b, S, max_new)
+        if self.paged:
+            self._set_tables(slots, tables)
+        self.state.pos[slots] = self.max_len - 1
+        gens = self._register(slots, S, max_new, metas,
+                              submitted_at=submitted_at)
+        self._hand_pages(gens, pages, S, max_new)
+        self._pending.append(_PendingPrefill(
+            tokens=np.asarray(tokens, np.int32), gens=gens, rseeds=rseeds,
+            seeded=seeded, tables=tables))
+        return gens
+
+    def _promote_pending(self):
+        """Admission priority: a short prompt (whole prompt in ONE chunk)
+        may jump ahead of a long prompt's queued chunk work -- it costs
+        the long prompt one tick and gets the short request its first
+        token at once.  After ``admit_jump_limit`` consecutive jumps the
+        head MUST run a chunk, so a stream of shorts delays a long prompt
+        by at most that many ticks per chunk.  Rotates the chosen entry to
+        the queue front."""
+        C = self.prefill_chunk
+        head = self._pending[0]
+        if (len(self._pending) > 1 and head.tokens.shape[1] - head.done > C
+                and self._jumps < self.admit_jump_limit):
+            for i in range(1, len(self._pending)):
+                if self._pending[i].tokens.shape[1] <= C:
+                    ps = self._pending[i]
+                    del self._pending[i]
+                    self._pending.appendleft(ps)
+                    self._jumps += 1
+                    return
+        self._jumps = 0                  # the head makes progress
+
+    def _note_chunk(self, ps: _PendingPrefill, t0: float, start: int,
+                    end: int, final: bool):
+        """Chunk telemetry: the admit-to-first-chunk latency sample
+        (admission until its first chunk starts) and the ``prefill-chunk``
+        span on this engine's track."""
+        now = self.telemetry.clock()
+        if not ps.started:
+            ps.started = True
+            self.telemetry.observe("admit_to_first_chunk_s",
+                                   t0 - ps.gens[0].admitted_at)
+        if self._trace.enabled:
+            self._trace.span(
+                "prefill-chunk", f"{self.telemetry.prefix}eng", t0, now,
+                args={"rid": ps.gens[0].rid, "start": start, "end": end,
+                      "final": final})
+
+    def prefill_tick(self, params) -> list[Generation]:
+        """Run at most ONE chunk program -- the admission budget of a
+        tick.  Returns generations that finished at this boundary (a
+        final chunk can instant-retire: steps == 1, or EOS as the first
+        token)."""
+        if not self._pending:
+            return []
+        C = self.prefill_chunk
+        if self.admit_jump_limit:
+            self._promote_pending()
+        ps = self._pending[0]
+        b, S = ps.tokens.shape
+        start = ps.done
+        end = min(start + C, S)
+        nvalid = end - start
+        chunk = np.zeros((b, C), np.int32)
+        chunk[:, :nvalid] = ps.tokens[:, start:end]
+        slots = np.asarray([g.slot for g in ps.gens], np.int64)
+        pos = np.full((b,), start, np.int32)
+        t0 = self.telemetry.clock()
+        try:
+            if end < S:
+                self._call(self._chunk_fn, params, chunk, pos, slots,
+                           ps.tables)
+                ps.done = end
+                self._note_chunk(ps, t0, start, end, final=False)
+                return []
+            first = self._call(self._chunk_fn, params, chunk, pos, slots,
+                               ps.tables, (np.full((b,), nvalid, np.int32),
+                                           ps.rseeds, ps.seeded))
+        except BaseException:
+            # a failed chunk abandons the whole request: its rows go back
+            # so the pool keeps serving (the caller fails the futures).
+            # Pages restore in ONE call, in their original take order.
+            self._pending.popleft()
+            pages = []
+            for g in ps.gens:
+                self.slots[g.slot] = None
+                pages += g.pages or []
+                g.pages = None
+            if pages:
+                self._pages.restore(pages)
+            self._restore_slots([g.slot for g in ps.gens])
+            raise
+        self._pending.popleft()
+        self._note_chunk(ps, t0, start, end, final=True)
+        now = self.telemetry.clock()
+        for i, g in enumerate(ps.gens):
+            g.tokens.append(int(first[i]))
+            self._live[g.slot] = True
+            self.stats["tokens_out"] += 1
+            self._note_first_token(g, now)
+        finished = self._retire_done(ps.gens)
+        if finished:
+            self._salt_admit_key()
+        return finished
 
     # ----------------------------------------------------------- retirement
     def _retire_done(self, gens: list[Generation]) -> list[Generation]:
@@ -488,11 +729,13 @@ class StepEngine(SlotPool):
 
     # ---------------------------------------------------------------- step
     def step(self, params) -> list[Generation]:
-        """One engine tick: one decode step for every live slot.  Returns
-        the generations that finished (EOS or step limit) at this
-        boundary; their slots are already back on the free-list."""
+        """One engine tick: at most one prefill chunk (chunked admission),
+        then one decode step for every live slot.  Returns the generations
+        that finished (EOS or step limit) at this boundary; their slots
+        are already back on the free-list."""
+        finished = self.prefill_tick(params) if self._pending else []
         if not self._live.any():
-            return []
+            return finished
         t0 = self.telemetry.clock()
         nxt = self._call(self._step_fn, params, self._live.copy())
         now = self.telemetry.clock()
@@ -507,7 +750,7 @@ class StepEngine(SlotPool):
             stepped.append(g)
         self.stats["tokens_out"] += len(stepped)
         self._note_tick(t0, now, 1, len(stepped))
-        return self._retire_done(stepped)
+        return finished + self._retire_done(stepped)
 
 
 # ---------------------------------------------------------------------------

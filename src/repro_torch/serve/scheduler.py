@@ -368,9 +368,12 @@ class ContinuousScheduler:
 
     ``paged=True`` gives every context's engine a paged slot pool
     (``page_size`` tokens per page); admission then also gates on free
-    pages.  The JAX scheduler's speculative contexts (``draft``), chunked
-    prefill, multi-step decode, int8 and prefix-cached banks and sharded
-    banks are not ported yet: a non-empty ``draft`` raises.
+    pages.  ``prefill_chunk=C`` streams each admitted prompt into its
+    slot in (b, C) chunks, one per tick, behind the decode steps;
+    ``quantize_kv="int8"`` (paged) stores the page pools as int8 codes
+    with per-token scales.  The JAX scheduler's speculative contexts
+    (``draft``), multi-step decode, prefix-cached and sharded banks are
+    not ported yet: a non-empty ``draft`` raises.
 
     Per-request seeds ARE honored: a seeded row draws from its own
     generator state (folded with the row's token position), so a seeded
@@ -382,7 +385,9 @@ class ContinuousScheduler:
                  age_weight: float = 10.0, cost_weight: float = 1.0,
                  switch_margin: float = 1.5, preempt_margin: float = 6.0,
                  draft: Optional[dict] = None,
-                 paged: bool = False, page_size: int = 256):
+                 prefill_chunk: Optional[int] = None,
+                 paged: bool = False, page_size: int = 256,
+                 quantize_kv: Optional[str] = None):
         if draft:
             raise NotImplementedError(
                 "speculative contexts (draft=) are not yet ported to "
@@ -395,6 +400,11 @@ class ContinuousScheduler:
         # admission additionally gates on free pages via ``can_admit``
         self.paged = paged
         self.page_size = page_size
+        # chunked admission: a long prompt's prefill hides behind decode
+        # steps one (b, C) chunk per tick instead of stalling them
+        self.prefill_chunk = prefill_chunk
+        # int8 page pool (paged mode): about half the bytes per page
+        self.quantize_kv = quantize_kv
         self.age_weight = age_weight
         self.cost_weight = cost_weight
         self.switch_margin = switch_margin
@@ -510,8 +520,10 @@ class ContinuousScheduler:
     # ------------------------------------------------------------ engines
     def _engine(self, name: str):
         eng = self.server.step_engine(name, self.batch_size,
+                                      prefill_chunk=self.prefill_chunk,
                                       paged=self.paged,
-                                      page_size=self.page_size)
+                                      page_size=self.page_size,
+                                      quantize_kv=self.quantize_kv)
         if eng.runner is None:
             cse = self.server.engine
             # every device program (prefill + step) routes through the
@@ -531,7 +543,8 @@ class ContinuousScheduler:
         if self.paged:
             ps = min(self.page_size, self.server._served[name].max_len)
         return EngineKey(name=name, batch_size=self.batch_size,
-                         page_size=ps)
+                         prefill_chunk=self.prefill_chunk, page_size=ps,
+                         quantize_kv=self.quantize_kv)
 
     def _live_engines(self):
         out = {}

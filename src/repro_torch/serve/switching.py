@@ -110,22 +110,29 @@ class SwitchableServer:
             eng.params = params
         return eng
 
-    def step_engine(self, name: str, batch_size: int, paged: bool = False,
-                    page_size: int = 256) -> StepEngine:
-        """Per-context continuous-batching engine (one per pool shape).
+    def step_engine(self, name: str, batch_size: int,
+                    prefill_chunk: Optional[int] = None,
+                    paged: bool = False, page_size: int = 256,
+                    quantize_kv: Optional[str] = None) -> StepEngine:
+        """Per-context continuous-batching engine (one per configuration).
         Its decode state — slot-pooled KV rows or pages, positions,
         free-list — persists across context switches, so a paused context
         resumes exactly where its last step left off; weights are NOT
         captured (every call runs against the engine slot's current
-        buffers via the scheduler's runner hook)."""
+        buffers via the scheduler's runner hook).  Every engine knob is a
+        field of the frozen ``EngineKey``: chunked and one-shot, int8 and
+        full-precision engines of one context are different engines."""
         sm = self._served[name]
         eff_ps = min(page_size, sm.max_len) if paged else None
-        key = EngineKey(name=name, batch_size=batch_size, page_size=eff_ps)
+        key = EngineKey(name=name, batch_size=batch_size,
+                        prefill_chunk=prefill_chunk, page_size=eff_ps,
+                        quantize_kv=quantize_kv)
         eng = self._step_engines.get(key)
         if eng is None:
             eng = StepEngine(sm.model, batch_size, sm.max_len,
-                             temperature=sm.temperature, paged=paged,
-                             page_size=page_size,
+                             temperature=sm.temperature,
+                             prefill_chunk=prefill_chunk, paged=paged,
+                             page_size=page_size, quantize_kv=quantize_kv,
                              telemetry=self.telemetry.scoped(
                                  f"eng.{next(self._eng_seq)}."))
             self._step_engines[key] = eng

@@ -16,7 +16,10 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, mha_reference)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    paged_decode_attention, paged_decode_reference)
+    paged_decode_attention, paged_decode_reference, paged_verify_attention,
+    paged_verify_reference)
+from repro_torch.kernels.verify_attention.ops import (  # noqa: E402
+    verify_attention, verify_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -89,3 +92,174 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="group"):
         decode_attention(torch.zeros(1, 48, 64, dtype=torch.bfloat16,
                                      device="cuda"), kv, kv, 3)
+
+
+# ---------------------------------------------------------------------------
+# verify (chunked prefill) and the int8 page pool
+# ---------------------------------------------------------------------------
+
+def _int8_pool(gen, NP, Hkv, page, hd):
+    """Random int8 codes and their (NP, Hkv, page) f32 scales."""
+    codes = torch.randint(-127, 128, (NP, Hkv, page, hd), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    scale = torch.rand((NP, Hkv, page), generator=gen, device="cuda") / 64
+    return codes, scale
+
+
+def _tables(gen, B, P, page, pos, Kb=0):
+    """(B, P) tables over B*P+1 pages in shuffled order; entries whose
+    first position lies at or past ``pos + Kb`` park on page 0."""
+    ids = (torch.randperm(B * P, generator=gen, device="cuda") + 1)
+    ids = ids.reshape(B, P).to(torch.int32)
+    first = torch.arange(P, device="cuda")[None, :] * page
+    return torch.where(first >= pos[:, None] + max(Kb, 1),
+                       torch.zeros_like(ids), ids).contiguous()
+
+
+def _tree(gen, B, Kb):
+    """Random ancestor bitmasks: node i sees itself and a random subset of
+    the nodes before it."""
+    bits = torch.randint(0, 1 << 30, (B, Kb), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    i = torch.arange(Kb, device="cuda", dtype=torch.int32)
+    below = (torch.ones_like(i) << i) - 1
+    return ((bits & below) | (torch.ones_like(i) << i)).contiguous()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("Kb", [1, 5, 128])
+def test_verify_and_int8_kernels_match_plain(gen, hd, G, Kb):
+    """Row verify, paged verify (bf16 and int8 pools, causal and, for
+    Kb <= 31, a tree mask) and int8 paged decode, each against its plain
+    version on the same CUDA tensors; rows at pos 0 (the block alone)
+    and mid-page.  Each body counts its own launches."""
+    kernels.reset_launch_counts()
+    B, Hkv, page, P = 2, 2, 16, 4
+    H, S = G * Hkv, P * page
+    pos = torch.tensor([0, 37], dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, Kb, H, hd)
+    bk, bv = _rn(gen, B, Kb, Hkv, hd), _rn(gen, B, Kb, Hkv, hd)
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    _close(verify_attention(q, k, v, bk, bv, pos),
+           verify_reference(q, k, v, bk, bv, pos))
+    table = _tables(gen, B, P, page, pos)
+    kp, vp = _rn(gen, B * P + 1, Hkv, page, hd), _rn(gen, B * P + 1, Hkv,
+                                                    page, hd)
+    kq, ks = _int8_pool(gen, B * P + 1, Hkv, page, hd)
+    vq, vs = _int8_pool(gen, B * P + 1, Hkv, page, hd)
+    trees = [None] + ([_tree(gen, B, Kb)] if Kb <= kernels.MAX_TREE else [])
+    for tree in trees:
+        _close(verify_attention(q, k, v, bk, bv, pos, tree=tree),
+               verify_reference(q, k, v, bk, bv, pos, tree=tree))
+        _close(paged_verify_attention(q, kp, vp, bk, bv, table, pos,
+                                      tree=tree),
+               paged_verify_reference(q, kp, vp, bk, bv, table, pos,
+                                      tree=tree))
+        i8 = dict(k_scale=ks, v_scale=vs, tree=tree)
+        _close(paged_verify_attention(q, kq, vq, bk, bv, table, pos, **i8),
+               paged_verify_reference(q, kq, vq, bk, bv, table, pos, **i8))
+    qd = q[:, 0].contiguous()
+    _close(paged_decode_attention(qd, kq, vq, table, pos, k_scale=ks,
+                                  v_scale=vs),
+           paged_decode_reference(qd, kq, vq, table, pos, k_scale=ks,
+                                  v_scale=vs))
+    torch.cuda.synchronize()
+    n = len(trees)
+    assert (verify_attention.launches, paged_verify_attention.launches,
+            paged_verify_attention.launches_int8,
+            paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (1 + n, n, n, 0, 1)
+
+
+def test_verify_kernels_never_read_past_pos_or_the_park_page(gen):
+    """NaN in the park page (its int8 scales too), in allocated pages and
+    slots at or past ``pos`` and in row-cache slots at or past ``pos``
+    changes nothing: the verify kernels read only the cache before the
+    block, the int8 decode only positions up to ``pos``."""
+    B, H, Hkv, P, page, hd, Kb = 2, 8, 2, 4, 16, 64, 5
+    q = _rn(gen, B, Kb, H, hd)
+    bk, bv = _rn(gen, B, Kb, Hkv, hd), _rn(gen, B, Kb, Hkv, hd)
+    pos = torch.tensor([20, 0], dtype=torch.int32, device="cuda")
+    table = (torch.randperm(B * P, generator=gen, device="cuda") + 1)
+    table = table.reshape(B, P).to(torch.int32)
+    table[1, 2:] = 0                                # dead entries: park
+    kp, vp = _rn(gen, B * P + 1, Hkv, page, hd), _rn(gen, B * P + 1, Hkv,
+                                                    page, hd)
+    kq, ks = _int8_pool(gen, B * P + 1, Hkv, page, hd)
+    vq, vs = _int8_pool(gen, B * P + 1, Hkv, page, hd)
+    k, v = _rn(gen, B, Hkv, P * page, hd), _rn(gen, B, Hkv, P * page, hd)
+    i8 = dict(k_scale=ks, v_scale=vs)
+
+    def run():
+        return (paged_verify_attention(q, kp, vp, bk, bv, table, pos),
+                paged_verify_attention(q, kq, vq, bk, bv, table, pos, **i8),
+                paged_decode_attention(q[:, 0].contiguous(), kq, vq, table,
+                                       pos, **i8),
+                verify_attention(q, k, v, bk, bv, pos))
+
+    base = run()
+    nan = float("nan")
+    t = table.tolist()
+    for pid in [0, t[0][2], t[0][3], t[1][1]]:      # never read at all
+        kp[pid], vp[pid], ks[pid], vs[pid] = nan, nan, nan, nan
+    for pool in (kp, vp):                           # row 0: slots 21..31
+        pool[t[0][1], :, 5:] = nan                  # of its second page
+    for sc in (ks, vs):
+        sc[t[0][1], :, 5:] = nan
+    kp[t[0][1], :, 4], vp[t[0][1], :, 4] = nan, nan  # verify: slot 20 too
+    k[0, :, 20:], v[0, :, 20:] = nan, nan
+    k[1], v[1] = nan, nan
+    got = run()
+    for a, b in zip(got, base):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_verify_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    B, Hkv, hd, page, P = 1, 2, 64, 16, 2
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    table = torch.ones(1, P, dtype=torch.int32, device="cuda")
+    kp = torch.zeros(3, Hkv, page, hd, dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros(B, Hkv, P * page, hd, dtype=torch.bfloat16,
+                    device="cuda")
+
+    def blk(Kb, H=8, d=hd):
+        return (torch.zeros(B, Kb, H, d, dtype=torch.bfloat16,
+                            device="cuda"),
+                torch.zeros(B, Kb, Hkv, d, dtype=torch.bfloat16,
+                            device="cuda"))
+
+    q, bk = blk(32)
+    tree = torch.ones(B, 32, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="tree"):       # K > 31 with a tree
+        verify_attention(q, k, k, bk, bk, pos, tree=tree)
+    with pytest.raises(ValueError, match="tree"):
+        paged_verify_attention(q, kp, kp, bk, bk, table, pos, tree=tree)
+    q, bk = blk(4, H=6)                                 # G = 3
+    with pytest.raises(ValueError, match="group"):
+        verify_attention(q, k, k, bk, bk, pos)
+    q, bk = blk(4, d=48)                                # head dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_verify_attention(q, kp[..., :48].contiguous(),
+                               kp[..., :48].contiguous(), bk, bk, table,
+                               pos)
+    q, bk = blk(4)
+    with pytest.raises(TypeError, match="float32"):     # int8 pool, scales
+        paged_verify_attention(q, kp.to(torch.int8), kp.to(torch.int8), bk,
+                               bk, table, pos,
+                               k_scale=torch.zeros(3, Hkv, page,
+                                                   device="cuda",
+                                                   dtype=torch.float16),
+                               v_scale=torch.zeros(3, Hkv, page,
+                                                   device="cuda",
+                                                   dtype=torch.float16))
+    with pytest.raises(TypeError, match="int8"):        # bf16 codes + scales
+        paged_decode_attention(q[:, 0].contiguous(), kp, kp, table, pos,
+                               k_scale=torch.zeros(3, Hkv, page,
+                                                   device="cuda"),
+                               v_scale=torch.zeros(3, Hkv, page,
+                                                   device="cuda"))
+    with pytest.raises(ValueError, match="both"):
+        paged_decode_attention(q[:, 0].contiguous(), kp, kp, table, pos,
+                               k_scale=torch.zeros(3, Hkv, page,
+                                                   device="cuda"))

@@ -197,8 +197,7 @@ def test_generate_and_generate_paged_agree(pair):
 
 def test_unported_options_raise(pair):
     tm, _, _, _ = pair
-    for kw in (dict(prefill_chunk=8), dict(multi_step=2),
-               dict(quantize_kv="int8"), dict(prefix_cache=True)):
+    for kw in (dict(multi_step=2), dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             StepEngine(tm, batch_size=2, max_len=32, **kw)
     server, _ = launch.build_server(["supersub-super"], 2, 32,
@@ -307,9 +306,9 @@ def test_launcher_report(mode, capsys):
 
 def test_launcher_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit) as e:
-        launch.main(["--platform", "cpu", "--prefix-cache", "--multi-step",
-                     "4"])
+        launch.main(["--platform", "cpu", "--mode", "speculative",
+                     "--prefix-cache", "--multi-step", "4"])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "--multi-step" in err and "--prefix-cache" in err
-    assert "not yet ported" in err
+    assert "--mode speculative" in err and "not yet ported" in err
