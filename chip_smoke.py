@@ -8,29 +8,40 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. setup    — the card's name and power limit (nvidia-smi), then every
                 hand-written kernel built from the sources in this
                 checkout (one nvcc per source, all in parallel).
-  2. kernels  — each kernel body at the main path's shapes (tinyllama-1.1b:
-                H=32, Hkv=4, hd=64, bf16; the verify bodies at chunk
-                width 128, the tree mask at 8) against its plain PyTorch
-                version on the card (max abs error within 2e-2), timed
-                with CUDA events beside its plain version, one masked
-                ``scaled_dot_product_attention`` call for the same work
-                (timed only; the port never calls it) and its bound.
+  2. kernels  — each kernel body at the main path's shapes against its
+                plain PyTorch version on the card, timed with CUDA events
+                beside its plain version, one PyTorch call for the same
+                work where there is one (timed only; the port never calls
+                it) and its bound.  tinyllama-1.1b attention (H=32,
+                Hkv=4, hd=64, bf16; verify at chunk width 128, the tree
+                mask at 8), bf16 within 2e-2; the ring bodies at
+                mixtral-8x7b's (H=32, Hkv=8, hd=128, a 4096-slot ring),
+                each element within 1e-4 + 2**-7 of the plain value, a
+                limit that a one-slot mask fault is shown to leave.  The
+                selective scan at jamba-v0.1-52b's (d_in=8192, N=16, f32,
+                L=512, and L=8 from a carried state) within 1e-4 of the
+                plain version's largest value.
   3. reference — each served model at full width, cut to one layer, on
-                the card (kernels, bf16): ``forward``, one row and one
-                paged decode step, chunked prefill on the row cache and
-                on a page pool, and one decode step over an int8 pool,
-                held against the plain path on the CPU in float32 on the
-                same weights.  Then, logged only, how far an int8 pool
-                moves the full-depth tinyllama-1.1b's logits.
+                the card (kernels, bf16), held against the plain path on
+                the CPU in float32 on the same weights: the dense models'
+                ``forward``, row, paged and int8 decode, chunked prefill
+                on the row cache and a page pool; mixtral-8x7b's forward,
+                prefill, ring decode and a ring verify that wraps; one
+                jamba-v0.1-52b Mamba block's prefill, decode and 8-token
+                verify from its state.  Then, logged only, how far an
+                int8 pool moves the full-depth tinyllama-1.1b's logits.
   4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
                 supersub-super at their published widths, requests
                 alternating contexts, through ContinuousScheduler(paged),
                 ContinuousScheduler(row), SwitchScheduler, and
                 ContinuousScheduler with chunked prefill (C=128) on the
-                row cache, on a page pool and on an int8 page pool.
-                Every request must resolve with the right shape, and each
-                kernel body's launch count (zeroed right before a pass)
-                must rise in the pass that uses it.
+                row cache, on a page pool and on an int8 page pool; then
+                ``continuous_row_moe_hybrid``: mixtral-8x7b (4 layers)
+                and jamba-v0.1-52b (8 layers) at published widths through
+                ContinuousScheduler(row), one mixtral prompt past the
+                window.  Every request must resolve with the right shape,
+                and each kernel route's launch count (zeroed right before
+                a pass) must rise in the pass that uses it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
                 (row and paged, 8 rows): step wall time, device kernel
                 time and busy share, top kernels (torch.profiler).
@@ -51,9 +62,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 TOL = 2e-2                   # bf16 kernel vs plain version on the card
+# the ring bodies, elementwise: |kernel - plain| <= RING_ATOL + RING_RTOL *
+# |plain|.  Both round an f32 result to bf16, so they differ by at most
+# one bf16 ulp (2**-7 of the value); at 4096 live keys a typical output
+# is only about 0.03, so the flat TOL would pass a one-slot mask fault
+RING_ATOL, RING_RTOL = 1e-4, 2.0 ** -7
+SCAN_RTOL = 1e-4             # f32 scan: max abs error / max |plain|
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12            # H100 SXM f32 peak outside the tensor cores
 H, HKV, HD = 32, 4, 64       # tinyllama-1.1b attention
+MH, MHKV, MHD = 32, 8, 128   # mixtral-8x7b / jamba-v0.1-52b attention
+RING = 4096                  # mixtral-8x7b's window: ring slots
 PROMPT_LENS = (128, 512)     # serving prompt range
 NEW_TOKENS = 32
 N_REQUESTS = 8
@@ -86,8 +106,46 @@ def time_ms(fn, iters: int = 20, flush=None) -> float:
     return total / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def limit_ratio(got, ref, atol: float, rtol: float) -> float:
+    """Largest ``|got - ref| / (atol + rtol * |ref|)`` over the elements:
+    at most 1 where ``got`` is within its limit of ``ref``."""
+    ref = ref.float()
+    return ((got.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def masked_attention(q, k, v, mask):
+    """Plain float32 attention under an explicit mask, rounded to q's
+    dtype: q (B, H, Q, hd); k/v (B, Hkv, T, hd); mask (B, 1, Q, T)."""
+    import torch
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhtd->bhqt", q.float(), k) / q.shape[-1] ** 0.5
+    s = s.masked_fill(~mask, float("-inf"))
+    out = torch.einsum("bhqt,bhtd->bhqd", torch.softmax(s, dim=-1), v)
+    return out.to(q.dtype)
+
+
+def check_sensitivity(name, q, k, v, mask, fault) -> None:
+    """The ring records' limit must catch a one-slot mask fault: in every
+    row where ``fault`` differs from ``mask`` (one key too many or too
+    few), the attention under ``fault`` must leave the limit around the
+    attention under ``mask``.  Logs the weakest such row's ratio."""
+    good = masked_attention(q, k, v, mask).float()
+    bad = masked_attention(q, k, v, fault).float()
+    ratio = ((bad - good).abs() / (RING_ATOL + RING_RTOL * good.abs()))
+    rows = (mask != fault).flatten(1).any(dim=1)
+    weakest = ratio.flatten(1).amax(dim=1)[rows].min().item()
+    log(f"kernel {name}: a one-slot mask fault moves the output to "
+        f"{weakest:.3f} times the limit in the least moved of its "
+        f"{int(rows.sum())} rows")
+    if not weakest > 1.0:
+        raise AssertionError(f"{name}: the limit does not catch a one-slot "
+                             "mask fault")
+
+
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -121,18 +179,29 @@ def kernel_phase(dev) -> list[dict]:
     out = []
 
     def record(name, source, replaces, got, ref, t_k, t_p, t_l, nbytes,
-               flops):
-        err = (got.float() - ref.float()).abs().max().item()
-        bms, by = bound_ms(nbytes, flops)
+               flops, peak=BF16_FLOPS, tol=TOL, rtol=0.0):
+        """One kernel record; ``got``/``ref`` may be tuples of outputs
+        (the error is the largest over them), ``t_l`` None where no
+        library call computes the same function.  Each element must lie
+        within ``tol + rtol * |plain|`` of the plain version."""
+        pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got,
+                                                                     ref)]
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in pairs)
+        ratio = max(limit_ratio(g, r, tol, rtol) for g, r in pairs)
+        bms, by = bound_ms(nbytes, flops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
                "library_ms": t_l}
-        log(f"kernel {name}: max_abs_err={err:.3e} ms={t_k:.4f} "
-            f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={bms:.4f} "
-            f"({by})")
-        if not err <= TOL:
-            raise AssertionError(f"{name}: max abs error {err} > {TOL}")
+        lib = "none" if t_l is None else f"{t_l:.4f}"
+        limit = f"{tol:.3e}" + (f" + {rtol:.3e}|plain|" if rtol else "")
+        log(f"kernel {name}: max_abs_err={err:.3e} (limit {limit}; "
+            f"worst error/limit {ratio:.3f}) ms={t_k:.4f} "
+            f"plain_ms={t_p:.4f} library_ms={lib} bound_ms={bms:.4f} ({by})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: error {ratio} times its limit "
+                                 f"{limit}")
         out.append(rec)
 
     # flash prefill: B=4, S=512
@@ -311,8 +380,137 @@ def kernel_phase(dev) -> list[dict]:
                    flush=flush),
            time_ms(lib(qt, kr, vr, bk, bv, vmask), flush=flush),
            qbytes + 2 * 2 * HD * cache_keys * HKV, flops)
+    ring_records(dev, rn, flush, record)
+    scan_record(dev, gen, flush, record)
     del l2
     return out
+
+
+def ring_records(dev, rn, flush, record) -> None:
+    """Ring decode and ring verify at mixtral-8x7b's shapes (H=32, Hkv=8,
+    hd=128) over a ring of 4096 slots (its window): decode 8 rows at
+    positions 100 to 9000, verify 4 rows with a 128-token block at 0,
+    2000, 4096 and 6000.  The library call is one masked SDPA over the
+    same keys (verify: cache plus block)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_reference)
+    from repro_torch.kernels.verify_attention.ops import (verify_attention,
+                                                          verify_reference)
+
+    S, G = RING, MH // MHKV
+    pos = torch.tensor([100, 1000, 2047, 4095, 4096, 5000, 8191, 9000],
+                       dtype=torch.int32, device=dev)
+    B = pos.numel()
+    q, k, v = rn(B, MH, MHD), rn(B, MHKV, S, MHD), rn(B, MHKV, S, MHD)
+    got = decode_attention(q, k, v, pos, ring=True)
+    torch.cuda.synchronize()
+    ref = decode_reference(q, k, v, pos)
+    idx = torch.arange(S, device=dev)[None, :]
+    mask = ((idx <= (pos % S)[:, None]) | (pos >= S)[:, None])
+    live = int(mask.sum())
+    # the fault: slot (pos+1) % S flipped -- a wrapped row loses its
+    # oldest key, a row below S reads one slot past pos
+    fault = mask ^ (idx == ((pos + 1) % S)[:, None])
+    mask, fault = mask[:, None, None, :], fault[:, None, None, :]
+    check_sensitivity("decode_attention_ring", q[:, :, None], k, v, mask,
+                      fault)
+    record("decode_attention_ring",
+           "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+           "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
+           time_ms(lambda: decode_attention(q, k, v, pos, ring=True),
+                   flush=flush),
+           time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+               flush=flush),
+           2 * 2 * q.numel() + 4 * B + 2 * 2 * live * MHKV * MHD,
+           4 * live * MH * MHD, tol=RING_ATOL, rtol=RING_RTOL)
+
+    K = 128
+    vpos = torch.tensor([0, 2000, 4096, 6000], dtype=torch.int32, device=dev)
+    B = vpos.numel()
+    qv = rn(B, K, MH, MHD)
+    bk, bv = rn(B, K, MHKV, MHD), rn(B, K, MHKV, MHD)
+    kc, vc = rn(B, MHKV, S, MHD), rn(B, MHKV, S, MHD)
+    got = verify_attention(qv, kc, vc, bk, bv, vpos, ring=True)
+    torch.cuda.synchronize()
+    ref = verify_reference(qv, kc, vc, bk, bv, vpos, ring=True)
+    pb = vpos[:, None, None]                                   # (B, 1, 1)
+    cols = torch.arange(S, device=dev)[None, None, :]
+    i = torch.arange(K, device=dev)[None, :, None]
+    p = (pb - 1) - torch.remainder(pb - 1 - cols, S)
+    cvis = (p >= 0) & (p > pb + i - S)                         # (B, K, S)
+    ar = torch.arange(K, device=dev)
+    bvis = (ar[None, :] <= ar[:, None])[None].expand(B, K, K)
+    vmask = torch.cat([cvis, bvis], dim=-1)[:, None]
+    kall = torch.cat([kc, bk.transpose(1, 2)], dim=2)
+    vall = torch.cat([vc, bv.transpose(1, 2)], dim=2)
+    qt = qv.transpose(1, 2)
+    # the fault: p(s) >= pos+i-S for p(s) > pos+i-S -- each query of a
+    # wrapped row sees one key older than its window
+    fvis = torch.cat([(p >= 0) & (p >= pb + i - S), bvis], dim=-1)[:, None]
+    check_sensitivity("verify_attention_ring", qt, kall, vall, vmask, fvis)
+    pairs = int(cvis.sum()) + int(bvis.sum())
+    cache_keys = int(torch.clamp(vpos, max=S).sum())
+    record("verify_attention_ring",
+           "src/repro_torch/kernels/verify_attention/csrc/"
+           "verify_attention.cu",
+           "src/repro/kernels/verify_attention/kernel.py:113", got, ref,
+           time_ms(lambda: verify_attention(qv, kc, vc, bk, bv, vpos,
+                                            ring=True), flush=flush),
+           time_ms(lambda: verify_reference(qv, kc, vc, bk, bv, vpos,
+                                            ring=True), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kall, vall, attn_mask=vmask, enable_gqa=True),
+               flush=flush),
+           2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
+           + 2 * 2 * MHD * cache_keys * MHKV, 4 * MHD * G * MHKV * pairs,
+           tol=RING_ATOL, rtol=RING_RTOL)
+
+
+def scan_record(dev, gen, flush, record) -> None:
+    """The selective scan at jamba-v0.1-52b's shapes (d_in = 8192, N = 16)
+    in f32: a 512-token prefill of 2 rows from a zero state (timed), and
+    an 8-token verify block from a carried state (checked too).  No
+    single library call computes the scan.  The bound counts 7 operations
+    per (row, step, channel, state) and 3 per (row, step, channel) at
+    the f32 rate outside the tensor cores."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import (selective_scan_reference,
+                                                  ssm_scan)
+
+    B, d_in, N = 2, 8192, 16
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    A = -torch.exp(rn(d_in, N) * 0.5)
+    D = rn(d_in)
+
+    def case(L, init):
+        u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+        dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+        return (u, dt, Bm, Cm, A, D, rn(B, d_in, N) if init else None)
+
+    long, short = case(512, False), case(8, True)
+    got, ref = [], []
+    for args in (long, short):
+        got += ssm_scan(*args)
+        torch.cuda.synchronize()
+        ref += selective_scan_reference(*args)
+    tol = SCAN_RTOL * max(float(r.abs().max()) for r in ref)
+    L = 512
+    nbytes = 4 * (3 * B * L * d_in + 2 * B * L * N + d_in * N + d_in
+                  + B * d_in * N)
+    ops = B * L * d_in * (7 * N + 3)
+    record("ssm_scan", "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+           "src/repro/kernels/ssm_scan/kernel.py:64", tuple(got), tuple(ref),
+           time_ms(lambda: ssm_scan(*long), flush=flush),
+           time_ms(lambda: selective_scan_reference(*long), iters=5,
+                   flush=flush),
+           None, nbytes, ops, peak=F32_FLOPS, tol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -387,19 +585,91 @@ def reference_phase(dev) -> None:
                                  ("chunked_row", torch.cat(crow, 1), ref),
                                  ("chunked_paged", torch.cat(cpaged, 1),
                                   ref)):
-            got = got.float().cpu()
-            if got.shape != want.shape:
-                raise AssertionError(f"{name} {label}: shape "
-                                     f"{tuple(got.shape)} != "
-                                     f"{tuple(want.shape)}")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name} {label}: non-finite logits")
-            rel = ((got - want).norm() / want.norm()).item()
-            log(f"reference {name} {label} ({REF_LAYERS} layer): "
-                f"rel_l2={rel:.4e}")
-            if not rel <= REF_TOL:
-                raise AssertionError(f"{name} {label}: card vs CPU float32 "
-                                     f"reference rel L2 {rel} > {REF_TOL}")
+            _rel_check(f"{name} {label} ({REF_LAYERS} layer)", got, want)
+
+
+def _rel_check(label, got, want) -> None:
+    """``got`` (card) finite, of ``want``'s (CPU float32) shape and
+    within ``REF_TOL`` relative L2 error of it."""
+    import torch
+    got = got.float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite values")
+    rel = ((got - want.float()).norm() / want.float().norm()).item()
+    log(f"reference {label}: rel_l2={rel:.4e}")
+    if not rel <= REF_TOL:
+        raise AssertionError(f"{label}: card vs CPU float32 reference rel "
+                             f"L2 {rel} > {REF_TOL}")
+
+
+def moe_hybrid_reference(dev) -> None:
+    """mixtral-8x7b at full width cut to one layer (ring attention, MoE
+    FFN) and one jamba-v0.1-52b Mamba block at full width, on the card
+    (kernels, bf16) against the same calls on the CPU in float32 on the
+    same weights, each within ``REF_TOL`` relative L2 error.
+
+    mixtral: ``forward`` over 48 tokens (flash kernel, window 4096); a
+    41-token prefill with ``max_len`` 44, which makes the ring 44 slots
+    (min(max_len, window)); one decode step (ring decode kernel) and an
+    8-token ``verify_step`` that wraps the ring (ring verify kernel).
+    jamba's MoE FFN runs mixtral's code.  The Mamba block: a 40-token
+    ``mamba_forward`` (selective-scan kernel), one ``mamba_decode`` token
+    (the plain step, as in JAX) and an 8-token block from the carried
+    state (the kernel with an initial state); outputs and final states
+    compared."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models import ssm
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(2)
+    cfg = override(get_arch("mixtral-8x7b"), param_dtype="bfloat16",
+                   num_layers=REF_LAYERS)
+    gpu = build_model(cfg, device=dev)
+    params = gpu.init(seed=8)
+    cpu = build_model(override(cfg, dtype="float32", param_dtype="float32"),
+                      cache_dtype=torch.float32, device="cpu")
+    cparams = _tree(lambda t: t.float().cpu(), params)
+    toks = rng.integers(0, cfg.vocab_size, (2, 50))
+    P0, K, max_len = 41, 8, 44
+    pos = np.full((2,), P0, np.int32)
+    results = []
+    for model, p in ((gpu, params), (cpu, cparams)):
+        d = model.device
+        fwd = model.forward(p, toks[:, :48])
+        pre, caches = model.prefill(p, toks[:, :P0], max_len)
+        dec, _ = model.decode_step(p, caches, toks[:, P0:P0 + 1],
+                                   torch.from_numpy(pos).to(d))
+        ver, _ = model.verify_step(p, caches, toks[:, P0 + 1:P0 + 1 + K],
+                                   torch.from_numpy(pos + 1).to(d))
+        results.append((fwd, pre, dec, ver))
+    for label, got, want in zip(("forward", "prefill", "decode_ring",
+                                 "verify_ring"), *results):
+        _rel_check(f"mixtral-8x7b {label} ({REF_LAYERS} layer)", got, want)
+    del gpu, params, cpu, cparams, results
+
+    jcfg = override(get_arch("jamba-v0.1-52b"), param_dtype="bfloat16")
+    specs = ssm.ssm_specs(jcfg)
+    mp = init_params(specs, torch.Generator(device=dev).manual_seed(9),
+                     torch.bfloat16, dev)
+    cmp_ = _tree(lambda t: t.float().cpu(), mp)
+    x = torch.randn((2, 49, jcfg.d_model),
+                    generator=torch.Generator().manual_seed(10))
+    results = []
+    for p, xx in ((mp, x.to(dev, torch.bfloat16)), (cmp_, x)):
+        f, st = ssm.mamba_forward(p, xx[:, :40], jcfg)
+        d1, st = ssm.mamba_decode(p, xx[:, 40:41], st, jcfg)
+        v8, st = ssm.mamba_decode(p, xx[:, 41:49], st, jcfg)
+        results.append((f, d1, v8, st.ssm, st.conv))
+    for label, got, want in zip(("prefill", "decode", "verify_state",
+                                 "final_ssm_state", "final_conv_state"),
+                                *results):
+        _rel_check(f"jamba-v0.1-52b mamba block {label}", got, want)
 
 
 def int8_drift(dev, steps: int = 8) -> None:
@@ -455,16 +725,80 @@ def _tree(fn, tree):
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
-def serving_phase(dev) -> dict:
-    import numpy as np
-    import torch
-    from repro_torch import kernels
-    from repro_torch.configs import get_arch
+def _launch_counters() -> dict:
+    """One launch count per kernel body or route (the int8 bodies and the
+    ring routes count apart)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
+    return {"flash_attention": lambda: flash_attention.launches,
+            "decode_attention": lambda: decode_attention.launches,
+            "decode_attention_ring": lambda: decode_attention.launches_ring,
+            "paged_decode_attention":
+                lambda: paged_decode_attention.launches,
+            "paged_decode_attention_int8":
+                lambda: paged_decode_attention.launches_int8,
+            "verify_attention": lambda: verify_attention.launches,
+            "verify_attention_ring": lambda: verify_attention.launches_ring,
+            "paged_verify_attention":
+                lambda: paged_verify_attention.launches,
+            "paged_verify_attention_int8":
+                lambda: paged_verify_attention.launches_int8,
+            "paged_verify_attention_tree":
+                lambda: paged_verify_attention.launches_tree,
+            "ssm_scan": lambda: ssm_scan.launches}
+
+
+def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
+    """Serve ``reqs`` ((name, (1, S) prompt) pairs) through one scheduler
+    on ``server``, with every launch count zeroed just before.  Each
+    request must resolve to NEW_TOKENS in-vocabulary tokens and every
+    kernel in ``used`` must have launched.  Logs the pass's report;
+    returns (launch counts, outputs).  Shuts the server down."""
+    import torch
+    from repro_torch import kernels
+
+    fns = _launch_counters()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with make_sched(server) as sched:
+            futs = [sched.submit(n, t, steps=NEW_TOKENS) for n, t in reqs]
+            outs = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: count() for n, count in fns.items()}
+        for (name, toks), o in zip(reqs, outs):
+            assert o.shape == (1, NEW_TOKENS), (label, o.shape)
+            assert ((o >= 0) & (o < cfgs[name].vocab_size)).all(), label
+        for n in used:
+            if counts[n] <= 0:
+                raise AssertionError(f"{label}: kernel {n} was not "
+                                     "launched on the serving path")
+        st = server.engine.stats
+        rep = {"pass": label, "requests": len(outs),
+               "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+               "wall_s": wall,
+               "hidden_load_fraction": server.engine.hidden_load_fraction(),
+               "loads": st["loads"], "context_changes": st["context_changes"],
+               "mean_switch_us": 1e6 * st["switch_seconds"]
+               / max(st["switches"], 1),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "launches": counts}
+        log("serving " + json.dumps(rep))
+        return counts, outs
+    finally:
+        server.shutdown()
+
+
+def serving_phase(dev) -> dict:
+    import numpy as np
+    from repro_torch.configs import get_arch
     from repro_torch.launch.serve import build_server
     from repro_torch.serve.scheduler import ContinuousScheduler, SwitchScheduler
 
@@ -499,61 +833,16 @@ def serving_phase(dev) -> dict:
             prefill_chunk=CHUNK, quantize_kv="int8"),
          {"paged_verify_attention_int8", "paged_decode_attention_int8"}),
     ]
-    # one launch count per kernel body (the int8 bodies count apart)
-    fns = {"flash_attention": lambda: flash_attention.launches,
-           "decode_attention": lambda: decode_attention.launches,
-           "paged_decode_attention":
-               lambda: paged_decode_attention.launches,
-           "paged_decode_attention_int8":
-               lambda: paged_decode_attention.launches_int8,
-           "verify_attention": lambda: verify_attention.launches,
-           "paged_verify_attention":
-               lambda: paged_verify_attention.launches,
-           "paged_verify_attention_int8":
-               lambda: paged_verify_attention.launches_int8}
-    totals = {n: 0 for n in fns}
+    totals = {n: 0 for n in _launch_counters()}
     outputs = {}
     for label, make_sched, used in passes:
         server, cfgs = build_server(
             names, slots=2, max_len=max_len, reduce=False, device=dev,
             arch_overrides={"param_dtype": "bfloat16"})
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            with make_sched(server) as sched:
-                futs = [sched.submit(n, t, steps=NEW_TOKENS) for n, t in reqs]
-                outs = [f.result(timeout=600) for f in futs]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = {n: count() for n, count in fns.items()}
-            for (name, toks), o in zip(reqs, outs):
-                assert o.shape == (1, NEW_TOKENS), (label, o.shape)
-                assert ((o >= 0) & (o < cfgs[name].vocab_size)).all(), label
-            for n in used:
-                if counts[n] <= 0:
-                    raise AssertionError(f"{label}: kernel {n} was not "
-                                         "launched on the serving path")
-            st = server.engine.stats
-            rep = {"pass": label, "requests": len(outs),
-                   "tokens_per_s": N_REQUESTS * NEW_TOKENS / wall,
-                   "wall_s": wall,
-                   "hidden_load_fraction":
-                       server.engine.hidden_load_fraction(),
-                   "loads": st["loads"], "context_changes":
-                       st["context_changes"],
-                   "mean_switch_us": 1e6 * st["switch_seconds"]
-                       / max(st["switches"], 1),
-                   "max_memory_allocated":
-                       torch.cuda.max_memory_allocated(dev),
-                   "launches": counts}
-            log("serving " + json.dumps(rep))
-            for n in fns:
-                totals[n] += counts[n]
-            outputs[label] = outs
-        finally:
-            server.shutdown()
+        counts, outputs[label] = run_pass(dev, label, server, cfgs, reqs,
+                                          make_sched, used)
+        for n in totals:
+            totals[n] += counts[n]
 
     def agree(a, b):
         same = sum(int((x == y).sum()) for x, y in zip(a, b))
@@ -573,9 +862,74 @@ def serving_phase(dev) -> dict:
             outputs["continuous_row_chunked"]),
         "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
                                   outputs["continuous_paged_chunked"])}))
-    # the tree record times the fp paged verify body with a tree mask
-    totals["paged_verify_attention_tree"] = totals["paged_verify_attention"]
+    counts = moe_hybrid_pass(dev)
+    for n in totals:
+        totals[n] += counts[n]
     return totals
+
+
+# no engine verifies a tree or a ring yet, so those routes launch no time
+# on the main path; their records also carry their body's launches
+ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
+              "verify_attention_ring": "verify_attention"}
+MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
+LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
+
+
+def moe_hybrid_pass(dev) -> dict:
+    """``continuous_row_moe_hybrid``: ContinuousScheduler, row cache, 2
+    batch slots and 2 weight slots, 8 requests alternating mixtral-8x7b
+    (4 layers) and jamba-v0.1-52b (one 8-layer period) at their published
+    widths, random bf16 weights from a seed, pinned in host memory like
+    ``build_server``'s.  Prompts of 128-512 tokens, except one mixtral
+    prompt of 4160 tokens whose decode runs on the wrapped ring; 32 new
+    tokens each, max_len 4224.  Flash, decode (jamba's attention layer),
+    ring decode (mixtral) and the selective scan (jamba's prefills) must
+    each launch.  -> launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.launch.serve import _to_host
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.serve.switching import ServedModel, SwitchableServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = list(MOE_DEPTH)
+    max_len = LONG_PROMPT + 64
+    server = SwitchableServer(num_slots=2, device=dev)
+    cfgs = {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        cfg = override(get_arch(name), param_dtype="bfloat16",
+                       num_layers=MOE_DEPTH[name])
+        cfgs[name] = cfg
+        model = build_model(cfg, device=dev)
+        host = _to_host(model.init(seed=i))
+        server.register(ServedModel(name=name, model=model,
+                                    weights_fn=lambda p=host: p,
+                                    max_len=max_len))
+    log(f"serving continuous_row_moe_hybrid: weights made and pinned in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(1)
+    reqs = []
+    for r in range(N_REQUESTS):
+        name = names[r % 2]
+        S = LONG_PROMPT if r == 2 else int(
+            rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        reqs.append((name, rng.integers(0, cfgs[name].vocab_size, (1, S))))
+    counts, _ = run_pass(
+        dev, "continuous_row_moe_hybrid", server, cfgs, reqs,
+        lambda s: ContinuousScheduler(s, batch_size=2),
+        {"flash_attention", "decode_attention", "decode_attention_ring",
+         "ssm_scan"})
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -664,11 +1018,14 @@ def main() -> int:
 
     records = kernel_phase(dev)
     reference_phase(dev)
+    moe_hybrid_reference(dev)
     int8_drift(dev)
     totals = serving_phase(dev)
     profile_phase(dev)
     for rec in records:
         rec["launches"] = totals[rec["name"]]
+        if rec["name"] in ROUTE_BODY:
+            rec["body_launches"] = totals[ROUTE_BODY[rec["name"]]]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 
 ``params_from_jax`` takes the JAX ``LM`` parameter pytree with its leaves
 already converted to numpy (``jax.tree.map(np.asarray, params)``) and
-returns the port's parameter dict: the leading layer axis of every
-``blocks/b0/*`` leaf is unstacked into one dict per layer, and every leaf
-keeps its dtype (bfloat16 included).  Both packages then compute on the
-same weights, so the port's own init need not reproduce JAX's PRNG.
+returns the port's parameter dict.  JAX stacks each of the P block kinds
+of a period (``blocks/b0 .. blocks/b{P-1}``) over a leading repeat axis
+R; layer ``r*P + i`` of the port takes ``blocks[f"b{i}"][r]``, the order
+in which the JAX model's layer scan runs them.  Every leaf keeps its
+dtype (bfloat16 included).  Both packages then compute on the same
+weights, so the port's own init need not reproduce JAX's PRNG.
 This module imports neither JAX nor the JAX package: it sees numpy only.
 """
 from __future__ import annotations
@@ -33,20 +35,22 @@ def _map(fn, tree):
 def params_from_jax(tree: dict, device=None) -> dict:
     """JAX ``LM`` params (numpy leaves) -> the port's params on ``device``.
 
-    Only the dense layout is accepted: ``blocks`` must hold exactly one
-    period entry ``b0`` whose leaves carry the layer axis first."""
+    ``blocks`` must hold the period entries ``b0 .. b{P-1}``, every leaf
+    with the same leading repeat axis."""
     dev = resolve_device(device)
     blocks = tree["blocks"]
-    if set(blocks) != {"b0"}:
-        raise ValueError(f"expected a dense block pattern {{'b0'}}, got "
+    P = len(blocks)
+    if set(blocks) != {f"b{i}" for i in range(P)}:
+        raise ValueError(f"expected period blocks b0..b{P - 1}, got "
                          f"{sorted(blocks)}")
-    stacked = _map(np.asarray, blocks["b0"])
-    n_layers = {a.shape[0] for a in _leaves(stacked)}
-    if len(n_layers) != 1:
-        raise ValueError(f"inconsistent layer axes {sorted(n_layers)}")
+    stacked = [_map(np.asarray, blocks[f"b{i}"]) for i in range(P)]
+    repeats = {a.shape[0] for b in stacked for a in _leaves(b)}
+    if len(repeats) != 1:
+        raise ValueError(f"period blocks need one repeat axis, got "
+                         f"{sorted(repeats)}")
     out = {k: _tensor(v, dev) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(lambda a, i=i: _tensor(a[i], dev), stacked)
-                     for i in range(n_layers.pop())]
+    out["blocks"] = [_map(lambda a, r=r: _tensor(a[r], dev), stacked[i])
+                     for r in range(repeats.pop()) for i in range(P)]
     return out
 
 

@@ -1,15 +1,17 @@
 """Architecture registry of the PyTorch port.
 
-A copy of the JAX package's registry restricted to the dense models the
-port serves so far (``supersub-super``, ``supersub-sub`` and
-``tinyllama-1.1b``); every other architecture of the JAX package raises
-``KeyError(... not yet ported)``.  ``base.py`` is a verbatim copy of the
-JAX package's stdlib-only config module: the port imports nothing of
-``repro``.
+A copy of the JAX package's registry restricted to the models the port
+serves so far: the dense ``supersub-super``, ``supersub-sub`` and
+``tinyllama-1.1b``, the sliding-window MoE ``mixtral-8x7b`` and the
+Mamba + MoE hybrid ``jamba-v0.1-52b``; every other architecture of the
+JAX package raises ``KeyError(... not yet ported)``.  ``base.py`` is a
+verbatim copy of the JAX package's stdlib-only config module: the port
+imports nothing of ``repro``.
 """
 from __future__ import annotations
 
 import importlib
+import math
 
 from repro_torch.configs.base import (
     ArchConfig, FrontendConfig, MoEConfig, SSMConfig, XLSTMConfig, override,
@@ -17,6 +19,8 @@ from repro_torch.configs.base import (
 
 _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_11b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     # the paper's own application config (Super-Sub cascade members)
     "supersub-super": "supersub",
     "supersub-sub": "supersub",
@@ -25,7 +29,7 @@ _ARCH_MODULES = {
 # architectures of the JAX package the port does not serve yet
 _NOT_PORTED = ("xlstm-125m", "codeqwen1.5-7b", "starcoder2-7b",
                "deepseek-7b", "musicgen-medium", "qwen3-moe-235b-a22b",
-               "mixtral-8x7b", "jamba-v0.1-52b", "pixtral-12b")
+               "pixtral-12b")
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -44,9 +48,14 @@ def list_archs() -> list[str]:
 
 def reduced(cfg: ArchConfig, **extra) -> ArchConfig:
     """A smoke-test-sized config of the same family (CPU-runnable); the
-    same cut as the JAX package's ``reduced`` for the dense family."""
+    JAX package's ``reduced`` cut: a hybrid keeps one whole period
+    (``lcm(attn_every, moe.every)`` layers), MoE drops to 4 experts of
+    width 64 (top-2 at most) and the SSM state to 8."""
+    period = 1
+    if cfg.family == "hybrid":
+        period = math.lcm(cfg.attn_every, cfg.moe.every if cfg.moe else 1)
     kw = dict(
-        num_layers=min(cfg.num_layers, 2),
+        num_layers=min(cfg.num_layers, max(2, period)),
         d_model=128,
         num_heads=4,
         num_kv_heads=min(cfg.num_kv_heads, 2),
@@ -54,6 +63,11 @@ def reduced(cfg: ArchConfig, **extra) -> ArchConfig:
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=256,
     )
+    if cfg.moe is not None:
+        kw["moe"] = override(cfg.moe, num_experts=4,
+                             top_k=min(cfg.moe.top_k, 2), d_ff_expert=64)
+    if cfg.ssm is not None:
+        kw["ssm"] = override(cfg.ssm, d_state=8)
     kw.update(extra)
     return override(cfg, name=cfg.name + "-reduced", **kw)
 

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the port's attention hot spots.
+"""Hand-written Hopper kernels for the port's hot spots: attention and
+the Mamba selective scan.
 
 Each kernel package has:
   csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
@@ -137,17 +138,24 @@ def verify_output(out, Kb: int, H: int):
 
 def reset_launch_counts() -> None:
     """Zero every kernel body's launch count (the int8 bodies of the
-    paged wrappers count apart, in ``launches_int8``)."""
+    paged wrappers count apart, in ``launches_int8``, the paged verify's
+    tree route in ``launches_tree``, and the ring routes of the row
+    decode and verify wrappers in ``launches_ring``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    for fn in (flash_attention, decode_attention, verify_attention):
+    for fn in (flash_attention, ssm_scan):
         fn.launches = 0
+    for fn in (decode_attention, verify_attention):
+        fn.launches = 0
+        fn.launches_ring = 0
     for fn in (paged_decode_attention, paged_verify_attention):
         fn.launches = 0
         fn.launches_int8 = 0
+    paged_verify_attention.launches_tree = 0
 
 
 build_all = _build.build_all

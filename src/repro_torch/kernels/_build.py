@@ -34,6 +34,7 @@ SOURCES = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
     "verify_attention": "verify_attention/csrc/verify_attention.cu",
+    "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
 }
 
 _lock = threading.Lock()

@@ -398,11 +398,18 @@ struct Concat {
 // cache-plus-block joint softmax.  Under the causal mask the range stops
 // after the last block key any row of this block sees; block key i is
 // visible to query i, so l > 0 even at pos == 0 where the cache is empty.
+//
+// ring_S > 0 makes the cache a ring of ring_S slots (a sliding window;
+// n_cache = min(pos, ring_S), ring_pos = pos): cache slot s holds position
+// p(s) = (pos-1) - ((pos-1-s) mod S) and is visible to query i only inside
+// its window, p(s) > pos + i - S (p(s) >= 0 holds for every s < n_cache).
+// Block keys stay visible under j <= i: K <= S keeps them in the window.
 template <int HD, class CacheRows, class BlockRows>
 __device__ __forceinline__ void verify_block(
     const bf16* __restrict__ q, const CacheRows& cache, int n_cache,
     const BlockRows& blk, int K, int G, const int* __restrict__ anc,
-    float scale, bf16* __restrict__ out, int row0) {
+    float scale, bf16* __restrict__ out, int row0, int ring_pos = 0,
+    int ring_S = 0) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int BK = VerifyTile<HD>::BK;
   constexpr int DH = HD / 2;
@@ -435,8 +442,13 @@ __device__ __forceinline__ void verify_block(
   fold_keys<HD, BK>(keys, n_cache + n_blk,
                     [=](int col) {
                       const int j = col - n_cache;
-                      return j < 0 || (tree ? ((bits >> j) & 1u) != 0u
-                                            : j <= i);
+                      if (j < 0) {
+                        if (ring_S == 0) return true;
+                        const int p = ring_pos - 1 -
+                                      (ring_pos - 1 - col) % ring_S;
+                        return p >= 0 && p > ring_pos + i - ring_S;
+                      }
+                      return tree ? ((bits >> j) & 1u) != 0u : j <= i;
                     },
                     qr, k_s, v_s, m, l, acc);
 

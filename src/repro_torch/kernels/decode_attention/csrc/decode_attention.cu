@@ -1,7 +1,10 @@
 // One-token flash-decode over a row KV cache, for Hopper (sm_90a).
 //
 // Replaces: repro/kernels/decode_attention/kernel.py ::
-//   decode_attention_kernel (body _decode_kernel), ring=False.
+//   decode_attention_kernel (body _decode_kernel), ring=False and
+//   ring=True.  The JAX ring mask (idx <= pos % S) | (pos >= S) selects
+//   slots 0 .. min(pos, S-1), the same slots this body reads for a full
+//   cache, so one body serves both (the wrapper counts them apart).
 //
 // What bounds it on an H100: bytes.  A decode step reads each row's cache
 // up to its position once (2 * (pos+1) * hd bf16 per kv head) and does

@@ -2,6 +2,12 @@
 
 A CPU tensor runs the plain version (``ref.decode_reference``); a CUDA
 tensor launches ``csrc/decode_attention.cu`` or raises.
+
+The ring route (a sliding-window cache of S == window slots) runs the same
+kernel body and plain version: the JAX ring mask ``(idx <= pos % S) |
+(pos >= S)`` selects slots ``0 .. min(pos, S-1)``, which is what both
+read for any pos.  ``ring`` only selects the launch count:
+``decode_attention.launches_ring`` instead of ``.launches``.
 """
 from __future__ import annotations
 
@@ -13,10 +19,11 @@ from repro_torch.kernels.decode_attention.ref import decode_reference
 _fn = None
 
 
-def decode_attention(q, k, v, pos, *, scale: float | None = None
-                     ) -> torch.Tensor:
+def decode_attention(q, k, v, pos, *, ring: bool = False,
+                     scale: float | None = None) -> torch.Tensor:
     """q: (B, H, hd); k/v: (B, Hkv, S, hd); pos: () or (B,) int32 ->
-    (B, H, hd).  Row b attends to cache slots [0, pos[b]]."""
+    (B, H, hd).  Row b attends to cache slots [0, pos[b]]; a ``ring``
+    cache, once wrapped (pos[b] >= S), to every slot."""
     B, H, hd = q.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     pos = pos.expand(B).contiguous()
@@ -42,10 +49,14 @@ def decode_attention(q, k, v, pos, *, scale: float | None = None
              out.data_ptr(), B, Hkv, G, S, hd, float(scale),
              K.stream_ptr(q))
     K.check_launch("decode_attention", rc)
-    decode_attention.launches += 1
+    if ring:
+        decode_attention.launches_ring += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_ring = 0
 
 __all__ = ["decode_attention", "decode_reference"]

@@ -5,7 +5,8 @@ A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises.  An int8 pool passes its
 (NP, Hkv, page) f32 ``k_scale``/``v_scale``; its launches count in
 ``<wrapper>.launches_int8``, the full-precision body's in
-``<wrapper>.launches``.
+``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
+``paged_verify_attention.launches_tree`` instead, whatever the pool.
 """
 from __future__ import annotations
 
@@ -140,7 +141,9 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
         None if tree is None else tree.data_ptr(), out.data_ptr(),
         B, Hkv, G, Kb, P, page, hd, float(scale), K.stream_ptr(q))
     K.check_launch(sym, rc)
-    if quant:
+    if tree is not None:
+        paged_verify_attention.launches_tree += 1
+    elif quant:
         paged_verify_attention.launches_int8 += 1
     else:
         paged_verify_attention.launches += 1
@@ -149,6 +152,7 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
 
 paged_verify_attention.launches = 0
 paged_verify_attention.launches_int8 = 0
+paged_verify_attention.launches_tree = 0
 
 __all__ = ["gather_pages", "gather_scales", "paged_decode_attention",
            "paged_decode_reference", "paged_verify_attention",

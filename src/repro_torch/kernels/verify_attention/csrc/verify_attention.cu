@@ -2,8 +2,8 @@
 // chunked prefill on the row cache (and speculative verify).
 //
 // Replaces: repro/kernels/verify_attention/kernel.py ::
-//   verify_attention_kernel (body _verify_kernel), ring=False, causal or
-//   tree mask.
+//   verify_attention_kernel (body _verify_kernel): causal or tree mask,
+//   and the sliding-window ring (ring=True, causal only).
 //
 // What bounds it on an H100: each row's cache keys 0..pos-1 and the K
 // block keys are read once for K * G query rows, about 2 * K * G flops
@@ -18,7 +18,10 @@
 // < pos, the cache BEFORE the block's writes) and then the block's own
 // keys fold into one running softmax, the block's under the causal mask
 // (stopping after the last key the tile's rows see) or the tree bitmask.
-// Cache slots at or past pos are never read.
+// Cache slots at or past pos are never read.  A ring cache (a runtime
+// flag, not a template parameter: instantiations dominate the build)
+// reads its min(pos, S) written slots and masks each by the position it
+// holds against the query's window.
 // Not yet done: tensor-core products, and reading each cache tile once
 // for all score-row tiles of a (row, kv head) instead of once per tile.
 #include "attn_common.cuh"
@@ -33,7 +36,7 @@ verify_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ kb,
               const bf16* __restrict__ vb, const int* __restrict__ pos,
               const int* __restrict__ anc, bf16* __restrict__ out, int Hkv,
-              int G, int K, int S, float scale) {
+              int G, int K, int S, int ring, float scale) {
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * Hkv + h;
   const size_t KG = (size_t)K * G;
@@ -43,7 +46,8 @@ verify_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n = min(max(pos[b], 0), S);            // cache keys < pos
   repro::verify_block<HD>(q + bh * KG * HD, cache, n, blk, K, G,
                           anc == nullptr ? nullptr : anc + (size_t)b * K,
-                          scale, out + bh * KG * HD, blockIdx.x * repro::VQ);
+                          scale, out + bh * KG * HD, blockIdx.x * repro::VQ,
+                          ring ? pos[b] : 0, ring ? S : 0);
 }
 
 }  // namespace
@@ -52,19 +56,21 @@ verify_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // (B, Hkv, S, hd) bf16 cache as it stood BEFORE the block, kb/vb (B, Hkv,
 // K, hd) bf16 block keys/values, pos (B,) int32 base positions, tree
 // (B, K) int32 ancestor bitmasks or NULL (causal), out like q; all
-// contiguous.  Returns a cudaError_t.
+// contiguous.  ring != 0: the cache is a sliding-window ring of S slots
+// (causal only, K <= S).  Returns a cudaError_t.
 extern "C" int verify_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* kb,
                                      const void* vb, const void* pos,
                                      const void* tree, void* out, int B,
                                      int Hkv, int G, int K, int S, int hd,
-                                     float scale, void* stream) {
+                                     int ring, float scale, void* stream) {
+  if (ring && (tree != nullptr || K > S)) return (int)cudaErrorInvalidValue;
   const dim3 grid((K * G + repro::VQ - 1) / repro::VQ, Hkv, B);
 #define LAUNCH(HD_)                                                         \
   verify_kernel<HD_><<<grid, repro::VTHREADS, 0, (cudaStream_t)stream>>>(  \
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)kb,      \
       (const bf16*)vb, (const int*)pos, (const int*)tree, (bf16*)out, Hkv, \
-      G, K, S, scale)
+      G, K, S, ring, scale)
   REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH);
 #undef LAUNCH
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
 """Public wrapper of the verify kernel (row cache).
 
 A CPU tensor runs the plain version (``ref.verify_reference``); a CUDA
-tensor launches ``csrc/verify_attention.cu`` or raises.
+tensor launches ``csrc/verify_attention.cu`` or raises.  The ring route
+(a sliding-window cache) counts its launches apart, in
+``verify_attention.launches_ring``.
 """
 from __future__ import annotations
 
@@ -13,25 +15,30 @@ from repro_torch.kernels.verify_attention.ref import verify_reference
 _fn = None
 
 
-def verify_attention(q, k, v, blk_k, blk_v, pos, *,
+def verify_attention(q, k, v, blk_k, blk_v, pos, *, ring: bool = False,
                      scale: float | None = None, tree=None) -> torch.Tensor:
     """q: (B, Kb, H, hd); k/v: (B, Hkv, S, hd) cache BEFORE the block's
     writes; blk_k/blk_v: (B, Kb, Hkv, hd); pos: () or (B,) int32 base
     positions; ``tree``: optional (B, Kb) int32 ancestor bitmasks ->
     (B, Kb, H, hd).  Query i of row b (position pos[b] + i) attends to
     cache slots [0, pos[b]-1] plus block tokens j <= i (or the tree's
-    bits)."""
+    bits); over a ``ring`` cache (Kb <= S, no tree), to the slots whose
+    positions lie inside its window (see ``ref.py``)."""
     B, Kb, H, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if ring and (tree is not None or Kb > S):
+        raise ValueError(f"verify_attention: a ring cache takes a causal "
+                         f"block of at most S={S} tokens (no tree), got "
+                         f"{Kb} tokens, tree={tree is not None}")
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     pos = pos.expand(B).contiguous()
     if tree is not None:
         tree = torch.as_tensor(tree, dtype=torch.int32, device=q.device)
     if K.on_cpu(q, k, v, blk_k, blk_v, pos,
                 *(() if tree is None else (tree,))):
-        return verify_reference(q, k, v, blk_k, blk_v, pos, scale=scale,
-                                tree=tree)
+        return verify_reference(q, k, v, blk_k, blk_v, pos, ring=ring,
+                                scale=scale, tree=tree)
     global _fn
-    Hkv, S = k.shape[1], k.shape[2]
     qg, kb, vb, tree, G = K.verify_operands("verify_attention", q, blk_k,
                                             blk_v, tree, Hkv)
     K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, hd))
@@ -41,16 +48,20 @@ def verify_attention(q, k, v, blk_k, blk_v, pos, *,
     out = torch.empty_like(qg)
     if _fn is None:
         _fn = K.c_function("verify_attention", "verify_attention_bf16",
-                           [K.P] * 8 + [K.I] * 6 + [K.F, K.P])
+                           [K.P] * 8 + [K.I] * 7 + [K.F, K.P])
     rc = _fn(qg.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
              vb.data_ptr(), pos.data_ptr(),
              None if tree is None else tree.data_ptr(), out.data_ptr(),
-             B, Hkv, G, Kb, S, hd, float(scale), K.stream_ptr(q))
+             B, Hkv, G, Kb, S, hd, int(ring), float(scale), K.stream_ptr(q))
     K.check_launch("verify_attention", rc)
-    verify_attention.launches += 1
+    if ring:
+        verify_attention.launches_ring += 1
+    else:
+        verify_attention.launches += 1
     return K.verify_output(out, Kb, H)
 
 
 verify_attention.launches = 0
+verify_attention.launches_ring = 0
 
 __all__ = ["verify_attention", "verify_reference"]

@@ -12,8 +12,14 @@ Query i sees cache slots [0, pos-1] and block tokens j <= i -- exactly
 what the i-th sequential one-token decode step would see.  ``tree``
 ((B, K) int32, optional) replaces the intra-block causal mask: bit j of
 ``tree[b, i]`` makes block token j visible to block query i (the cache
-side is unchanged).  The sliding-window ring variant of the JAX
-reference is not ported yet.
+side is unchanged).
+
+A ``ring`` cache (sliding window, cache length == window, K <= S, no
+tree): cache slot s holds position p(s) = (pos-1) - ((pos-1-s) mod S)
+and is valid for query i iff p(s) >= 0 (written) and p(s) > pos+i-S
+(inside query i's window).  Reading the cache before the block keeps
+this exact across a wrap, where a later block token's write would land
+on a slot an earlier query still reads.
 """
 from __future__ import annotations
 
@@ -22,12 +28,15 @@ import torch
 NEG_INF = -1e30
 
 
-def verify_reference(q, k, v, blk_k, blk_v, pos, *,
+def verify_reference(q, k, v, blk_k, blk_v, pos, *, ring: bool = False,
                      scale: float | None = None, tree=None) -> torch.Tensor:
     B, K, H, hd = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     assert H % Hkv == 0
     assert blk_k.shape == (B, K, Hkv, hd), blk_k.shape
+    if ring:
+        assert K <= S, (K, S)
+        assert tree is None, "tree verify is full-attention only"
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     G = H // Hkv
@@ -35,10 +44,18 @@ def verify_reference(q, k, v, blk_k, blk_v, pos, *,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
     qh = q.reshape(B, K, Hkv, G, hd).float().permute(0, 2, 1, 3, 4)
 
-    # cache side: slots < pos, the same for every query of the row
+    # cache side: slots < pos (the same for every query of the row), or
+    # the ring's per-query window
     s_c = torch.einsum("bnigd,bnsd->bnigs", qh, k.float()) * scale
-    valid = torch.arange(S, device=dev)[None, :] < pos[:, None]    # (B, S)
-    s_c = torch.where(valid[:, None, None, None, :], s_c,
+    cols = torch.arange(S, device=dev)[None, None, :]               # (1,1,S)
+    pb = pos[:, None, None]                                         # (B,1,1)
+    if ring:
+        i = torch.arange(K, device=dev)[None, :, None]              # (1,K,1)
+        p = (pb - 1) - torch.remainder(pb - 1 - cols, S)
+        valid = (p >= 0) & (p > pb + i - S)                         # (B,K,S)
+    else:
+        valid = (cols < pb).expand(B, K, S)
+    s_c = torch.where(valid[:, None, :, None, :], s_c,
                       torch.full_like(s_c, NEG_INF))
 
     # block side: intra-block causal (j <= i) or the tree bitmask

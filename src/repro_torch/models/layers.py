@@ -17,7 +17,11 @@ Entry points by execution mode:
   * ``attention_verify``        — K tokens against the row cache
   * ``attention_verify_pages``  — K tokens against the shared page pool
     (both: chunked prefill's chunk, a speculative verify block)
-Sliding-window rings are not ported yet (``LM`` refuses such configs).
+
+A sliding-window model (``cfg.sliding_window = W > 0``) keeps a RING row
+cache of ``S = min(max_len, W)`` slots: position t lives at slot ``t % S``
+and decode / verify attend to the last S positions only.  The page pool
+takes full attention only (``LM._require_paged_support``).
 """
 from __future__ import annotations
 
@@ -88,7 +92,8 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
-    """Contiguous row KV cache (full attention: S == max_len)."""
+    """Contiguous row KV cache (full attention: S == max_len; a sliding
+    window W: a ring of S == min(max_len, W) slots)."""
     k: torch.Tensor       # (B, Hkv, S, hd)
     v: torch.Tensor       # (B, Hkv, S, hd)
 
@@ -136,20 +141,30 @@ def attention(params, x, positions, cfg: ArchConfig):
 
 def attention_prefill(params, x, positions, cfg: ArchConfig, max_len: int,
                       cache_dtype=torch.bfloat16):
-    """Prefill from position 0: returns the output and a fresh
-    ``max_len``-long row cache holding the prompt's k/v (zero tail)."""
+    """Prefill from position 0: returns the output and a fresh row cache
+    holding the prompt's k/v (zero tail): ``max_len`` slots, or for a
+    sliding window W the ring of ``min(max_len, W)`` slots, which keeps
+    the prompt's last W tokens rolled so that token t sits at slot
+    ``t % W``."""
     q, k, v = _qkv(params, x, positions, cfg)
     out = _out(params, _sdpa_auto(q, k, v, cfg), x)
-    S = x.shape[1]
+    S, W = x.shape[1], cfg.sliding_window
+    kT, vT = k.transpose(1, 2), v.transpose(1, 2)          # (B, Hkv, S, hd)
+    if W > 0 and S > W:
+        kT = torch.roll(kT[:, :, -W:], S % W, dims=2)
+        vT = torch.roll(vT[:, :, -W:], S % W, dims=2)
     cache = init_kv_cache(cfg, x.shape[0], max_len, cache_dtype, x.device)
-    cache.k[:, :, :S] = k.transpose(1, 2).to(cache_dtype)
-    cache.v[:, :, :S] = v.transpose(1, 2).to(cache_dtype)
+    n = kT.shape[2]
+    cache.k[:, :, :n] = kT.to(cache_dtype)
+    cache.v[:, :, :n] = vT.to(cache_dtype)
     return out, cache
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None) -> KVCache:
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    W = cfg.sliding_window
+    S = min(max_len, W) if W else max_len
+    shape = (batch, cfg.num_kv_heads, S, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -157,18 +172,21 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
 def attention_decode(params, x, pos, cache: KVCache, cfg: ArchConfig):
     """One-step decode against the row cache.  x: (B, 1, D); pos: scalar
     (whole batch at one position) or (B,) int32 (every row at its own
-    position).  The new token's k/v are written IN PLACE at slot
-    ``min(pos, S-1)`` first (freed rows park at S-1), then row b attends
-    to slots [0, pos[b]].  Returns (out (B, 1, D), cache)."""
+    position).  The new token's k/v are written IN PLACE first, at slot
+    ``min(pos, S-1)`` (freed rows park at S-1) or, in a ring, ``pos %
+    S``; then row b attends to slots [0, pos[b]] (a wrapped ring: all S).
+    Returns (out (B, 1, D), cache)."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
     q, k, v = _qkv(params, x, pos[:, None], cfg)          # q: (B, 1, H, hd)
     S = cache.k.shape[2]
+    ring = cfg.sliding_window > 0
     rows = torch.arange(B, device=x.device)
-    slot = pos.clamp(max=S - 1).long()
+    slot = (pos % S if ring else pos.clamp(max=S - 1)).long()
     cache.k[rows, :, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[rows, :, slot] = v[:, 0].to(cache.v.dtype)
-    out = decode_attention(q[:, 0], cache.k, cache.v, pos)[:, None]
+    out = decode_attention(q[:, 0], cache.k, cache.v, pos,
+                           ring=ring)[:, None]
     return _out(params, out, x), cache
 
 
@@ -178,10 +196,11 @@ def attention_verify(params, x, pos, cache: KVCache, cfg: ArchConfig,
     ``pos[b] .. pos[b]+K-1`` (``pos``: scalar or (B,) int32).  Attention
     reads the cache as it stood BEFORE the block plus the block's own k/v
     under an intra-block causal mask (token i sees what the i-th
-    sequential ``attention_decode`` step would see); then the K tokens'
-    k/v are written IN PLACE at slot ``min(position, S-1)`` (parked rows
-    clamp to their dead last slot).  ``wmask`` ((B, K) bool, optional)
-    gates the writes only: a False token (a chunk's pad) computes normally
+    sequential ``attention_decode`` step would see, across a ring's wrap
+    too); then the K tokens' k/v are written IN PLACE at slot
+    ``min(position, S-1)`` (parked rows clamp to their dead last slot)
+    or, in a ring (K <= S), ``position % S``.  ``wmask`` ((B, K) bool,
+    optional) gates the writes only: a False token (a chunk's pad) computes normally
     but its write is skipped, its slot left as it was.  The scatter stays
     one sync-free ``index_put_``: a False token writes back what its slot
     already holds.  That is a skip as long as no True token shares the
@@ -193,10 +212,11 @@ def attention_verify(params, x, pos, cache: KVCache, cfg: ArchConfig,
     positions = pos[:, None] + torch.arange(K, dtype=torch.int32,
                                             device=x.device)[None]
     q, k, v = _qkv(params, x, positions, cfg)              # q: (B, K, H, hd)
-    out = verify_attention(q, cache.k, cache.v, k, v, pos)
+    ring = cfg.sliding_window > 0
+    out = verify_attention(q, cache.k, cache.v, k, v, pos, ring=ring)
     S = cache.k.shape[2]
     rows = torch.arange(B, device=x.device)[:, None]
-    slots = positions.clamp(max=S - 1).long()
+    slots = (positions % S if ring else positions.clamp(max=S - 1)).long()
     kw, vw = k.to(cache.k.dtype), v.to(cache.v.dtype)
     if wmask is not None:
         m = wmask[:, :, None, None]

@@ -1,73 +1,113 @@
-"""Dense decoder LM of the port (``family="dense"``).
+"""Decoder LM of the port: the dense family, sliding-window MoE
+(``mixtral-8x7b``) and the Mamba + MoE hybrid (``jamba-v0.1-52b``).
 
-Parameters are a plain dict of tensors, not captured by the model, so
-the context-switching server can hand a step the weights of whichever
-slot is active:
+Every architecture is a *period* of block kinds (``block_pattern``):
+dense and MoE models one (attention + MLP or MoE FFN), jamba eight
+(attention at index 4, Mamba elsewhere; MoE at odd indices, MLP at even
+ones).  Parameters are a plain dict of tensors, not captured by the
+model, so the context-switching server can hand a step the weights of
+whichever slot is active:
 
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V) unless tied,
-     "blocks": [{"norm1", "attn": {"wq", "wk", "wv", "wo"},
-                 "norm2", "mlp": {"w_gate", "w_up", "w_down"}}, ...]}
+     "blocks": [{"norm1", "attn" | "mamba": {...},
+                 "norm2", "mlp" | "moe": {...}}, ...]}
 
-``blocks`` holds one dict per layer: the JAX package's ``lax.scan`` over
-stacked layer parameters is a Python loop here (``repro_torch.bridge``
-unstacks JAX weights into this layout).  Caches are lists with one entry
-per layer (``layers.KVCache`` rows or ``layers.PagedKV`` pools) and are
-updated in place.
+``blocks`` holds one dict per layer, layer l of kind ``pattern[l % P]``:
+the JAX package's ``lax.scan`` over stacked period parameters is a
+Python loop here (``repro_torch.bridge`` unstacks JAX weights into this
+layout).  Caches are lists with one entry per layer (``layers.KVCache``
+rows -- a ring for a sliding window --, ``ssm.SSMState`` for a Mamba
+layer, or ``layers.PagedKV`` pools) and are updated in place.
 
 Execution modes:
   * ``forward``           — logits over the full sequence
   * ``prefill``           — builds the row cache, returns last-position logits
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
-  * ``verify_step``       — K tokens per row against the row cache
+  * ``verify_step``       — K tokens per row against the row cache (a
+                            Mamba layer scans them from its carried state)
   * ``prefill_chunk``     — a prompt chunk into named rows of the row cache
   * ``verify_step_pages`` / ``prefill_chunk_pages`` — K tokens per row
                             against the shared page pool (chunked prefill)
+Chunked prefill and the page pool take all-attention, full-attention
+models only (the JAX engine's rule).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.env import resolve_device, torch_dtype
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.common import PSpec, init_params
+
+_FAMILIES = ("dense", "moe", "hybrid")     # families the port serves
+
+
+def block_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """The period of (mixer, ffn) block kinds: mixer ``attn`` or
+    ``mamba``, ffn ``mlp`` or ``moe``."""
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        if cfg.moe is not None:
+            period = math.lcm(cfg.attn_every, cfg.moe.every)
+        return [("attn" if cfg.is_attention_layer(i) else "mamba",
+                 "moe" if cfg.is_moe_layer(i) else "mlp")
+                for i in range(period)]
+    return [("attn", "moe" if cfg.moe is not None else "mlp")]
+
+
+def _block_specs(cfg: ArchConfig, typ: tuple[str, str]) -> dict:
+    mixer, ffn = typ
+    d = cfg.d_model
+    out: dict[str, Any] = {"norm1": PSpec((d,), init="ones")}
+    if mixer == "attn":
+        out["attn"] = layers.attn_specs(cfg)
+    else:
+        out["mamba"] = ssm_mod.ssm_specs(cfg)
+    out["norm2"] = PSpec((d,), init="ones")
+    if ffn == "mlp":
+        out["mlp"] = layers.mlp_specs(d, cfg.d_ff, cfg.mlp_gated)
+    else:
+        out["moe"] = moe_mod.moe_specs(cfg)
+    return out
 
 
 class LM:
     def __init__(self, cfg: ArchConfig, cache_dtype=torch.bfloat16,
                  device=None):
-        if cfg.family != "dense" or cfg.moe is not None:
+        if (cfg.family not in _FAMILIES or cfg.xlstm is not None
+                or cfg.frontend.kind != "none"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not yet ported to repro_torch "
-                "(dense decoders only)")
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                "sliding-window ring caches are not yet ported to "
-                "repro_torch")
+                f"(ported: {', '.join(_FAMILIES)}, without xLSTM blocks "
+                "or a modality frontend)")
         self.cfg = cfg
+        self.pattern = block_pattern(cfg)
+        if cfg.num_layers % len(self.pattern):
+            raise ValueError(
+                f"num_layers {cfg.num_layers} is not a whole number of "
+                f"{len(self.pattern)}-layer periods")
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)          # activations
 
-    # ------------------------------------------------------------------ specs
-    def _block_specs(self) -> dict:
-        d = self.cfg.d_model
-        return {"norm1": PSpec((d,), init="ones"),
-                "attn": layers.attn_specs(self.cfg),
-                "norm2": PSpec((d,), init="ones"),
-                "mlp": layers.mlp_specs(d, self.cfg.d_ff,
-                                        self.cfg.mlp_gated)}
+    def kind(self, layer: int) -> tuple[str, str]:
+        """(mixer, ffn) of layer ``layer``."""
+        return self.pattern[layer % len(self.pattern)]
 
+    # ------------------------------------------------------------------ specs
     def param_specs(self) -> dict:
         cfg = self.cfg
         specs: dict[str, Any] = {
             "embed": PSpec((cfg.vocab_size, cfg.d_model), init="scaled",
                            scale=0.02),
             "final_norm": PSpec((cfg.d_model,), init="ones"),
-            "blocks": [self._block_specs() for _ in range(cfg.num_layers)],
+            "blocks": [_block_specs(cfg, self.kind(i))
+                       for i in range(cfg.num_layers)],
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = PSpec((cfg.d_model, cfg.vocab_size),
@@ -97,15 +137,62 @@ class LM:
         return (x @ w.to(x.dtype)).float()
 
     # --------------------------------------------------------------- blocks
-    def _block(self, p, x, mix):
-        """One block: ``mix(attn_params, h) -> a`` is the mode's attention
-        (with its cache handling) applied to the normed input."""
+    def _mixer(self, i, p, h, mode, cache, pos=None, positions=None,
+               max_len=None, wmask=None, tables=None, offsets=None,
+               tree=None):
+        """Layer ``i``'s mixer on the normed input ``h`` under ``mode``
+        (forward | prefill | decode | verify) -> (out, cache).  Prefill
+        returns the layer's fresh cache; decode and verify write
+        ``cache`` in place.  A Mamba layer runs the same recurrent call
+        for decode and verify (L == K block tokens after the carried
+        state); ``tables`` switches attention to the page pool."""
         cfg = self.cfg
-        h = layers.rmsnorm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-        x = x + mix(p["attn"], h)
-        h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
-        return x + layers.mlp({k: w.to(x.dtype)
-                               for k, w in p["mlp"].items()}, h2)
+        if self.kind(i)[0] == "mamba":
+            if mode in ("decode", "verify"):
+                a, st = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg)
+                for dst, src in zip(cache, st):
+                    dst.copy_(src)
+                return a, cache
+            return ssm_mod.mamba_forward(p["mamba"], h, cfg)
+        ap = p["attn"]
+        if mode == "forward":
+            return layers.attention(ap, h, positions, cfg), None
+        if mode == "prefill":
+            return layers.attention_prefill(ap, h, positions, cfg, max_len,
+                                            self.cache_dtype)
+        if tables is not None:
+            if mode == "decode":
+                return layers.attention_decode_pages(ap, h, pos, cache,
+                                                     tables, cfg,
+                                                     wmask=wmask)
+            return layers.attention_verify_pages(ap, h, pos, cache, tables,
+                                                 cfg, wmask=wmask,
+                                                 offsets=offsets, tree=tree)
+        if mode == "decode":
+            return layers.attention_decode(ap, h, pos, cache, cfg)
+        return layers.attention_verify(ap, h, pos, cache, cfg, wmask=wmask)
+
+    def _run(self, params, x, mode, caches=None, **kw):
+        """Every layer in order: x + mixer(norm1(x)), then x +
+        ffn(norm2(x)).  -> (x, the mixers' caches, one per layer).  The
+        MoE aux loss is a training term and is dropped here, as the JAX
+        package's serving modes drop it."""
+        cfg = self.cfg
+        out = []
+        for i, p in enumerate(params["blocks"]):
+            h = layers.rmsnorm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+            a, c = self._mixer(i, p, h, mode,
+                               None if caches is None else caches[i], **kw)
+            out.append(c)
+            x = x + a
+            h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
+            if "moe" in p:
+                f, _ = moe_mod.moe_apply(p["moe"], h2, cfg)
+            else:
+                f = layers.mlp({k: w.to(x.dtype)
+                                for k, w in p["mlp"].items()}, h2)
+            x = x + f
+        return x, out
 
     def _positions(self, x):
         B, S = x.shape[:2]
@@ -116,28 +203,19 @@ class LM:
     def forward(self, params, tokens):
         """Logits (B, S, V) f32 over the whole sequence."""
         x = self._embed_in(params, tokens)
-        positions = self._positions(x)
-        for p in params["blocks"]:
-            x = self._block(p, x, lambda ap, h: layers.attention(
-                ap, h, positions, self.cfg))
+        x, _ = self._run(params, x, "forward",
+                         positions=self._positions(x))
         return self._head(params, x)
 
     def prefill(self, params, tokens, max_len: int):
         """Populate a fresh row cache.  Returns (last-position logits
-        (B, 1, V), caches: one ``KVCache`` (B, Hkv, max_len, hd) per
-        layer)."""
+        (B, 1, V), caches: per layer a ``KVCache`` (B, Hkv, S, hd) --
+        S = max_len, or a ring's min(max_len, window) -- or an
+        ``SSMState``)."""
         x = self._embed_in(params, tokens)
-        positions = self._positions(x)
-        caches = []
-
-        def mix(ap, h):
-            a, c = layers.attention_prefill(ap, h, positions, self.cfg,
-                                            max_len, self.cache_dtype)
-            caches.append(c)
-            return a
-
-        for p in params["blocks"]:
-            x = self._block(p, x, mix)
+        x, caches = self._run(params, x, "prefill",
+                              positions=self._positions(x),
+                              max_len=max_len)
         return self._head(params, x[:, -1:]), caches
 
     def decode_step(self, params, caches, tokens, pos):
@@ -145,9 +223,7 @@ class LM:
         at one position) or (B,) int32.  Writes the caches in place;
         returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
-        for p, c in zip(params["blocks"], caches):
-            x = self._block(p, x, lambda ap, h, c=c: layers.attention_decode(
-                ap, h, pos, c, self.cfg)[0])
+        x, _ = self._run(params, x, "decode", caches, pos=pos)
         return self._head(params, x), caches
 
     def verify_step(self, params, caches, tokens, pos, wmask=None,
@@ -157,13 +233,12 @@ class LM:
         Returns (logits (B, K, V), caches): ``logits[:, i]`` is what the
         i-th of K sequential ``decode_step`` calls would give, since each
         token reads the cache before the block plus the block's earlier
-        tokens.  ``wmask`` ((B, K) bool, optional) keeps False tokens'
-        k/v out of the cache; the logits are None when ``need_logits`` is
-        False."""
+        tokens (across a ring's wrap too), and a Mamba layer scans the K
+        tokens from its carried state.  ``wmask`` ((B, K) bool, optional)
+        keeps False tokens' k/v out of an attention cache; the logits are
+        None when ``need_logits`` is False."""
         x = self._embed_in(params, tokens)
-        for p, c in zip(params["blocks"], caches):
-            x = self._block(p, x, lambda ap, h, c=c: layers.attention_verify(
-                ap, h, pos, c, self.cfg, wmask=wmask)[0])
+        x, _ = self._run(params, x, "verify", caches, pos=pos, wmask=wmask)
         return (self._head(params, x) if need_logits else None), caches
 
     def prefill_chunk(self, params, caches, tokens, pos, slots, wmask=None,
@@ -176,8 +251,15 @@ class LM:
         slot's stale row must not leak into the new request), the
         chunk runs through ``verify_step``, and the rows are written
         back: only the named rows change.  ``wmask`` keeps a final
-        chunk's pad tokens out of the cache.  Returns (logits (b, C, V)
-        f32, or None when ``need_logits`` is False, caches)."""
+        chunk's pad tokens out of the cache.  All-attention, full
+        attention models only (every engine refuses the others).
+        Returns (logits (b, C, V) f32, or None when ``need_logits`` is
+        False, caches)."""
+        if (any(mix != "attn" for mix, _ in self.pattern)
+                or self.cfg.sliding_window):
+            raise NotImplementedError(
+                "chunked prefill of ring and recurrent models is not yet "
+                "ported to repro_torch (the engines refuse it)")
         dev = self.device
         slots = torch.as_tensor(slots, device=dev).long()
         pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
@@ -194,23 +276,38 @@ class LM:
 
     # ------------------------------------------------------------- row cache
     def init_cache(self, batch: int, max_len: int) -> list:
+        """Per layer a zero ``KVCache`` (a ring of min(max_len, window)
+        slots for a sliding window) or a zero ``SSMState``."""
         return [layers.init_kv_cache(self.cfg, batch, max_len,
                                      self.cache_dtype, self.device)
-                for _ in range(self.cfg.num_layers)]
+                if self.kind(i)[0] == "attn" else
+                ssm_mod.init_ssm_state(self.cfg, batch, self.cache_dtype,
+                                       self.device)
+                for i in range(self.cfg.num_layers)]
 
     def insert_cache_rows(self, caches, rows, slots):
         """Per-slot cache admission, in place: write ``rows`` (per-layer
         caches of b requests) into batch rows ``slots`` ((b,) int) of
-        ``caches``.  Only the named rows change -- a freed slot is
-        recycled by overwriting it with a fresh prefill, so admission
-        never disturbs in-flight requests."""
+        ``caches``, every leaf (k/v, or conv/ssm state).  Only the named
+        rows change -- a freed slot is recycled by overwriting it with a
+        fresh prefill, so admission never disturbs in-flight requests."""
         slots = torch.as_tensor(slots, device=self.device).long()
         for c, r in zip(caches, rows):
-            c.k[slots] = r.k.to(c.k.dtype)
-            c.v[slots] = r.v.to(c.v.dtype)
+            for dst, src in zip(c, r):
+                dst[slots] = src.to(dst.dtype)
         return caches
 
     # ------------------------------------------------------- paged slot pool
+    def _require_paged_support(self):
+        if any(mix != "attn" for mix, _ in self.pattern):
+            raise ValueError(
+                "the paged page pool needs an all-attention model "
+                "(recurrent mixers keep per-row state, not pages)")
+        if self.cfg.sliding_window:
+            raise ValueError(
+                "the paged page pool needs full (non-ring) attention: "
+                "ring slots alias positions a page table cannot express")
+
     def init_page_pool(self, num_pages: int, page: int,
                        quantized: bool = False) -> list:
         """Shared-page decode cache: one ``layers.PagedKV`` pool (NP, Hkv,
@@ -219,6 +316,7 @@ class LM:
         its owning row in every layer's pool.  ``quantized`` stores int8
         codes plus (NP, Hkv, page) f32 scales: about half the bytes per
         page of a bf16 pool."""
+        self._require_paged_support()
         return [layers.init_page_pool(self.cfg, num_pages, page,
                                       self.cache_dtype, self.device,
                                       quantized=quantized)
@@ -241,10 +339,8 @@ class LM:
         optional) routes non-live rows' cache writes to the park page.
         Returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
-        for p, c in zip(params["blocks"], caches):
-            x = self._block(
-                p, x, lambda ap, h, c=c: layers.attention_decode_pages(
-                    ap, h, pos, c, tables, self.cfg, wmask=live)[0])
+        x, _ = self._run(params, x, "decode", caches, pos=pos,
+                         tables=tables, wmask=live)
         return self._head(params, x), caches
 
     def verify_step_pages(self, params, caches, tokens, pos, tables,
@@ -262,11 +358,9 @@ class LM:
         tables = torch.as_tensor(tables, device=self.device)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         x = self._embed_in(params, tokens)
-        for p, c in zip(params["blocks"], caches):
-            x = self._block(
-                p, x, lambda ap, h, c=c: layers.attention_verify_pages(
-                    ap, h, pos, c, tables, self.cfg, wmask=wmask,
-                    offsets=offsets, tree=tree)[0])
+        x, _ = self._run(params, x, "verify", caches, pos=pos,
+                         tables=tables, wmask=wmask, offsets=offsets,
+                         tree=tree)
         return (self._head(params, x) if need_logits else None), caches
 
     # chunked admission is the verify pass pointed at the page pool

@@ -291,9 +291,20 @@ class StepEngine(SlotPool):
                 "quantize_kv targets the shared page pool: it needs "
                 "paged=True (the row cache stays full precision)")
         self.quantize_kv = quantize_kv
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise ValueError(f"prefill_chunk must be >= 1, got "
-                             f"{prefill_chunk}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got "
+                                 f"{prefill_chunk}")
+            if any(mix != "attn" for mix, _ in model.pattern):
+                raise ValueError(
+                    "chunked prefill needs an all-attention model "
+                    "(recurrent state cannot carry across chunk "
+                    "boundaries)")
+            if model.cfg.sliding_window:
+                raise ValueError(
+                    "chunked prefill needs a full (non-ring) cache: a "
+                    "pending row's parked decode writes would wrap onto "
+                    "window entries the chunks just filled")
         self.prefill_chunk = prefill_chunk
         self.admit_jump_limit = admit_jump_limit
         self._jumps = 0              # consecutive short-prompt jump-aheads
@@ -301,6 +312,7 @@ class StepEngine(SlotPool):
 
         self.paged = paged
         if paged:
+            model._require_paged_support()   # all-attention, non-ring
             page_size = min(page_size, max_len)
             if max_len % page_size:
                 raise ValueError(

@@ -1,6 +1,7 @@
 """The hand-written Hopper kernels on the card, against their plain
-PyTorch versions on the same CUDA tensors (bf16 in, ``atol=2e-2``, the
-bf16 tolerance of ``test_kernels.py``).  Every test here is marked
+PyTorch versions on the same CUDA tensors (attention: bf16 in,
+``atol=2e-2``, the bf16 tolerance of ``test_kernels.py``; the f32
+selective scan within 1e-4 of the plain version's largest value).  Every test here is marked
 ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -18,6 +19,8 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     paged_decode_attention, paged_decode_reference, paged_verify_attention,
     paged_verify_reference)
+from repro_torch.kernels.ssm_scan.ops import (  # noqa: E402
+    selective_scan_reference, ssm_scan)
 from repro_torch.kernels.verify_attention.ops import (  # noqa: E402
     verify_attention, verify_reference)
 
@@ -168,8 +171,10 @@ def test_verify_and_int8_kernels_match_plain(gen, hd, G, Kb):
     n = len(trees)
     assert (verify_attention.launches, paged_verify_attention.launches,
             paged_verify_attention.launches_int8,
+            paged_verify_attention.launches_tree,
             paged_decode_attention.launches,
-            paged_decode_attention.launches_int8) == (1 + n, n, n, 0, 1)
+            paged_decode_attention.launches_int8) == (1 + n, 1, 1,
+                                                      2 * (n - 1), 0, 1)
 
 
 def test_verify_kernels_never_read_past_pos_or_the_park_page(gen):
@@ -263,3 +268,75 @@ def test_verify_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         paged_decode_attention(q[:, 0].contiguous(), kp, kp, table, pos,
                                k_scale=torch.zeros(3, Hkv, page,
                                                    device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# sliding-window rings and the selective scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Kb", [5, 64])
+def test_ring_decode_and_verify_kernels_match_plain(gen, Kb):
+    """head_dim 128, G 4, a ring of S = 64 slots, rows at pos 0, S-1
+    (the verify block wraps), S and 2S+3.  Ring slots not yet written
+    (pos < S) hold NaN: the kernels never read them.  The ring routes
+    count apart from the full-cache routes."""
+    kernels.reset_launch_counts()
+    B, H, Hkv, hd, S = 4, 8, 2, 128, 64
+    pos = torch.tensor([0, S - 1, S, 2 * S + 3], dtype=torch.int32,
+                       device="cuda")
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    qd = _rn(gen, B, H, hd)
+    q = _rn(gen, B, Kb, H, hd)
+    bk, bv = _rn(gen, B, Kb, Hkv, hd), _rn(gen, B, Kb, Hkv, hd)
+    want_d = decode_reference(qd, k, v, pos)
+    want_v = verify_reference(q, k, v, bk, bv, pos, ring=True)
+    slot = torch.arange(S, device="cuda")[None, None, :, None]
+    p = pos[:, None, None, None]
+    nan = float("nan")
+    kd = torch.where((slot > p) & (p < S), nan, k.float()).to(k.dtype)
+    vd = torch.where((slot > p) & (p < S), nan, v.float()).to(v.dtype)
+    kv_ = torch.where((slot >= p) & (p < S), nan, k.float()).to(k.dtype)
+    vv_ = torch.where((slot >= p) & (p < S), nan, v.float()).to(v.dtype)
+    got_d = decode_attention(qd, kd, vd, pos, ring=True)
+    got_v = verify_attention(q, kv_, vv_, bk, bv, pos, ring=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_d).all() and torch.isfinite(got_v).all()
+    _close(got_d, want_d)
+    _close(got_v, want_v)
+    assert (decode_attention.launches_ring, decode_attention.launches,
+            verify_attention.launches_ring,
+            verify_attention.launches) == (1, 0, 1, 0)
+    with pytest.raises(ValueError, match="ring"):
+        verify_attention(q, k[:, :, :4].contiguous(), v[:, :, :4]
+                         .contiguous(), bk, bv, pos, ring=True)
+
+
+@pytest.mark.parametrize("d_in", [200, 256, 8192])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("L", [1, 7, 512])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssm_scan_kernel_matches_plain(gen, d_in, N, L, init):
+    """The f32 selective scan against its plain sequential version on
+    the same CUDA tensors: y and the final state, from a zero or a
+    carried state, d_in a multiple of the block or not."""
+    kernels.reset_launch_counts()
+    B = 2
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+    dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+    A = -torch.exp(rn(d_in, N) * 0.5)
+    D = rn(d_in)
+    s0 = rn(B, d_in, N) if init else None
+    y, s = ssm_scan(u, dt, Bm, Cm, A, D, s0)
+    wy, ws = selective_scan_reference(u, dt, Bm, Cm, A, D, s0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == 1
+    for got, want in ((y, wy), (s, ws)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="N in"):
+        ssm_scan(u, dt, Bm[..., :4], Cm[..., :4], A[:, :4], D)

@@ -70,7 +70,7 @@ def test_bridge_unstacks_layers_and_keeps_dtypes():
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                       want.view(np.int16))
-    with pytest.raises(ValueError, match="dense"):
+    with pytest.raises(ValueError, match="repeat axis"):
         params_from_jax({"blocks": {"b0": {}, "b1": {}}}, device="cpu")
 
 
@@ -145,8 +145,7 @@ def test_paged_decode_matches_jax(tiny):
 
 def test_unported_configs_refuse():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("mixtral-8x7b")
-    windowed = override(reduced(get_arch("tinyllama-1.1b")),
-                        sliding_window=16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        build_model(windowed, device="cpu")
+        get_arch("xlstm-125m")
+    recurrent = override(reduced(get_arch("tinyllama-1.1b")), family="ssm")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model(recurrent, device="cpu")

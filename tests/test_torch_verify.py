@@ -178,7 +178,8 @@ def test_cpu_verify_and_int8_take_the_plain_version_and_count_no_launch():
                            v_scale=vs)
     assert (verify_attention.launches, paged_verify_attention.launches,
             paged_verify_attention.launches_int8,
-            paged_decode_attention.launches_int8) == (0, 0, 0, 0)
+            paged_verify_attention.launches_tree,
+            paged_decode_attention.launches_int8) == (0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
