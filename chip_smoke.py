@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 limit that a one-slot mask fault is shown to leave.  The
                 selective scan at jamba-v0.1-52b's (d_in=8192, N=16, f32,
                 L=512, and L=8 from a carried state) within 1e-4 of the
-                plain version's largest value.
+                plain version's largest value.  The chunkwise mLSTM at
+                xlstm-125m's (H=4, dh=384, chunk 256, f32, B=2, L=512):
+                h, C and n within 5e-4, m within 1e-5, each times
+                max(1, the plain version's largest value).
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -28,8 +31,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 on the row cache and a page pool; mixtral-8x7b's forward,
                 prefill, ring decode and a ring verify that wraps; one
                 jamba-v0.1-52b Mamba block's prefill, decode and 8-token
-                verify from its state.  Then, logged only, how far an
-                int8 pool moves the full-depth tinyllama-1.1b's logits.
+                verify from its state; one xlstm-125m mLSTM block's
+                512-token chunkwise prefill, decode and 4-token verify
+                from its state, and one sLSTM block's.  Then, logged
+                only, how far an int8 pool moves the full-depth
+                tinyllama-1.1b's logits.
   4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
                 supersub-super at their published widths, requests
                 alternating contexts, through ContinuousScheduler(paged),
@@ -39,7 +45,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 ``continuous_row_moe_hybrid``: mixtral-8x7b (4 layers)
                 and jamba-v0.1-52b (8 layers) at published widths through
                 ContinuousScheduler(row), one mixtral prompt past the
-                window.  Every request must resolve with the right shape,
+                window; then ``continuous_row_xlstm``: xlstm-125m (all
+                12 layers) and tinyllama-1.1b at published widths through
+                ContinuousScheduler(row), prompts of 300, 512 and 768
+                tokens (the two longer ones prefill through the chunkwise
+                mLSTM kernel).  Every request must resolve with the right shape,
                 and each kernel route's launch count (zeroed right before
                 a pass) must rise in the pass that uses it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
@@ -68,6 +78,8 @@ TOL = 2e-2                   # bf16 kernel vs plain version on the card
 # is only about 0.03, so the flat TOL would pass a one-slot mask fault
 RING_ATOL, RING_RTOL = 1e-4, 2.0 ** -7
 SCAN_RTOL = 1e-4             # f32 scan: max abs error / max |plain|
+# f32 chunkwise mLSTM, times max(1, max |plain|): test_kernels.py's limits
+MLSTM_TOL, MLSTM_M_TOL = 5e-4, 1e-5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12            # H100 SXM f32 peak outside the tensor cores
@@ -179,16 +191,26 @@ def kernel_phase(dev) -> list[dict]:
     out = []
 
     def record(name, source, replaces, got, ref, t_k, t_p, t_l, nbytes,
-               flops, peak=BF16_FLOPS, tol=TOL, rtol=0.0):
+               flops, peak=BF16_FLOPS, tol=TOL, rtol=0.0, outputs=None):
         """One kernel record; ``got``/``ref`` may be tuples of outputs
         (the error is the largest over them), ``t_l`` None where no
         library call computes the same function.  Each element must lie
-        within ``tol + rtol * |plain|`` of the plain version."""
+        within ``tol + rtol * |plain|`` of the plain version (``tol`` a
+        tuple: one limit per output, each output's error/limit logged
+        under its name in ``outputs``)."""
         pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got,
                                                                      ref)]
+        tols = tol if isinstance(tol, tuple) else (tol,) * len(pairs)
         err = max((g.float() - r.float()).abs().max().item()
                   for g, r in pairs)
-        ratio = max(limit_ratio(g, r, tol, rtol) for g, r in pairs)
+        ratios = [limit_ratio(g, r, t, rtol)
+                  for (g, r), t in zip(pairs, tols)]
+        ratio = max(ratios)
+        if outputs:
+            log(f"kernel {name}: error/limit per output " + ", ".join(
+                f"{o} {r:.3f} (limit {t:.3e})"
+                for o, r, t in zip(outputs, ratios, tols)))
+        tol = max(tols)
         bms, by = bound_ms(nbytes, flops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -382,6 +404,7 @@ def kernel_phase(dev) -> list[dict]:
            qbytes + 2 * 2 * HD * cache_keys * HKV, flops)
     ring_records(dev, rn, flush, record)
     scan_record(dev, gen, flush, record)
+    mlstm_record(dev, gen, flush, record)
     del l2
     return out
 
@@ -511,6 +534,54 @@ def scan_record(dev, gen, flush, record) -> None:
            time_ms(lambda: selective_scan_reference(*long), iters=5,
                    flush=flush),
            None, nbytes, ops, peak=F32_FLOPS, tol=tol)
+
+
+def mlstm_record(dev, gen, flush, record) -> None:
+    """The chunkwise mLSTM at xlstm-125m's shapes (H = 4, dh = 384, chunk
+    256) in f32: a 512-token prefill of 2 rows from no history, inputs
+    drawn as ``tests/test_kernels.py`` draws them.  No single library call
+    computes it.  The bound counts, per chunk and (row, head), the
+    scores and the intra-chunk product over the causal pairs s <= l only,
+    2 c(c+1) dh, the state update 2c dh^2, and the inter-chunk product 2c
+    dh^2 for every chunk but the first (which has no carried state), at
+    the f32 rate outside the tensor cores; the bytes are q, k, v, li, lf
+    read and h, C, n, m written.  The log also gives the largest |g| (the
+    within-chunk cumulative log forget gate), on whose rounding m's
+    error rests."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk.ops import (mlstm_chunk,
+                                                     mlstm_chunk_reference)
+
+    B, Hx, L, dh, c = 2, 4, 512, 384, 256
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = rn(B, Hx, L, dh), rn(B, Hx, L, dh), rn(B, Hx, L, dh)
+    li = rn(B, Hx, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, Hx, L) + 1.0)
+    args = (q, k, v, li, lf)
+    h, fin = mlstm_chunk(*args, chunk=c)
+    torch.cuda.synchronize()
+    wh, wfin = mlstm_chunk_reference(*args, c)
+    got, ref = (h, *fin), (wh, *wfin)
+    tols = tuple(t * max(1.0, float(r.abs().max()))
+                 for t, r in zip((MLSTM_TOL,) * 3 + (MLSTM_M_TOL,), ref))
+    nbytes = 4 * (4 * B * Hx * L * dh + 2 * B * Hx * L + B * Hx * dh * dh
+                  + B * Hx * dh + B * Hx)
+    nc = L // c
+    ops = B * Hx * (nc * (2 * c * (c + 1) * dh + 2 * c * dh * dh)
+                    + (nc - 1) * 2 * c * dh * dh)
+    g_max = float(lf.reshape(B, Hx, nc, c).cumsum(-1).abs().max())
+    log(f"mlstm_chunk: largest |g| {g_max:.3f}, largest |m| "
+        f"{float(ref[3].abs().max()):.3f}")
+    record("mlstm_chunk",
+           "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+           "src/repro/kernels/mlstm_chunk/kernel.py:95", got, ref,
+           time_ms(lambda: mlstm_chunk(*args, chunk=c), flush=flush),
+           time_ms(lambda: mlstm_chunk_reference(*args, c), flush=flush),
+           None, nbytes, ops, peak=F32_FLOPS, tol=tols,
+           outputs=("h", "C", "n", "m"))
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +743,50 @@ def moe_hybrid_reference(dev) -> None:
         _rel_check(f"jamba-v0.1-52b mamba block {label}", got, want)
 
 
+def xlstm_reference(dev) -> None:
+    """One xlstm-125m mLSTM block and one sLSTM block at full width (bf16
+    weights from a seed) on the card against the same calls on the CPU
+    in float32 on the same weights, each output and final state within
+    ``REF_TOL`` relative L2 error.  mLSTM: a 512-token chunkwise prefill
+    (the kernel: two chunks of 256), one recurrent decode token and a
+    4-token verify block from the carried state.  sLSTM: a 64-token
+    prefill and one decode token from its state."""
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import init_params
+
+    cfg = override(get_arch("xlstm-125m"), param_dtype="bfloat16")
+    x = torch.randn((2, 517, cfg.d_model),
+                    generator=torch.Generator().manual_seed(11))
+
+    def mlstm(p, xx):
+        y, st = xlstm.mlstm_block(p, xx[:, :512], cfg, mode="chunkwise")
+        d1, st = xlstm.mlstm_block(p, xx[:, 512:513], cfg, mode="recurrent",
+                                   state=st)
+        v4, st = xlstm.mlstm_block(p, xx[:, 513:517], cfg, mode="recurrent",
+                                   state=st)
+        return {"prefill_chunkwise": y, "decode": d1, "verify4": v4,
+                "final_C": st.C, "final_n": st.n, "final_m": st.m}
+
+    def slstm(p, xx):
+        y, st = xlstm.slstm_block(p, xx[:, :64], cfg)
+        d1, st = xlstm.slstm_block(p, xx[:, 64:65], cfg, state=st)
+        return {"prefill": y, "decode": d1, "final_h": st.h, "final_c": st.c,
+                "final_n": st.n, "final_m": st.m}
+
+    for name, run, specs, seed in (("mlstm", mlstm, xlstm.mlstm_specs, 12),
+                                   ("slstm", slstm, xlstm.slstm_specs, 13)):
+        gp = init_params(specs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed),
+                         torch.bfloat16, dev)
+        got = run(gp, x.to(dev, torch.bfloat16))
+        want = run(_tree(lambda t: t.float().cpu(), gp), x)
+        for label in got:
+            _rel_check(f"xlstm-125m {name} block {label}", got[label],
+                       want[label])
+
+
 def int8_drift(dev, steps: int = 8) -> None:
     """Logged, not gated: how far an int8 page pool moves the logits of
     the full-depth tinyllama-1.1b (random bf16 weights).  One prefill of
@@ -730,6 +845,7 @@ def _launch_counters() -> dict:
     ring routes count apart)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
@@ -749,7 +865,8 @@ def _launch_counters() -> dict:
                 lambda: paged_verify_attention.launches_int8,
             "paged_verify_attention_tree":
                 lambda: paged_verify_attention.launches_tree,
-            "ssm_scan": lambda: ssm_scan.launches}
+            "ssm_scan": lambda: ssm_scan.launches,
+            "mlstm_chunk": lambda: mlstm_chunk.launches}
 
 
 def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
@@ -862,9 +979,10 @@ def serving_phase(dev) -> dict:
             outputs["continuous_row_chunked"]),
         "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
                                   outputs["continuous_paged_chunked"])}))
-    counts = moe_hybrid_pass(dev)
-    for n in totals:
-        totals[n] += counts[n]
+    for extra in (moe_hybrid_pass, xlstm_pass):
+        counts = extra(dev)
+        for n in totals:
+            totals[n] += counts[n]
     return totals
 
 
@@ -926,6 +1044,45 @@ def moe_hybrid_pass(dev) -> dict:
         lambda s: ContinuousScheduler(s, batch_size=2),
         {"flash_attention", "decode_attention", "decode_attention_ring",
          "ssm_scan"})
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+XLSTM_PROMPTS = (300, 512, 768)   # 512 and 768: chunkwise; 300: parallel
+
+
+def xlstm_pass(dev) -> dict:
+    """``continuous_row_xlstm``: ContinuousScheduler, row cache, 2 batch
+    slots and 2 weight slots, 8 requests alternating xlstm-125m (all 12
+    layers) and tinyllama-1.1b at their published widths, bf16 weights
+    from a seed.  Prompt lengths cycle through ``XLSTM_PROMPTS``, so
+    xlstm-125m gets 300, 768, 512 and 300 tokens: the two that are a
+    whole number of two or more 256-token chunks prefill through the
+    chunkwise mLSTM kernel in each of the 9 mLSTM layers; 32 new tokens
+    each.  The mLSTM kernel, flash and decode (tinyllama) must each
+    launch.  -> launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import build_server
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    names = ["xlstm-125m", "tinyllama-1.1b"]
+    server, cfgs = build_server(
+        names, slots=2, max_len=max(XLSTM_PROMPTS) + NEW_TOKENS,
+        reduce=False, device=dev, arch_overrides={"param_dtype": "bfloat16"})
+    rng = np.random.default_rng(3)
+    reqs = [(names[r % 2], rng.integers(
+        0, cfgs[names[r % 2]].vocab_size,
+        (1, XLSTM_PROMPTS[r % len(XLSTM_PROMPTS)])))
+        for r in range(N_REQUESTS)]
+    counts, _ = run_pass(
+        dev, "continuous_row_xlstm", server, cfgs, reqs,
+        lambda s: ContinuousScheduler(s, batch_size=2),
+        {"mlstm_chunk", "flash_attention", "decode_attention"})
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1019,6 +1176,7 @@ def main() -> int:
     records = kernel_phase(dev)
     reference_phase(dev)
     moe_hybrid_reference(dev)
+    xlstm_reference(dev)
     int8_drift(dev)
     totals = serving_phase(dev)
     profile_phase(dev)

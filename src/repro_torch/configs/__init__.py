@@ -2,8 +2,9 @@
 
 A copy of the JAX package's registry restricted to the models the port
 serves so far: the dense ``supersub-super``, ``supersub-sub`` and
-``tinyllama-1.1b``, the sliding-window MoE ``mixtral-8x7b`` and the
-Mamba + MoE hybrid ``jamba-v0.1-52b``; every other architecture of the
+``tinyllama-1.1b``, the sliding-window MoE ``mixtral-8x7b``, the
+Mamba + MoE hybrid ``jamba-v0.1-52b`` and the mLSTM + sLSTM recurrent
+``xlstm-125m``; every other architecture of the
 JAX package raises ``KeyError(... not yet ported)``.  ``base.py`` is a
 verbatim copy of the JAX package's stdlib-only config module: the port
 imports nothing of ``repro``.
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (
 )
 
 _ARCH_MODULES = {
+    "xlstm-125m": "xlstm_125m",
     "tinyllama-1.1b": "tinyllama_11b",
     "mixtral-8x7b": "mixtral_8x7b",
     "jamba-v0.1-52b": "jamba_v01_52b",
@@ -27,7 +29,7 @@ _ARCH_MODULES = {
 }
 
 # architectures of the JAX package the port does not serve yet
-_NOT_PORTED = ("xlstm-125m", "codeqwen1.5-7b", "starcoder2-7b",
+_NOT_PORTED = ("codeqwen1.5-7b", "starcoder2-7b",
                "deepseek-7b", "musicgen-medium", "qwen3-moe-235b-a22b",
                "pixtral-12b")
 
@@ -49,10 +51,13 @@ def list_archs() -> list[str]:
 def reduced(cfg: ArchConfig, **extra) -> ArchConfig:
     """A smoke-test-sized config of the same family (CPU-runnable); the
     JAX package's ``reduced`` cut: a hybrid keeps one whole period
-    (``lcm(attn_every, moe.every)`` layers), MoE drops to 4 experts of
-    width 64 (top-2 at most) and the SSM state to 8."""
+    (``lcm(attn_every, moe.every)`` layers), xLSTM one ``slstm_every``
+    period with chunks of 16, MoE drops to 4 experts of width 64 (top-2
+    at most) and the SSM state to 8."""
     period = 1
-    if cfg.family == "hybrid":
+    if cfg.xlstm is not None:
+        period = cfg.xlstm.slstm_every
+    elif cfg.family == "hybrid":
         period = math.lcm(cfg.attn_every, cfg.moe.every if cfg.moe else 1)
     kw = dict(
         num_layers=min(cfg.num_layers, max(2, period)),
@@ -68,6 +73,8 @@ def reduced(cfg: ArchConfig, **extra) -> ArchConfig:
                              top_k=min(cfg.moe.top_k, 2), d_ff_expert=64)
     if cfg.ssm is not None:
         kw["ssm"] = override(cfg.ssm, d_state=8)
+    if cfg.xlstm is not None:
+        kw["xlstm"] = override(cfg.xlstm, chunk_size=16)
     kw.update(extra)
     return override(cfg, name=cfg.name + "-reduced", **kw)
 

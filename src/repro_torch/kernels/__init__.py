@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels for the port's hot spots: attention and
-the Mamba selective scan.
+"""Hand-written Hopper kernels for the port's hot spots: attention, the
+Mamba selective scan and the chunkwise mLSTM.
 
 Each kernel package has:
   csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
@@ -60,6 +60,14 @@ def check_cuda_input(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: kernel takes a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: kernel takes a 16-byte aligned tensor")
+
+
+def f32_operand(t: torch.Tensor) -> torch.Tensor:
+    """An f32, contiguous, 16-byte aligned copy of ``t`` (``t`` itself when
+    it already is one): the f32 kernels' wrappers cast every operand to
+    f32, as their JAX wrappers do."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def c_function(kernel: str, symbol: str, argtypes: list):
@@ -143,11 +151,12 @@ def reset_launch_counts() -> None:
     decode and verify wrappers in ``launches_ring``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    for fn in (flash_attention, ssm_scan):
+    for fn in (flash_attention, ssm_scan, mlstm_chunk):
         fn.launches = 0
     for fn in (decode_attention, verify_attention):
         fn.launches = 0

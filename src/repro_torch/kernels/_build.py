@@ -35,6 +35,7 @@ SOURCES = {
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
     "verify_attention": "verify_attention/csrc/verify_attention.cu",
     "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
+    "mlstm_chunk": "mlstm_chunk/csrc/mlstm_chunk.cu",
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,61 @@
+"""Public wrapper of the chunkwise-mLSTM kernel.
+
+A CPU tensor runs the plain version (``ref.mlstm_chunk_reference``); a
+CUDA tensor launches ``csrc/mlstm_chunk.cu`` or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_reference,
+                                                 mlstm_recurrent_reference)
+
+DEFAULT_CHUNK = 128
+MAX_CHUNK = 256          # the kernel stages a chunk's gates in shared memory
+MAX_DH = 512             # a block keeps a (dh, 64) column slice of C
+
+_fn = None
+
+
+def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
+    """q/k/v: (B, H, L, dh); li/lf: (B, H, L) -> (h (B, H, L, dh) f32, (C
+    (B, H, dh, dh), n (B, H, dh), m (B, H)) f32), from no history.
+    Casts to f32 and shrinks the chunk to a divisor of L, as the JAX
+    wrapper does."""
+    L = q.shape[2]
+    c = min(chunk, L)
+    while L % c:
+        c //= 2
+    q, k, v, li, lf = (K.f32_operand(t) for t in (q, k, v, li, lf))
+    if K.on_cpu(q, k, v, li, lf):
+        return mlstm_chunk_reference(q, k, v, li, lf, c)
+    global _fn
+    B, H, _, dh = q.shape
+    if dh % 64 or dh > MAX_DH or c > MAX_CHUNK or L < 1:
+        raise ValueError(f"mlstm_chunk: kernel takes dh a multiple of 64 up "
+                         f"to {MAX_DH} and a chunk of at most {MAX_CHUNK}, "
+                         f"got dh={dh}, chunk={c}")
+    for name, t, shape in (("q", q, (B, H, L, dh)), ("k", k, (B, H, L, dh)),
+                           ("v", v, (B, H, L, dh)), ("li", li, (B, H, L)),
+                           ("lf", lf, (B, H, L))):
+        K.check_cuda_input(name, t, torch.float32, shape)
+    h = torch.empty((B, H, L, dh), dtype=torch.float32, device=q.device)
+    C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if _fn is None:
+        _fn = K.c_function("mlstm_chunk", "mlstm_chunk_f32",
+                           [K.P] * 9 + [K.I] * 5 + [K.P])
+    rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
+             lf.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
+             m.data_ptr(), B, H, L, dh, c, K.stream_ptr(q))
+    K.check_launch("mlstm_chunk", rc)
+    mlstm_chunk.launches += 1
+    return h, (C, n, m)
+
+
+mlstm_chunk.launches = 0
+
+__all__ = ["mlstm_chunk", "mlstm_chunk_reference",
+           "mlstm_recurrent_reference"]

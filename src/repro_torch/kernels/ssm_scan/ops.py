@@ -15,13 +15,6 @@ _fn = None
 STATE_SIZES = (8, 16)       # the kernel's template instantiations of N
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    """An f32, contiguous, 16-byte aligned copy of ``t`` (``t`` itself when
-    it already is one): the JAX wrapper casts every operand to f32."""
-    t = t.to(torch.float32).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def ssm_scan(u, dt, Bm, Cm, A, D, init_state=None):
     """u/dt: (B, L, d_in); Bm/Cm: (B, L, N); A: (d_in, N); D: (d_in,);
     ``init_state``: (B, d_in, N) or None (zeros) -> (y (B, L, d_in) f32,
@@ -35,13 +28,13 @@ def ssm_scan(u, dt, Bm, Cm, A, D, init_state=None):
     if N not in STATE_SIZES or L < 1:
         raise ValueError(f"ssm_scan: kernel takes N in {STATE_SIZES} and "
                          f"L >= 1, got N={N}, L={L}")
-    u, dt, Bm, Cm, A, D = (_f32(t) for t in (u, dt, Bm, Cm, A, D))
+    u, dt, Bm, Cm, A, D = (K.f32_operand(t) for t in (u, dt, Bm, Cm, A, D))
     for name, t, shape in (("u", u, (B, L, d_in)), ("dt", dt, (B, L, d_in)),
                            ("Bm", Bm, (B, L, N)), ("Cm", Cm, (B, L, N)),
                            ("A", A, (d_in, N)), ("D", D, (d_in,))):
         K.check_cuda_input(name, t, torch.float32, shape)
     if init_state is not None:
-        init_state = _f32(init_state)
+        init_state = K.f32_operand(init_state)
         K.check_cuda_input("init_state", init_state, torch.float32,
                            (B, d_in, N))
     y = torch.empty((B, L, d_in), dtype=torch.float32, device=u.device)

@@ -1,23 +1,27 @@
 """Decoder LM of the port: the dense family, sliding-window MoE
-(``mixtral-8x7b``) and the Mamba + MoE hybrid (``jamba-v0.1-52b``).
+(``mixtral-8x7b``), the Mamba + MoE hybrid (``jamba-v0.1-52b``) and the
+recurrent xLSTM (``xlstm-125m``).
 
 Every architecture is a *period* of block kinds (``block_pattern``):
 dense and MoE models one (attention + MLP or MoE FFN), jamba eight
 (attention at index 4, Mamba elsewhere; MoE at odd indices, MLP at even
-ones).  Parameters are a plain dict of tensors, not captured by the
-model, so the context-switching server can hand a step the weights of
-whichever slot is active:
+ones), xLSTM ``slstm_every`` (mLSTM blocks, the last one sLSTM; no FFN
+after the mixer).  Parameters are a plain dict of tensors, not captured
+by the model, so the context-switching server can hand a step the
+weights of whichever slot is active:
 
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V) unless tied,
-     "blocks": [{"norm1", "attn" | "mamba": {...},
-                 "norm2", "mlp" | "moe": {...}}, ...]}
+     "blocks": [{"norm1", "attn" | "mamba" | "mlstm" | "slstm": {...},
+                 "norm2", "mlp" | "moe": {...} unless the ffn is none},
+                ...]}
 
 ``blocks`` holds one dict per layer, layer l of kind ``pattern[l % P]``:
 the JAX package's ``lax.scan`` over stacked period parameters is a
 Python loop here (``repro_torch.bridge`` unstacks JAX weights into this
 layout).  Caches are lists with one entry per layer (``layers.KVCache``
 rows -- a ring for a sliding window --, ``ssm.SSMState`` for a Mamba
-layer, or ``layers.PagedKV`` pools) and are updated in place.
+layer, ``xlstm.MLSTMState`` / ``xlstm.SLSTMState`` for an xLSTM layer,
+or ``layers.PagedKV`` pools) and are updated in place.
 
 Execution modes:
   * ``forward``           — logits over the full sequence
@@ -25,7 +29,8 @@ Execution modes:
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
   * ``verify_step``       — K tokens per row against the row cache (a
-                            Mamba layer scans them from its carried state)
+                            recurrent layer scans them from its carried
+                            state)
   * ``prefill_chunk``     — a prompt chunk into named rows of the row cache
   * ``verify_step_pages`` / ``prefill_chunk_pages`` — K tokens per row
                             against the shared page pool (chunked prefill)
@@ -42,14 +47,18 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.env import resolve_device, torch_dtype
 from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import PSpec, init_params
 
-_FAMILIES = ("dense", "moe", "hybrid")     # families the port serves
+_FAMILIES = ("dense", "moe", "hybrid", "ssm")   # families the port serves
 
 
 def block_pattern(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """The period of (mixer, ffn) block kinds: mixer ``attn`` or
-    ``mamba``, ffn ``mlp`` or ``moe``."""
+    """The period of (mixer, ffn) block kinds: mixer ``attn``, ``mamba``,
+    ``mlstm`` or ``slstm``, ffn ``mlp``, ``moe`` or ``none``."""
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        return [("slstm" if cfg.is_slstm_layer(i) else "mlstm", "none")
+                for i in range(cfg.xlstm.slstm_every)]
     if cfg.family == "hybrid":
         period = cfg.attn_every
         if cfg.moe is not None:
@@ -64,10 +73,10 @@ def _block_specs(cfg: ArchConfig, typ: tuple[str, str]) -> dict:
     mixer, ffn = typ
     d = cfg.d_model
     out: dict[str, Any] = {"norm1": PSpec((d,), init="ones")}
-    if mixer == "attn":
-        out["attn"] = layers.attn_specs(cfg)
-    else:
-        out["mamba"] = ssm_mod.ssm_specs(cfg)
+    out[mixer] = {"attn": layers.attn_specs, "mamba": ssm_mod.ssm_specs,
+                  "mlstm": xl.mlstm_specs, "slstm": xl.slstm_specs}[mixer](cfg)
+    if ffn == "none":
+        return out
     out["norm2"] = PSpec((d,), init="ones")
     if ffn == "mlp":
         out["mlp"] = layers.mlp_specs(d, cfg.d_ff, cfg.mlp_gated)
@@ -77,15 +86,22 @@ def _block_specs(cfg: ArchConfig, typ: tuple[str, str]) -> dict:
 
 
 class LM:
+    """``mlstm_mode`` picks the mLSTM form of ``forward`` and ``prefill``:
+    ``auto`` (``_mlstm_train_mode``), ``parallel`` or ``chunkwise``."""
+
     def __init__(self, cfg: ArchConfig, cache_dtype=torch.bfloat16,
-                 device=None):
-        if (cfg.family not in _FAMILIES or cfg.xlstm is not None
+                 device=None, mlstm_mode: str = "auto"):
+        if (cfg.family not in _FAMILIES
+                or (cfg.family == "ssm") != (cfg.xlstm is not None)
                 or cfg.frontend.kind != "none"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not yet ported to repro_torch "
-                f"(ported: {', '.join(_FAMILIES)}, without xLSTM blocks "
-                "or a modality frontend)")
+                f"(ported: {', '.join(_FAMILIES)}, the ssm family as "
+                "xLSTM only, without a modality frontend)")
+        if mlstm_mode not in ("auto", "parallel", "chunkwise"):
+            raise ValueError(f"unknown mlstm_mode {mlstm_mode!r}")
         self.cfg = cfg
+        self.mlstm_mode = mlstm_mode
         self.pattern = block_pattern(cfg)
         if cfg.num_layers % len(self.pattern):
             raise ValueError(
@@ -137,23 +153,51 @@ class LM:
         return (x @ w.to(x.dtype)).float()
 
     # --------------------------------------------------------------- blocks
+    def _mlstm_train_mode(self, L: int) -> str:
+        """The mLSTM form of a forward or prefill over L tokens: chunkwise
+        (the kernel) once L is a whole number of two or more chunks,
+        else the quadratic parallel form."""
+        if self.mlstm_mode != "auto":
+            return self.mlstm_mode
+        c = self.cfg.xlstm.chunk_size
+        return "chunkwise" if (L % c == 0 and L > c) else "parallel"
+
+    def _recurrent(self, mixer, p, h, mode, cache):
+        """A Mamba, mLSTM or sLSTM mixer.  Forward and prefill start from
+        no history and return the final state; decode and verify run the
+        L tokens recurrently from ``cache`` and write it in place."""
+        cfg = self.cfg
+        if mode not in ("decode", "verify"):
+            if mixer == "mamba":
+                return ssm_mod.mamba_forward(p["mamba"], h, cfg)
+            if mixer == "mlstm":
+                return xl.mlstm_block(p["mlstm"], h, cfg,
+                                      mode=self._mlstm_train_mode(h.shape[1]))
+            return xl.slstm_block(p["slstm"], h, cfg)
+        if mixer == "mamba":
+            a, st = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg)
+        elif mixer == "mlstm":
+            a, st = xl.mlstm_block(p["mlstm"], h, cfg, mode="recurrent",
+                                   state=cache)
+        else:
+            a, st = xl.slstm_block(p["slstm"], h, cfg, state=cache)
+        for dst, src in zip(cache, st):
+            dst.copy_(src)
+        return a, cache
+
     def _mixer(self, i, p, h, mode, cache, pos=None, positions=None,
                max_len=None, wmask=None, tables=None, offsets=None,
                tree=None):
         """Layer ``i``'s mixer on the normed input ``h`` under ``mode``
         (forward | prefill | decode | verify) -> (out, cache).  Prefill
         returns the layer's fresh cache; decode and verify write
-        ``cache`` in place.  A Mamba layer runs the same recurrent call
-        for decode and verify (L == K block tokens after the carried
-        state); ``tables`` switches attention to the page pool."""
+        ``cache`` in place.  A recurrent layer runs the same call for
+        decode and verify (L == K block tokens after the carried state);
+        ``tables`` switches attention to the page pool."""
         cfg = self.cfg
-        if self.kind(i)[0] == "mamba":
-            if mode in ("decode", "verify"):
-                a, st = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg)
-                for dst, src in zip(cache, st):
-                    dst.copy_(src)
-                return a, cache
-            return ssm_mod.mamba_forward(p["mamba"], h, cfg)
+        mixer = self.kind(i)[0]
+        if mixer != "attn":
+            return self._recurrent(mixer, p, h, mode, cache)
         ap = p["attn"]
         if mode == "forward":
             return layers.attention(ap, h, positions, cfg), None
@@ -174,9 +218,9 @@ class LM:
 
     def _run(self, params, x, mode, caches=None, **kw):
         """Every layer in order: x + mixer(norm1(x)), then x +
-        ffn(norm2(x)).  -> (x, the mixers' caches, one per layer).  The
-        MoE aux loss is a training term and is dropped here, as the JAX
-        package's serving modes drop it."""
+        ffn(norm2(x)) unless the layer has no FFN.  -> (x, the mixers'
+        caches, one per layer).  The MoE aux loss is a training term and
+        is dropped here, as the JAX package's serving modes drop it."""
         cfg = self.cfg
         out = []
         for i, p in enumerate(params["blocks"]):
@@ -185,6 +229,8 @@ class LM:
                                None if caches is None else caches[i], **kw)
             out.append(c)
             x = x + a
+            if "norm2" not in p:                   # xLSTM: no FFN
+                continue
             h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
             if "moe" in p:
                 f, _ = moe_mod.moe_apply(p["moe"], h2, cfg)
@@ -210,8 +256,8 @@ class LM:
     def prefill(self, params, tokens, max_len: int):
         """Populate a fresh row cache.  Returns (last-position logits
         (B, 1, V), caches: per layer a ``KVCache`` (B, Hkv, S, hd) --
-        S = max_len, or a ring's min(max_len, window) -- or an
-        ``SSMState``)."""
+        S = max_len, or a ring's min(max_len, window) -- or a recurrent
+        layer's state)."""
         x = self._embed_in(params, tokens)
         x, caches = self._run(params, x, "prefill",
                               positions=self._positions(x),
@@ -233,10 +279,10 @@ class LM:
         Returns (logits (B, K, V), caches): ``logits[:, i]`` is what the
         i-th of K sequential ``decode_step`` calls would give, since each
         token reads the cache before the block plus the block's earlier
-        tokens (across a ring's wrap too), and a Mamba layer scans the K
-        tokens from its carried state.  ``wmask`` ((B, K) bool, optional)
-        keeps False tokens' k/v out of an attention cache; the logits are
-        None when ``need_logits`` is False."""
+        tokens (across a ring's wrap too), and a recurrent layer scans
+        the K tokens from its carried state.  ``wmask`` ((B, K) bool,
+        optional) keeps False tokens' k/v out of an attention cache; the
+        logits are None when ``need_logits`` is False."""
         x = self._embed_in(params, tokens)
         x, _ = self._run(params, x, "verify", caches, pos=pos, wmask=wmask)
         return (self._head(params, x) if need_logits else None), caches
@@ -277,20 +323,28 @@ class LM:
     # ------------------------------------------------------------- row cache
     def init_cache(self, batch: int, max_len: int) -> list:
         """Per layer a zero ``KVCache`` (a ring of min(max_len, window)
-        slots for a sliding window) or a zero ``SSMState``."""
-        return [layers.init_kv_cache(self.cfg, batch, max_len,
-                                     self.cache_dtype, self.device)
-                if self.kind(i)[0] == "attn" else
-                ssm_mod.init_ssm_state(self.cfg, batch, self.cache_dtype,
-                                       self.device)
-                for i in range(self.cfg.num_layers)]
+        slots for a sliding window), ``SSMState``, ``MLSTMState`` or
+        ``SLSTMState``; recurrent states are f32 but for their conv
+        inputs, which take ``cache_dtype``."""
+        cfg, dt, dev = self.cfg, self.cache_dtype, self.device
+
+        def one(mixer):
+            if mixer == "attn":
+                return layers.init_kv_cache(cfg, batch, max_len, dt, dev)
+            if mixer == "mamba":
+                return ssm_mod.init_ssm_state(cfg, batch, dt, dev)
+            if mixer == "mlstm":
+                return xl.init_mlstm_state(cfg, batch, dt, dev)
+            return xl.init_slstm_state(cfg, batch, dev)
+        return [one(self.kind(i)[0]) for i in range(cfg.num_layers)]
 
     def insert_cache_rows(self, caches, rows, slots):
         """Per-slot cache admission, in place: write ``rows`` (per-layer
         caches of b requests) into batch rows ``slots`` ((b,) int) of
-        ``caches``, every leaf (k/v, or conv/ssm state).  Only the named
-        rows change -- a freed slot is recycled by overwriting it with a
-        fresh prefill, so admission never disturbs in-flight requests."""
+        ``caches``, every leaf (k/v, or a recurrent state's), cast to the
+        leaf's own dtype (f32 stays f32).  Only the named rows change --
+        a freed slot is recycled by overwriting it with a fresh prefill,
+        so admission never disturbs in-flight requests."""
         slots = torch.as_tensor(slots, device=self.device).long()
         for c, r in zip(caches, rows):
             for dst, src in zip(c, r):

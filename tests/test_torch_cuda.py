@@ -1,7 +1,9 @@
 """The hand-written Hopper kernels on the card, against their plain
 PyTorch versions on the same CUDA tensors (attention: bf16 in,
 ``atol=2e-2``, the bf16 tolerance of ``test_kernels.py``; the f32
-selective scan within 1e-4 of the plain version's largest value).  Every test here is marked
+selective scan within 1e-4 of the plain version's largest value; the f32
+chunkwise mLSTM within ``test_kernels.py``'s 5e-4 (h, C, n) and 1e-5 (m),
+scaled by the plain values' largest magnitude where it passes 1).  Every test here is marked
 ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -16,6 +18,8 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, mha_reference)
+from repro_torch.kernels.mlstm_chunk.ops import (  # noqa: E402
+    mlstm_chunk, mlstm_chunk_reference)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     paged_decode_attention, paged_decode_reference, paged_verify_attention,
     paged_verify_reference)
@@ -340,3 +344,36 @@ def test_ssm_scan_kernel_matches_plain(gen, d_in, N, L, init):
                                    atol=1e-4 * float(want.abs().max()))
     with pytest.raises(ValueError, match="N in"):
         ssm_scan(u, dt, Bm[..., :4], Cm[..., :4], A[:, :4], D)
+
+
+@pytest.mark.parametrize("dh", [64, 384])
+@pytest.mark.parametrize("L,chunk", [(64, 16), (256, 128), (512, 256),
+                                     (384, 256), (200, 256)])
+def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk):
+    """The f32 chunkwise mLSTM against its plain version on the same CUDA
+    tensors (f32 products, no TF32): h and the final (C, n, m).  L = 384
+    shrinks a 256 chunk to 128, L = 200 makes one ragged chunk of 200."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launch_counts()
+    B, H = 2, 2
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = rn(B, H, L, dh), rn(B, H, L, dh), rn(B, H, L, dh)
+    li = rn(B, H, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, H, L) + 1.0)
+    h, fin = mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+    c = min(chunk, L)
+    while L % c:
+        c //= 2
+    wh, wfin = mlstm_chunk_reference(q, k, v, li, lf, c)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.launches == 1
+    pairs = [(h, wh, 5e-4)] + list(zip(fin, wfin, (5e-4, 5e-4, 1e-5)))
+    for got, want, tol in pairs:
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=tol * max(1.0, float(want.abs().max())))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mlstm_chunk(q[..., :48], k[..., :48], v[..., :48], li, lf)

@@ -145,7 +145,7 @@ def test_paged_decode_matches_jax(tiny):
 
 def test_unported_configs_refuse():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("xlstm-125m")
+        get_arch("musicgen-medium")
     recurrent = override(reduced(get_arch("tinyllama-1.1b")), family="ssm")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(recurrent, device="cpu")

@@ -44,7 +44,7 @@ from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import StepEngine  # noqa: E402
 from test_torch_serve import (F32, JaxDraws, _prompts,  # noqa: E402
-                              _run_stream)
+                              _run_stream, cache_close)
 
 ATOL = 2e-5            # float32 kernels, as test_kernels.py:_tol
 WINDOW = 16            # the reduced mixtral's window, as test_models.py
@@ -280,7 +280,7 @@ def test_mixtral_logits_match_jax_across_the_wrap(mixtral,
     _logits_close(got, jgot)
     _logits_close(got, fwd[:, 13:18])
     for c, v in zip(caches, vcaches):            # verify wrote what K
-        _close(v.k, c.k, atol=1e-5, rtol=1e-5)   # decode steps wrote
+        cache_close(v.k, c.k)                    # decode steps wrote
 
     got, caches = tm.prefill(tp, toks[:, :21], max_len)
     jgot, jc = jm.prefill(jp, jnp.asarray(toks[:, :21]), max_len)
@@ -309,8 +309,8 @@ def test_mixtral_verify_step_equals_sequential_decode(mixtral):
     lv, _ = tm.verify_step(tp, ver, toks[:, 12:18], pos)
     _close(lv, torch.cat(steps, 1), atol=1e-5, rtol=1e-5)
     for a, b in zip(seq, ver):
-        _close(b.k, a.k, atol=1e-5, rtol=1e-5)
-        _close(b.v, a.v, atol=1e-5, rtol=1e-5)
+        cache_close(b.k, a.k)
+        cache_close(b.v, a.v)
 
 
 # ---------------------------------------------------------------------------

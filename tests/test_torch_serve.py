@@ -29,6 +29,25 @@ from repro_torch.serve.scheduler import (ContinuousScheduler,  # noqa: E402
                                          SwitchScheduler)
 
 F32 = dict(dtype="float32", param_dtype="float32")
+CACHE_RTOL = 2e-5
+
+
+def cache_close(got, want, rtol=CACHE_RTOL):
+    """One cache leaf written by a K-token ``verify_step`` against the same
+    leaf written by K sequential ``decode_step`` calls: ``|got - want| <=
+    rtol * max|want|`` on every element.  The two passes sum in different
+    orders (a (B, K) block and (B, 1) steps take different BLAS paths,
+    chosen by the machine's thread count), which moves every element by
+    a few f32 ulps of the leaf's largest value: an elementwise relative
+    limit fails the small elements.  A slot written at the wrong position
+    moves by the values' own size, far past this limit."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    limit = rtol * float(np.abs(want).max())
+    assert err <= limit, (f"max |verify - decode| {err:.3e} > {rtol} * "
+                          f"max|decode| = {limit:.3e}")
 
 
 @pytest.fixture(scope="module")
