@@ -23,7 +23,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                 plain version's largest value.  The chunkwise mLSTM at
                 xlstm-125m's (H=4, dh=384, chunk 256, f32, B=2, L=512):
                 h, C and n within 5e-4, m within 1e-5, each times
-                max(1, the plain version's largest value).
+                max(1, the plain version's largest value).  One shard's
+                decode partial (B5) at tinyllama-1.1b's attention over a
+                bank split into 4 slices, every base, rows that own no
+                page, bf16 and int8: acc, m and l each within 1e-4 times
+                max(1, the plain output's largest value), the merged
+                partials against one paged decode.  The grouped matmul
+                (B7) at mixtral-8x7b's expert shapes after a 4-shard
+                all_to_all, (2, 320, 4096) @ (2, 4096, 14336), within
+                one bf16 ulp.
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -49,9 +57,20 @@ Phases, in order; any failure exits non-zero before the result lines:
                 12 layers) and tinyllama-1.1b at published widths through
                 ContinuousScheduler(row), prompts of 300, 512 and 768
                 tokens (the two longer ones prefill through the chunkwise
-                mLSTM kernel).  Every request must resolve with the right shape,
-                and each kernel route's launch count (zeroed right before
-                a pass) must rise in the pass that uses it.
+                mLSTM kernel); ``continuous_paged_sharded``, the paged
+                pass again with shards=4 (logical), whose streams must
+                be bitwise those of ``continuous_paged``;
+                ``sharded_local_read``: a full tinyllama-1.1b StepEngine
+                over Mesh((cuda:0,) * 4) with local reads (B5), bf16,
+                int8 and chunked, its decode logits within 1e-2 rel L2
+                of the global read; ``moe_ep_mesh``: mixtral-8x7b (4
+                layers) under the same mesh, a 2 x 512 prefill through
+                moe_ep (B7, 48 launches) and 4 decode steps through
+                moe_tp, one full-width MoE layer against the CPU in
+                float32.  Every request must resolve with the right
+                shape, and each kernel route's launch count (zeroed
+                right before a pass) must rise in the pass that uses
+                it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
                 (row and paged, 8 rows): step wall time, device kernel
                 time and busy share, top kernels (torch.profiler).
@@ -116,6 +135,44 @@ def time_ms(fn, iters: int = 20, flush=None) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def kernel_us(prof) -> dict:
+    """Device time (us) of each kernel name in a ``torch.profiler``
+    trace, kernels only: a CPU op's device time repeats its kernels'."""
+    from torch.autograd import DeviceType
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        per[e.key] = per.get(e.key, 0.0) + us
+    return per
+
+
+def device_ms(fn, iters: int = 10, flush=None):
+    """Mean device kernel time of one ``fn()`` call from
+    ``torch.profiler`` (the kernels' own time summed, host dispatch and
+    launch gaps left out; ``time_ms`` counts them), after 3 warm-ups;
+    ``flush()`` runs between calls, outside the traced window.  "not
+    measured" where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total += sum(kernel_us(prof).values())
+    return total / iters / 1e3 if total else "not measured"
 
 
 def limit_ratio(got, ref, atol: float, rtol: float) -> float:
@@ -225,6 +282,7 @@ def kernel_phase(dev) -> list[dict]:
             raise AssertionError(f"{name}: error {ratio} times its limit "
                                  f"{limit}")
         out.append(rec)
+        return rec
 
     # flash prefill: B=4, S=512
     B, S = 4, 512
@@ -405,6 +463,8 @@ def kernel_phase(dev) -> list[dict]:
     ring_records(dev, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
+    partial_records(dev, gen, rn, flush, record)
+    gmm_record(dev, gen, flush, record)
     del l2
     return out
 
@@ -582,6 +642,152 @@ def mlstm_record(dev, gen, flush, record) -> None:
            time_ms(lambda: mlstm_chunk_reference(*args, c), flush=flush),
            None, nbytes, ops, peak=F32_FLOPS, tol=tols,
            outputs=("h", "C", "n", "m"))
+
+
+SHARDS = 4                   # logical shards of the sharded passes
+# one shard's decode partial, f32: each of acc, m, l within PARTIAL_TOL
+# times max(1, the plain output's largest finite magnitude)
+PARTIAL_TOL = 1e-4
+
+
+def partial_records(dev, gen, rn, flush, record) -> None:
+    """Kernel B5, one shard's unnormalized decode partial, at
+    tinyllama-1.1b's attention (H=32, Hkv=4, hd=64, bf16): the 8 decode
+    rows of the paged record (positions 5 to 640, page 256, 3 pages a
+    row) over a bank split into 4 slices of 7 pages (local page 0 of each
+    reserved).  Rows 0-4 keep their pages on one shard each, rows 5-7
+    span shards, so every shard has rows that own nothing and rows that
+    own part; the records run all four bases 0, 7, 14, 21 (acc, m and l
+    concatenated over the shards, each against its own limit), full
+    precision and int8.  Timed: the four shards' launches of one decode
+    step.  No single library call returns (acc, m, l); the log sets the
+    four partials merged (pmax/psum, then normalized) beside one SDPA
+    over the same rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_decode_partial, paged_decode_partial_reference,
+        paged_decode_reference)
+    from repro_torch.models.layers import (PagedKV, _gather_dequant,
+                                           _psum_partials)
+
+    B, page, P, Lp = 8, 256, 3, 7
+    NP = SHARDS * Lp
+    pos = torch.tensor([5, 77, 130, 255, 256, 400, 511, 640],
+                       dtype=torch.int32, device=dev)
+    # global ids; shard s owns [7s, 7s+7), 7s itself reserved.  Dead
+    # entries (first position past pos) park on page 0.
+    table = torch.tensor([[1, 0, 0], [8, 0, 0], [15, 0, 0], [22, 0, 0],
+                          [2, 3, 0], [9, 16, 0], [23, 4, 0], [10, 17, 24]],
+                         dtype=torch.int32, device=dev)
+    q = rn(B, H, HD)
+    G = H // HKV
+    live = int((pos + 1).sum())
+    mask = (torch.arange(P * page, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
+              for _ in range(2)]
+    src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+    for name, pool, sc, kv_bytes in (
+            ("paged_decode_partial", (kp, vp), None, 2 * HD),
+            ("paged_decode_partial_int8", tuple(codes), scales, HD + 4)):
+        def shard_args(s):
+            sl = slice(s * Lp, (s + 1) * Lp)
+            kw = {} if sc is None else dict(k_scale=sc[0][sl],
+                                            v_scale=sc[1][sl])
+            return (q, pool[0][sl], pool[1][sl], table, pos, s * Lp), kw
+
+        def run(fn):
+            return [fn(*a, **kw) for a, kw in map(shard_args,
+                                                  range(SHARDS))]
+
+        got = run(paged_decode_partial)
+        torch.cuda.synchronize()
+        ref = run(paged_decode_partial_reference)
+        got_c = tuple(torch.cat(t) for t in zip(*got))
+        ref_c = tuple(torch.cat(t) for t in zip(*ref))
+        tols = tuple(PARTIAL_TOL * max(1.0, float(r[r > -1e29].abs().max()))
+                     for r in ref_c)
+        empty = sum(int((m == -1e30).all(-1).sum()) for _, m, _ in got)
+        log(f"kernel {name}: {empty} of {SHARDS * B * HKV} (shard, row, kv "
+            "head) partials own no page")
+        if not empty:
+            raise AssertionError(f"{name}: no row that owns nothing")
+        nbytes = SHARDS * (2 * q.numel() + 4 * B * P + 4 * B
+                           + 4 * (B * HKV * G * HD + 2 * B * HKV * G)) \
+            + 2 * kv_bytes * live * HKV
+        rec = record(name, src,
+                     "src/repro/kernels/paged_attention/kernel.py:488",
+                     got_c, ref_c,
+                     time_ms(lambda: run(paged_decode_partial), flush=flush),
+                     time_ms(lambda: run(paged_decode_partial_reference),
+                             flush=flush),
+                     None, nbytes, 4 * live * H * HD, tol=tols,
+                     outputs=("acc", "m", "l"))
+        # ``ms`` spans the four wrapper calls, host dispatch included;
+        # the profiler's kernel time is the device's share of it
+        rec["device_ms"] = device_ms(lambda: run(paged_decode_partial),
+                                     flush=flush)
+
+        def merged():
+            acc, _, l = _psum_partials(
+                *zip(*[(a[:, :, None], m[:, :, None], ll[:, :, None])
+                       for a, m, ll in run(paged_decode_partial)]))
+            return (acc / l[..., None]).reshape(B, H, HD)
+
+        kw = {} if sc is None else dict(k_scale=sc[0], v_scale=sc[1])
+        whole = paged_decode_reference(q, *pool, table, pos, **kw)
+        err = (merged().float() - whole.float()).abs().max().item()
+        if sc is None:
+            kg, vg = gather_pages(kp, table), gather_pages(vp, table)
+        else:
+            kg, vg = _gather_dequant(PagedKV(*pool, *sc), table,
+                                     torch.bfloat16)
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)
+
+        log(f"kernel {name}: the {SHARDS} launches' kernel time "
+            f"(torch.profiler) ms={rec['device_ms']}, events ms="
+            f"{rec['ms']:.4f}")
+        log(f"kernel {name}: the {SHARDS} partials merged vs one paged "
+            f"decode of the whole bank: max_abs_err={err:.3e} (limit "
+            f"{TOL}); merged ms={time_ms(merged, flush=flush):.4f} "
+            f"(kernel time {device_ms(merged, flush=flush)}), SDPA over "
+            f"the same rows ms={time_ms(sdpa, flush=flush):.4f} (kernel "
+            f"time {device_ms(sdpa, flush=flush)})")
+        if not err <= TOL:
+            raise AssertionError(f"{name}: merged partials {err} from the "
+                                 "paged decode")
+
+
+def gmm_record(dev, gen, flush, record) -> None:
+    """Kernel B7, the grouped matmul, at mixtral-8x7b's expert shapes
+    after the 4-shard all_to_all: 2 experts a shard, capacity 80 from
+    each of 4 shards (C = 320), (2, 320, 4096) @ (2, 4096, 14336), bf16.
+    Each output element within one bf16 ulp of the plain version (f32
+    einsum rounded to bf16), the ring records' limit.  Library call: one
+    ``torch.bmm`` on the same bf16 operands."""
+    import torch
+    from repro_torch.kernels.gmm.ops import gmm, gmm_reference
+
+    E, C, D, Fo = 2, 320, 4096, 14336
+    x = torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((E, D, Fo), generator=gen, device=dev)
+         / D ** 0.5).to(torch.bfloat16)
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    ref = gmm_reference(x, w)
+    record("gmm", "src/repro_torch/kernels/gmm/csrc/gmm.cu",
+           "src/repro/kernels/gmm/kernel.py:46", got, ref,
+           time_ms(lambda: gmm(x, w), flush=flush),
+           time_ms(lambda: gmm_reference(x, w), iters=5, flush=flush),
+           time_ms(lambda: torch.bmm(x, w), flush=flush),
+           2 * (x.numel() + w.numel() + E * C * Fo), 2 * E * C * D * Fo,
+           tol=RING_ATOL, rtol=RING_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -845,9 +1051,10 @@ def _launch_counters() -> dict:
     ring routes count apart)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
-        paged_decode_attention, paged_verify_attention)
+        paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
     return {"flash_attention": lambda: flash_attention.launches,
@@ -866,7 +1073,11 @@ def _launch_counters() -> dict:
             "paged_verify_attention_tree":
                 lambda: paged_verify_attention.launches_tree,
             "ssm_scan": lambda: ssm_scan.launches,
-            "mlstm_chunk": lambda: mlstm_chunk.launches}
+            "mlstm_chunk": lambda: mlstm_chunk.launches,
+            "paged_decode_partial": lambda: paged_decode_partial.launches,
+            "paged_decode_partial_int8":
+                lambda: paged_decode_partial.launches_int8,
+            "gmm": lambda: gmm.launches}
 
 
 def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
@@ -934,6 +1145,9 @@ def serving_phase(dev) -> dict:
         ("continuous_paged", lambda s: ContinuousScheduler(
             s, batch_size=8, paged=True, page_size=page),
          {"flash_attention", "paged_decode_attention"}),
+        ("continuous_paged_sharded", lambda s: ContinuousScheduler(
+            s, batch_size=8, paged=True, page_size=page, shards=SHARDS),
+         {"flash_attention", "paged_decode_attention"}),
         ("continuous_row", lambda s: ContinuousScheduler(s, batch_size=8),
          {"flash_attention", "decode_attention"}),
         ("switch_scheduler", SwitchScheduler,
@@ -965,6 +1179,16 @@ def serving_phase(dev) -> dict:
         same = sum(int((x == y).sum()) for x, y in zip(a, b))
         return same / (N_REQUESTS * NEW_TOKENS)
 
+    # logical shards change only page ids: the streams must be bitwise
+    sharded, unsharded = (outputs["continuous_paged_sharded"],
+                          outputs["continuous_paged"])
+    if not all(np.array_equal(a, b) for a, b in zip(sharded, unsharded)):
+        raise AssertionError(
+            "continuous_paged_sharded: streams differ from continuous_paged "
+            f"(agreement {agree(sharded, unsharded)})")
+    log("serving continuous_paged_sharded: streams bitwise equal to "
+        "continuous_paged")
+
     # logged only: bf16 rounding differs between the paths, and int8 is
     # tolerance-close by design
     log("serving greedy agreement: " + json.dumps({
@@ -979,7 +1203,8 @@ def serving_phase(dev) -> dict:
             outputs["continuous_row_chunked"]),
         "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
                                   outputs["continuous_paged_chunked"])}))
-    for extra in (moe_hybrid_pass, xlstm_pass):
+    for extra in (moe_hybrid_pass, xlstm_pass, sharded_local_read_pass,
+                  moe_ep_mesh_pass):
         counts = extra(dev)
         for n in totals:
             totals[n] += counts[n]
@@ -1089,6 +1314,348 @@ def xlstm_pass(dev) -> dict:
     return counts
 
 
+LOCAL_READ_TOL = 1e-2        # rel L2, local-read vs global-read logits
+SPAN_PROMPT = 1600           # 7 pages of 256 with its 32 new tokens: more
+#                              than a shard's 6 allocatable, so it spans
+SPAN_DEPTHS = (1, 2, 4, 8, 22)   # depths of the spanning-bank sweep
+
+
+def _drive(eng, params, prompts, max_new) -> tuple:
+    """Admit ``prompts`` ((1, S) each) into ``eng`` as room allows and
+    step until every request is done -> (the token lists, how many rows
+    were given pages on more than one shard)."""
+    per = getattr(eng._pages, "pages_per_shard", None)
+    pending, gens, spanning = list(prompts), [], 0
+    while pending or eng.live_slots():
+        while pending and eng.can_admit(pending[0], max_new):
+            new = eng.admit(params, pending.pop(0), max_new=max_new)
+            if per is not None:
+                spanning += sum(len({p // per for p in g.pages}) > 1
+                                for g in new)
+            gens += new
+        eng.step(params)
+    return [list(g.tokens) for g in gens], spanning
+
+
+def _matching(toks, twin) -> float:
+    """Share of stream tokens equal, request by request, position by
+    position."""
+    return sum(a == b for x, y in zip(toks, twin) for a, b in zip(x, y)) \
+        / sum(len(x) for x in toks)
+
+
+def sharded_local_read_pass(dev) -> dict:
+    """``sharded_local_read``, the path of kernel B5: a full tinyllama-1.1b
+    ``StepEngine`` (paged, page 256, 8 rows, max_len 2048, greedy, bf16
+    weights from a seed) with its 28-page bank split over
+    ``Mesh((cuda:0,) * 4)`` (6 allocatable pages a shard) and
+    ``local_read=True``: each shard writes and reads only its slice and
+    the decode partials merge with pmax/psum.  8 requests, 32 new tokens
+    each: seven of 128-512 prompt tokens, which the pool routes whole to
+    one shard each, and one of ``SPAN_PROMPT`` tokens, whose 7 pages
+    span shards, so the merge combines real partials in every decode
+    step.  Served three times: a bf16 bank, an int8 bank (B5's int8
+    body) and a bf16 bank with chunked prefill (C=128; the sharded
+    verify is plain torch, as in JAX).  The unsharded engine serves them
+    too, with the same options; how many stream tokens match it is
+    logged, and, as a yardstick for bf16 rounding alone, how many of
+    the unsharded chunked engine's match the unsharded one-shot's.
+    Then, at model level: 8 teacher-forced ``decode_step_pages`` steps
+    with ``shard=`` against the same steps without it, on copies of the
+    engine's bank (relative L2 of the logits); and a depth sweep
+    (``SPAN_DEPTHS``) on a bank whose every row spans the shards: one
+    128-token chunk through the sharded verify and 8 decode steps, each
+    against the global read, beside two yardsticks of how a
+    rounding-sized change grows with depth: the global read with 1% of
+    the cached values moved by one bf16 ulp, and the chunk's last logits
+    from the paged verify kernel against flash prefill of the prompt and
+    chunk together.  Rows on one shard of the engine's bank and the
+    one-layer cut are held to ``LOCAL_READ_TOL``; the rest is logged.
+    -> launch counts of the three sharded runs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, override
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models.layers import PagedKV
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import StepEngine
+
+    cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=6)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, int(S))) for S in
+               rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)]
+    prompts[-1] = rng.integers(0, cfg.vocab_size, (1, SPAN_PROMPT))
+    mesh = Mesh((dev,) * SHARDS)
+    base = dict(batch_size=8, max_len=2048, paged=True, page_size=256,
+                num_pages=SHARDS * 7)
+    fns = _launch_counters()
+    totals = {n: 0 for n in fns}
+    streams = {}
+    local = dict(mesh=mesh, local_read=True)
+    for label, kw, used in (
+            ("unsharded", {}, "paged_decode_attention"),
+            ("sharded_local_read", local, "paged_decode_partial"),
+            ("unsharded_int8", dict(quantize_kv="int8"),
+             "paged_decode_attention_int8"),
+            ("sharded_local_read_int8", dict(local, quantize_kv="int8"),
+             "paged_decode_partial_int8"),
+            ("unsharded_chunked", dict(prefill_chunk=CHUNK),
+             "paged_verify_attention"),
+            ("sharded_local_read_chunked", dict(local, prefill_chunk=CHUNK),
+             "paged_decode_partial")):
+        eng = StepEngine(model, **base, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, spanning = _drive(eng, params, prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: count() for n, count in fns.items()}
+        for t in toks:
+            assert len(t) == NEW_TOKENS and all(
+                0 <= x < cfg.vocab_size for x in t), label
+        if counts[used] <= 0:
+            raise AssertionError(f"{label}: kernel {used} was not launched")
+        rep = {"pass": label, "requests": len(toks),
+               "tokens_per_s": len(toks) * NEW_TOKENS / wall, "wall_s": wall}
+        if label.startswith("sharded"):
+            if not spanning:
+                raise AssertionError(f"{label}: no row spans the shards")
+            rep["rows_spanning_shards"] = spanning
+            for n in totals:
+                totals[n] += counts[n]
+            rep["tokens_matching_unsharded"] = _matching(
+                toks, streams[label.replace("sharded_local_read",
+                                            "unsharded")])
+        elif label == "unsharded_chunked":
+            rep["tokens_matching_one_shot"] = _matching(
+                toks, streams["unsharded"])
+        streams[label] = toks
+        log("serving " + json.dumps({**rep, "launches": counts}))
+        del eng
+        gc.collect()
+
+    def rel_l2(got, want, what):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"sharded_local_read: non-finite {what}")
+        return ((got - want).norm() / want.norm()).item()
+
+    def copies(bank):
+        return [bank, [PagedKV(*(None if t is None else t.clone()
+                                 for t in c)) for c in bank]]
+
+    def decode8(m, p, banks, tok, pos, table, live=None, groups=None):
+        """Worst rel L2 over 8 teacher-forced steps, for each group of
+        rows in ``groups`` (default: every live row)."""
+        if groups is None:
+            groups = {"rows": slice(None) if live is None else live}
+        worst = dict.fromkeys(groups, 0.0)
+        for _ in range(8):
+            got, want = (m.decode_step_pages(p, b, tok, pos, table,
+                                             live=live, shard=sh)[0][:, -1]
+                         for b, sh in zip(banks, shards))
+            for g, rows in groups.items():
+                worst[g] = max(worst[g], rel_l2(got[rows], want[rows],
+                                                "logits"))
+            tok = want.argmax(-1)[:, None]
+            pos = pos + (1 if live is None else live.to(pos.dtype))
+        return worst
+
+    # (1) the full model on the bank the engine filled: decode_step_pages
+    # with shard= against the same steps without it, teacher-forced, on
+    # two copies of the bank.  Rows on one shard are held to the limit;
+    # the spanning row is logged and read against the sweep below
+    shards = ((mesh, mesh.axis_names[0]), None)
+    eng = StepEngine(model, **base, **local)
+    for p in prompts:
+        if eng.can_admit(p, NEW_TOKENS):
+            eng.admit(params, p, max_new=NEW_TOKENS)
+    st = eng.state
+    per = eng._pages.pages_per_shard
+    spans = np.array([len({int(x) // per for x in row if x}) > 1
+                      for row in st.table]) & eng._live
+    if not spans.any():
+        raise AssertionError("sharded_local_read: no row of the engine's "
+                             "bank spans the shards")
+    full = decode8(model, params, copies(st.caches),
+                   torch.from_numpy(st.tok[:, None]).to(dev),
+                   torch.from_numpy(st.pos).to(dev), st.table_dev,
+                   torch.from_numpy(eng._live.copy()).to(dev),
+                   groups={g: torch.from_numpy(m).to(dev) for g, m in (
+                       ("one_shard", eng._live & ~spans),
+                       ("spanning", spans))})
+    del eng, st
+    log(f"reference sharded_local_read vs the global read, rel_l2: "
+        f"{cfg.num_layers} layers on the engine's bank, worst of 8 decode "
+        f"steps: rows on one shard {full['one_shard']:.4e} (limit "
+        f"{LOCAL_READ_TOL}), the row that spans the shards "
+        f"{full['spanning']:.4e}")
+
+    # (2) depth sweep on a bank whose rows all span the shards (row r's
+    # page j on shard (r + j) % 4): the local read's gap to the global
+    # read beside the growth of a one-ulp change and of a kernel change
+    P, page, Lp = 3, 256, 7
+    nxt = [1] * SHARDS
+    table = torch.zeros((N_REQUESTS, P), dtype=torch.int32)
+    for r in range(N_REQUESTS):
+        for j in range(P):
+            sh = (r + j) % SHARDS
+            table[r, j] = sh * Lp + nxt[sh]
+            nxt[sh] += 1
+    table = table.to(dev)
+    short = prompts[:-1] + [prompts[-1][:, :PROMPT_LENS[1]]]
+    pos = torch.tensor([p.shape[1] for p in short], dtype=torch.int32,
+                       device=dev)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (N_REQUESTS, CHUNK))).to(dev)
+    sweep = {}
+    for depth in SPAN_DEPTHS:
+        cut = build_model(override(cfg, num_layers=depth), device=dev)
+        cut_p = {**params, "blocks": params["blocks"][:depth]}
+        bank = cut.init_page_pool(SHARDS * Lp, page)
+        for r, p in enumerate(short):
+            _, rows = cut.prefill(cut_p, p, P * page)
+            cut.insert_cache_pages(bank, rows, table[r:r + 1])
+        banks = copies(bank)
+        got, want = (cut.prefill_chunk_pages(cut_p, b, chunk, pos, table,
+                                             shard=sh)[0]
+                     for b, sh in zip(banks, shards))
+        flash = torch.cat([cut.prefill(
+            cut_p, torch.cat([torch.from_numpy(p).to(dev),
+                              chunk[r:r + 1]], dim=1), P * page)[0]
+            for r, p in enumerate(short)])
+        gen = torch.Generator(device=dev).manual_seed(depth)
+        nudged = [c._replace(k=c.k.clone(), v=torch.where(
+            torch.rand(c.v.shape, generator=gen, device=dev) < 0.01,
+            (c.v.float() * (1 + 2 ** -7)).to(c.v.dtype), c.v))
+            for c in bank]
+        ulp = cut.prefill_chunk_pages(cut_p, nudged, chunk, pos, table)[0]
+        sweep[depth] = {
+            "chunk": rel_l2(got, want, "chunk logits"),
+            "one_ulp_v": rel_l2(ulp, want, "nudged logits"),
+            "verify_vs_flash": rel_l2(want[:, -1:], flash, "flash logits"),
+            "decode": decode8(cut, cut_p, banks,
+                              want[:, -1].argmax(-1)[:, None], pos + CHUNK,
+                              table)["rows"]}
+        del banks, bank, nudged, cut
+    log("reference sharded_local_read depth sweep, rel_l2 on a bank whose "
+        f"{N_REQUESTS} rows span the {SHARDS} shards (chunk: local vs "
+        "global read of a 128-token chunk; decode: worst of 8 steps; "
+        "one_ulp_v: the global read of the chunk with 1% of the cached "
+        "values moved by one bf16 ulp, vs without; "
+        "verify_vs_flash: the chunk's last logits from the global paged "
+        "verify vs flash prefill): " + json.dumps(sweep))
+    worst = max(full["one_shard"], sweep[1]["chunk"], sweep[1]["decode"])
+    if not worst <= LOCAL_READ_TOL:
+        raise AssertionError(f"sharded_local_read: local-read logits rel L2 "
+                             f"{worst} > {LOCAL_READ_TOL}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _dropped(p, x, cfg, mesh) -> int:
+    """(token, choice) pairs ``moe_ep`` drops for capacity on ``x``."""
+    import math
+
+    from repro_torch.models.moe import _dispatch_local, router
+    n = mesh.size
+    Sl = x.shape[1] // n
+    out = 0
+    for s in range(n):
+        xt = x[:, s * Sl:(s + 1) * Sl].reshape(-1, x.shape[-1])
+        top_p, top_i, _ = router(p, xt, cfg.moe)
+        cap = max(int(math.ceil(xt.shape[0] * cfg.moe.top_k
+                                / cfg.moe.num_experts
+                                * cfg.moe.capacity_factor)), 1)
+        out += int((~_dispatch_local(xt, top_p, top_i, cfg.moe.num_experts,
+                                     cap)[2]).sum())
+    return out
+
+
+def moe_ep_mesh_pass(dev) -> dict:
+    """``moe_ep_mesh``, the path of kernel B7: mixtral-8x7b at published
+    widths cut to 4 of 32 layers (bf16 weights from a seed, about 12 GB,
+    on the card), ``LM(mesh=Mesh((cuda:0,) * 4))``.  A prefill of B=2,
+    S=512 runs ``moe_ep`` in every layer (each shard routes its 256
+    tokens at capacity 80, two all_to_alls, 3 grouped matmuls a shard:
+    48 launches), then 4 greedy decode steps run ``moe_tp`` (S = 1 does
+    not split).  Then one full-width MoE layer under the 4-shard mesh on
+    2 x 256 tokens, on the card in bf16 against the port's plain path in
+    float32 on the CPU on the same weights, within ``REF_TOL`` relative
+    L2; the pairs each side drops are logged.  -> launch counts of the
+    prefill and decode."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, override
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_ep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = override(get_arch("mixtral-8x7b"), param_dtype="bfloat16",
+                   num_layers=MOE_DEPTH["mixtral-8x7b"])
+    mesh = Mesh((dev,) * SHARDS)
+    model = build_model(cfg, device=dev, mesh=mesh)
+    params = model.init(seed=9)
+    B, S, steps = 2, 512, 4
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, S))
+    fns = _launch_counters()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, toks, S + steps)
+    out = [logits[:, -1]]
+    for i in range(steps):
+        logits, _ = model.decode_step(
+            params, caches, out[-1].argmax(-1)[:, None],
+            torch.full((B,), S + i, dtype=torch.int32, device=dev))
+        out.append(logits[:, -1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: count() for n, count in fns.items()}
+    want = 3 * SHARDS * cfg.num_layers
+    for o in out:
+        if o.shape != (B, cfg.vocab_size) or not torch.isfinite(o).all():
+            raise AssertionError("moe_ep_mesh: bad logits")
+    if counts["gmm"] != want:
+        raise AssertionError(f"moe_ep_mesh: gmm launched {counts['gmm']} "
+                             f"times, expected {want}")
+    log("serving " + json.dumps({
+        "pass": "moe_ep_mesh", "prefill_tokens": B * S, "decode_steps": steps,
+        "wall_s": wall, "max_memory_allocated":
+            torch.cuda.max_memory_allocated(dev), "launches": counts}))
+
+    p = params["blocks"][0]["moe"]
+    x = torch.randn((B, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(10))
+    x = x.to(torch.bfloat16)
+    got, _ = moe_ep(p, x.to(dev), cfg, mesh)
+    cp = {k: v.float().cpu() for k, v in p.items()}
+    cmesh = Mesh(("cpu",) * SHARDS)
+    ref, _ = moe_ep(cp, x.float(), cfg, cmesh)
+    log(f"reference mixtral-8x7b moe_ep layer: dropped (token, choice) "
+        f"pairs card {_dropped(p, x.to(dev), cfg, mesh)}, CPU "
+        f"{_dropped(cp, x.float(), cfg, cmesh)} of "
+        f"{B * 256 * cfg.moe.top_k}")
+    _rel_check("mixtral-8x7b moe_ep layer (4 shards)", got, ref)
+    del model, params, caches, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 5: where a decode step's time goes
 # ---------------------------------------------------------------------------
@@ -1103,7 +1670,6 @@ def profile_phase(dev, steps: int = 8) -> None:
     enters the kernels' counts."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch, override
     from repro_torch.models.model import build_model
@@ -1133,14 +1699,7 @@ def profile_phase(dev, steps: int = 8) -> None:
             for _ in range(steps):
                 eng.step(params)
             torch.cuda.synchronize()
-        per = {}                 # device kernels only: a CPU op's device
-        for e in prof.key_averages():      # time repeats its kernels'
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            per[e.key] = per.get(e.key, 0.0) + us / 1e3 / steps
+        per = {k: us / 1e3 / steps for k, us in kernel_us(prof).items()}
         dev_ms = sum(per.values())
         top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
         log("profile " + json.dumps({

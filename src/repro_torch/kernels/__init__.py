@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels for the port's hot spots: attention, the
-Mamba selective scan and the chunkwise mLSTM.
+"""Hand-written Hopper kernels for the port's hot spots: attention (and
+one shard's partial over a sharded page bank), the Mamba selective scan,
+the chunkwise mLSTM and the per-expert grouped matmul.
 
 Each kernel package has:
   csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
@@ -151,17 +152,19 @@ def reset_launch_counts() -> None:
     decode and verify wrappers in ``launches_ring``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
-        paged_decode_attention, paged_verify_attention)
+        paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    for fn in (flash_attention, ssm_scan, mlstm_chunk):
+    for fn in (flash_attention, ssm_scan, mlstm_chunk, gmm):
         fn.launches = 0
     for fn in (decode_attention, verify_attention):
         fn.launches = 0
         fn.launches_ring = 0
-    for fn in (paged_decode_attention, paged_verify_attention):
+    for fn in (paged_decode_attention, paged_verify_attention,
+               paged_decode_partial):
         fn.launches = 0
         fn.launches_int8 = 0
     paged_verify_attention.launches_tree = 0

@@ -36,6 +36,7 @@ SOURCES = {
     "verify_attention": "verify_attention/csrc/verify_attention.cu",
     "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
     "mlstm_chunk": "mlstm_chunk/csrc/mlstm_chunk.cu",
+    "gmm": "gmm/csrc/gmm.cu",
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 // Shared device code of the attention kernels: warp reductions, row loads
 // (bf16, or int8 codes times a per-row scale), the Rows functor that says
 // where key t of one (row, kv head) lives and how it is stored, the
-// one-token flash-decode block (row and paged decode) and the multi-query
-// verify block (row and paged verify / chunked prefill).
+// one-token flash-decode fold (row and paged decode, and one shard's
+// unnormalized partial) and the multi-query verify block (row and paged
+// verify / chunked prefill).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -162,22 +163,55 @@ struct Rows {
   }
 };
 
+// Which keys of a one-token decode a lane may fold: all of them (row and
+// paged decode), or those a predicate admits (one shard's partial over
+// the pages it owns).
+struct AllKeys {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
+// Epilogues of the decode fold: the normalized output in bf16 ...
+struct NormOut {
+  bf16* out;                      // (G, HD)
+  __device__ __forceinline__ void operator()(int i, int, int, float A,
+                                             float L, float) const {
+    out[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  }
+};
+
+// ... or the unnormalized flash state in f32: acc (G, HD), m and l (G,).
+struct PartialOut {
+  float* acc;
+  float* m;
+  float* l;
+  __device__ __forceinline__ void operator()(int i, int g, int d, float A,
+                                             float L, float M) const {
+    acc[i] = A;
+    if (d == 0) {
+      m[g] = M;
+      l[g] = L;
+    }
+  }
+};
+
 // One-token flash-decode for one (row, kv head): the G query heads of the
-// kv head attend over keys [0, n).  NW warps split the keys into 32-key
-// tiles (tile i goes to warp i % NW).  In a tile every lane scores ONE key
-// against all G heads (its key row loads as whole 16-byte vectors), the
-// warp updates its running (m, l) per head with two shuffles, writes its
-// probabilities to shared memory, and then every lane folds all keys of
-// the tile into the HD/32 head dims it owns (value rows load coalesced).
-// Each warp keeps its own (m, l, acc) in registers; one combine through
-// shared memory at the end merges the NW partial states.  Keys at or past
-// n are never loaded, so a row's unwritten tail (and, paged, its park
-// page) is never read.
-template <int HD, int G, int NW, class R>
-__device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
-                                             const R& rows, int n,
-                                             float scale,
-                                             bf16* __restrict__ out) {
+// kv head attend over the keys t < n that vis(t) admits.  NW warps split
+// the keys into 32-key tiles (tile i goes to warp i % NW).  In a tile
+// every lane scores ONE key against all G heads (its key row loads as
+// whole 16-byte vectors), the warp updates its running (m, l) per head
+// with two shuffles, writes its probabilities to shared memory, and then
+// every lane folds the tile's admitted keys into the HD/32 head dims it
+// owns (value rows load coalesced).  A tile with no admitted key is
+// skipped whole.  Each warp keeps its own (m, l, acc) in registers; one
+// combine through shared memory at the end merges the NW partial states
+// and hands each (head, dim) to the epilogue as (A, L, M).  Keys at or
+// past n are never loaded, so a row's unwritten tail (and, paged, its
+// park page) is never read.  A row that admits no key ends at (0, NEG_INF,
+// 0): NEG_INF is finite, so the combine's exp(m - M) stays 1 there.
+template <int HD, int G, int NW, class R, class Vis, class Epi>
+__device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
+                                            const R& rows, int n, Vis vis,
+                                            float scale, Epi epi) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int DPL = HD / 32;
   __shared__ float q_s[G][HD];
@@ -201,9 +235,16 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
     for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
   }
 
+  // every key admitted: no ballot, no skips (the decode kernels' code)
+  constexpr bool kAll = std::is_same<Vis, AllKeys>::value;
   for (int t0 = warp * 32; t0 < n; t0 += NW * 32) {
     const int t = t0 + lane;
-    const bool valid = t < n;
+    const bool valid = t < n && vis(t);
+    [[maybe_unused]] unsigned vmask = FULL;
+    if constexpr (!kAll) {
+      vmask = __ballot_sync(FULL, valid);
+      if (vmask == 0u) continue;        // warp-uniform: nothing to fold
+    }
     float s[G];
     if (valid) {
       float kr[HD];
@@ -233,6 +274,9 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
     __syncwarp();
     const int cnt = min(32, n - t0);
     for (int j = 0; j < cnt; ++j) {
+      if constexpr (!kAll) {
+        if (!((vmask >> j) & 1u)) continue;   // warp-uniform
+      }
       float vv[DPL];
       rows.template value<DPL>(t0 + j, lane * DPL, vv);
 #pragma unroll
@@ -270,8 +314,17 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
       L += l_s[w][g] * c;
       A += acc_s[w][g][d] * c;
     }
-    out[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    epi(i, g, d, A, L, M);
   }
+}
+
+// The normalized one-token decode over keys [0, n) (row and paged decode).
+template <int HD, int G, int NW, class R>
+__device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
+                                             const R& rows, int n,
+                                             float scale,
+                                             bf16* __restrict__ out) {
+  decode_fold<HD, G, NW>(q, rows, n, AllKeys{}, scale, NormOut{out});
 }
 
 // ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 // Paged attention through a page table, for Hopper (sm_90a): one-token
-// decode and K-query verify (chunked prefill, speculative verify), each
-// over a full-precision or an int8 page pool.
+// decode, K-query verify (chunked prefill, speculative verify) and one
+// shard's unnormalized decode partial over its slice of a sharded bank,
+// each over a full-precision or an int8 page pool.
 //
 // Replaces: repro/kernels/paged_attention/kernel.py ::
 //   paged_decode_attention_kernel (bodies _paged_decode_kernel and
-//   _paged_decode_kernel_q) and paged_verify_attention_kernel (bodies
-//   _paged_verify_kernel and _paged_verify_kernel_q, causal or tree).
+//   _paged_decode_kernel_q), paged_verify_attention_kernel (bodies
+//   _paged_verify_kernel and _paged_verify_kernel_q, causal or tree) and
+//   paged_decode_partial_kernel (bodies _paged_decode_partial_kernel and
+//   _paged_decode_partial_kernel_q).
 //
 // What bounds it on an H100: bytes for decode, as for the row-cache
 // decode: each live key of a row is read once from the shared page pool,
@@ -28,8 +31,17 @@
 //     (the pool BEFORE the block's writes), then the block's own K keys
 //     and values (bf16: not yet written to the pool, even for an int8
 //     pool) fold in under the causal or tree mask.
-// In both, a page starting past the last read position -- and the park
-// page 0 that dead table entries point at -- is never read.
+//   * partial: the decode fold of attn_common.cuh over one shard's LOCAL
+//     slice of L pages.  The table holds GLOBAL page ids; the block
+//     reads page table[b, j] - base only when the shard owns it (0 <= id
+//     - base < L) and stops at pos like decode, so a page the shard does
+//     not own is never read (a whole 32-key tile of it is skipped).  It
+//     writes the unnormalized state acc (G, hd), m, l (G) in f32 for the
+//     caller's cross-shard pmax/psum merge; a row that owns no valid page
+//     ends at exactly (0, -1e30, 0).  Bound like decode: bytes, each owned
+//     live key read once by its owning shard.
+// In all three, a page starting past the last read position -- and the
+// park page 0 that dead table entries point at -- is never read.
 #include "attn_common.cuh"
 
 namespace {
@@ -69,6 +81,45 @@ paged_verify_kernel(const bf16* __restrict__ q, KV kv,
   repro::verify_block<HD>(q + bh * KG * HD, cache, n, blk, K, G,
                           anc == nullptr ? nullptr : anc + (size_t)b * K,
                           scale, out + bh * KG * HD, blockIdx.x * repro::VQ);
+}
+
+// Slot t % page of the LOCAL page table[t / page] - base of one shard's
+// slice of L pages; a page the shard does not own maps to its local park
+// page 0 (LocalOwner keeps such keys out of the fold, so it is never read).
+struct LocalPagedMap {
+  const int* table;               // (P,) GLOBAL page ids of this row
+  int base, L, page, Hkv, h;
+  __device__ __forceinline__ size_t operator()(int t) const {
+    int lp = table[t / page] - base;
+    lp = (lp >= 0 && lp < L) ? lp : 0;
+    return ((size_t)lp * Hkv + h) * page + (t % page);
+  }
+};
+
+struct LocalOwner {               // key t lies on a page this shard owns
+  const int* table;
+  int base, L, page;
+  __device__ __forceinline__ bool operator()(int t) const {
+    const int lp = table[t / page] - base;
+    return lp >= 0 && lp < L;
+  }
+};
+
+template <int HD, int G, int NW, class KV>
+__global__ void __launch_bounds__(NW * 32)
+paged_partial_kernel(const bf16* __restrict__ q, KV kv,
+                     const int* __restrict__ table,
+                     const int* __restrict__ pos, float* __restrict__ acc,
+                     float* __restrict__ m, float* __restrict__ l, int Hkv,
+                     int P, int page, int base, int L, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t bh = (size_t)b * Hkv + h;
+  const int* tb = table + (size_t)b * P;
+  repro::Rows<KV, LocalPagedMap> rows{kv, {tb, base, L, page, Hkv, h}};
+  const int n = min(pos[b], P * page - 1) + 1;
+  repro::decode_fold<HD, G, NW>(
+      q + bh * G * HD, rows, n, LocalOwner{tb, base, L, page}, scale,
+      repro::PartialOut{acc + bh * G * HD, m + bh * G, l + bh * G});
 }
 
 }  // namespace
@@ -162,6 +213,54 @@ extern "C" int paged_verify_attention_int8(
           (const int*)pos, (const int*)tree, (bf16*)out, Hkv, G, K, P,   \
           page, scale)
   REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// One shard's decode partial: q (B, Hkv, G, hd) bf16, k/v the shard's
+// LOCAL slice (L, Hkv, page, hd) bf16, table (B, P) int32 GLOBAL page ids,
+// pos (B,) int32, base the shard's first global page id; acc (B, Hkv, G,
+// hd), m and l (B, Hkv, G) f32 out; all contiguous.  Returns a cudaError_t.
+extern "C" int paged_decode_partial_bf16(const void* q, const void* kp,
+                                         const void* vp, const void* table,
+                                         const void* pos, void* acc, void* m,
+                                         void* l, int B, int Hkv, int G,
+                                         int P, int page, int hd, int base,
+                                         int L, float scale, void* stream) {
+  constexpr int NW = 8;
+  const dim3 grid(Hkv, B);
+#define LAUNCH(HD_, G_)                                                  \
+  paged_partial_kernel<HD_, G_, NW>                                      \
+      <<<grid, NW * 32, 0, (cudaStream_t)stream>>>(                      \
+          (const bf16*)q,                                                \
+          repro::Bf16KV<HD_>{(const bf16*)kp, (const bf16*)vp},          \
+          (const int*)table, (const int*)pos, (float*)acc, (float*)m,    \
+          (float*)l, Hkv, P, page, base, L, scale)
+  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// As paged_decode_partial_bf16 over an int8 slice: k/v codes (L, Hkv,
+// page, hd) int8 and their scales ks/vs (L, Hkv, page) f32.
+extern "C" int paged_decode_partial_int8(const void* q, const void* kp,
+                                         const void* vp, const void* ks,
+                                         const void* vs, const void* table,
+                                         const void* pos, void* acc, void* m,
+                                         void* l, int B, int Hkv, int G,
+                                         int P, int page, int hd, int base,
+                                         int L, float scale, void* stream) {
+  constexpr int NW = 8;
+  const dim3 grid(Hkv, B);
+#define LAUNCH(HD_, G_)                                                  \
+  paged_partial_kernel<HD_, G_, NW>                                      \
+      <<<grid, NW * 32, 0, (cudaStream_t)stream>>>(                      \
+          (const bf16*)q,                                                \
+          repro::Int8KV<HD_>{(const int8_t*)kp, (const int8_t*)vp,       \
+                             (const float*)ks, (const float*)vs},        \
+          (const int*)table, (const int*)pos, (float*)acc, (float*)m,    \
+          (float*)l, Hkv, P, page, base, L, scale)
+  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

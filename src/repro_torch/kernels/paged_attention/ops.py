@@ -1,5 +1,6 @@
-"""Public wrappers of the paged kernels: one-token decode and K-query
-verify, over a full-precision or an int8 page pool.
+"""Public wrappers of the paged kernels: one-token decode, K-query
+verify and one shard's decode partial over its slice of a sharded bank,
+over a full-precision or an int8 page pool.
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises.  An int8 pool passes its
@@ -7,16 +8,17 @@ A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``<wrapper>.launches_int8``, the full-precision body's in
 ``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
 ``paged_verify_attention.launches_tree`` instead, whatever the pool.
+``paged_decode_partial`` takes one shard's local slice of a sharded bank
+and the shard's first global page id.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                     gather_scales,
-                                                     paged_decode_reference,
-                                                     paged_verify_reference)
+from repro_torch.kernels.paged_attention.ref import (
+    gather_pages, gather_scales, paged_decode_partial_reference,
+    paged_decode_reference, paged_verify_reference)
 
 _fns: dict = {}
 
@@ -154,6 +156,58 @@ paged_verify_attention.launches = 0
 paged_verify_attention.launches_int8 = 0
 paged_verify_attention.launches_tree = 0
 
+def paged_decode_partial(q, k_pages, v_pages, page_table, pos, base: int,
+                         *, scale: float | None = None, k_scale=None,
+                         v_scale=None):
+    """One shard's unnormalized flash-decode state over its LOCAL bank
+    slice.  q: (B, H, hd); k_pages/v_pages: (L, Hkv, page, hd) the
+    shard's slice (int8 codes with (L, Hkv, page) ``k_scale``/
+    ``v_scale``); page_table: (B, P) int32 GLOBAL page ids; pos: () or
+    (B,) int32; ``base``: the shard's first global page id (an int) ->
+    (acc (B, Hkv, G, hd) f32, m (B, Hkv, G) f32, l (B, Hkv, G) f32).
+
+    Row b folds its keys t <= pos[b] on pages the shard owns (ids in
+    [base, base + L)); a row that owns none comes back as exactly (0,
+    -1e30, 0), which the caller's pmax/psum merge weighs to zero."""
+    B, H, hd = q.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    pos = pos.expand(B).contiguous()
+    scales = _scales(k_scale, v_scale)
+    if K.on_cpu(q, k_pages, v_pages, page_table, pos, *scales):
+        return paged_decode_partial_reference(
+            q, k_pages, v_pages, page_table, pos, base, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
+    pool, quant, L, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
+                                              v_scale, page_table, B)
+    if H % Hkv:
+        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
+    G = H // Hkv
+    K.check_group("paged_decode_partial", hd, G)
+    q = q.contiguous()
+    K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    acc = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    sym = ("paged_decode_partial_int8" if quant
+           else "paged_decode_partial_bf16")
+    rc = _c(sym, 6 + len(pool), 8)(
+        q.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, G, P, page, hd,
+        int(base), L, float(scale), K.stream_ptr(q))
+    K.check_launch(sym, rc)
+    if quant:
+        paged_decode_partial.launches_int8 += 1
+    else:
+        paged_decode_partial.launches += 1
+    return acc, m, l
+
+
+paged_decode_partial.launches = 0
+paged_decode_partial.launches_int8 = 0
+
 __all__ = ["gather_pages", "gather_scales", "paged_decode_attention",
+           "paged_decode_partial", "paged_decode_partial_reference",
            "paged_decode_reference", "paged_verify_attention",
            "paged_verify_reference"]

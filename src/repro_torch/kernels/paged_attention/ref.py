@@ -1,6 +1,7 @@
 """Plain PyTorch version of the paged attention kernels: the KV cache
 rows live as pages of one shared pool, addressed through a per-row page
-table.
+table (and, for one shard of a sharded bank, its unnormalized decode
+partial over the pages it owns).
 
 Layout:
   * ``k_pages``/``v_pages`` — (NP, Hkv, page, hd): the shared pool.
@@ -72,3 +73,44 @@ def paged_verify_reference(q, k_pages, v_pages, blk_k, blk_v, page_table,
     k, v = _rows(k_pages, v_pages, page_table, k_scale, v_scale)
     return verify_reference(q, k, v, blk_k, blk_v, pos, scale=scale,
                             tree=tree)
+
+
+NEG_INF = -1e30          # the masked score; finite, so exp(m - m) == 1
+
+
+def paged_decode_partial_reference(q, k_pages, v_pages, page_table, pos,
+                                   base: int, *, scale: float | None = None,
+                                   k_scale=None, v_scale=None):
+    """One shard's unnormalized flash-decode state over its LOCAL slice
+    ``k_pages``/``v_pages`` (L, Hkv, page, hd) of a sharded bank (int8
+    codes with (L, Hkv, page) ``k_scale``/``v_scale``).  ``page_table``
+    (B, P) holds GLOBAL page ids and ``base`` is the shard's first one:
+    the shard owns ids [base, base + L).  q: (B, H, hd); pos: () or (B,)
+    -> (acc (B, Hkv, G, hd) f32, m (B, Hkv, G) f32, l (B, Hkv, G) f32)
+    over the keys t <= pos[b] on owned pages; a row that owns no such
+    key is exactly (0, -1e30, 0)."""
+    B, H, hd = q.shape
+    L, Hkv, page, _ = k_pages.shape
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    lt = page_table.long() - int(base)
+    owned = (lt >= 0) & (lt < L)
+    lt = torch.where(owned, lt, torch.zeros_like(lt))
+    if k_scale is not None:
+        k, v = _dequant(k_pages, k_scale, lt), _dequant(v_pages, v_scale, lt)
+    else:
+        k, v = gather_pages(k_pages, lt), gather_pages(v_pages, lt)
+    S = k.shape[2]
+    pos = torch.as_tensor(pos, device=q.device).expand(B)
+    own_pos = owned.repeat_interleave(page, dim=1)                # (B, S)
+    valid = ((torch.arange(S, device=q.device)[None, :] <= pos[:, None])
+             & own_pos)[:, None, None, :]                       # (B,1,1,S)
+    qh = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bngd,bnsd->bngs", qh, k.float()) * scale
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    acc = torch.einsum("bngs,bnsd->bngd", p, v.float())
+    return acc, m, p.sum(dim=-1)

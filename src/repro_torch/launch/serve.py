@@ -16,7 +16,10 @@ Three modes:
     --page-size N`` gives each context a paged slot pool;
     ``--prefill-chunk C`` admits prompts in C-token chunks, one per step;
     ``--quantize-kv int8`` (with ``--paged``) stores the page pools in
-    int8 with per-token-per-head scales.
+    int8 with per-token-per-head scales; ``--shards N`` (with
+    ``--paged``) splits each page bank into N per-shard free-lists, over
+    a mesh of N devices when N are visible (``--platform cpu
+    --host-devices N`` makes N logical CPU devices).
   * ``--mode sync`` — the synchronous round-robin loop (the baseline the
     paper compares against).
 
@@ -39,6 +42,7 @@ import torch
 from repro_torch.configs import get_arch, override, reduced as make_reduced
 from repro_torch.core import env
 from repro_torch.core.env import resolve_device, torch_dtype
+from repro_torch.distributed.mesh import make_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serve.scheduler import ContinuousScheduler, SwitchScheduler
 from repro_torch.serve.switching import ServedModel, SwitchableServer
@@ -108,8 +112,18 @@ def request_stream(names, cfgs, n_requests, batch, seq, seed):
 # JAX launcher flags whose features the port does not have yet, with the
 # value that means "off"
 _NOT_PORTED = {"draft": None, "spec_k": 4, "spec_tree": 1,
-               "spec_adaptive": False, "multi_step": 1, "shards": None,
-               "x64": False, "host_devices": None, "prefix_cache": False}
+               "spec_adaptive": False, "multi_step": 1, "x64": False,
+               "prefix_cache": False}
+
+
+def visible_devices(platform: str | None, host_devices: int | None):
+    """The devices a mesh may take, as JAX counts them: on the CPU
+    platform ``host_devices`` logical CPU devices (JAX's forced host
+    device count; 1 by default), else the visible CUDA cards."""
+    if platform == "cpu":
+        return [torch.device("cpu")] * (host_devices or 1)
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def main(argv=None) -> int:
@@ -137,6 +151,17 @@ def main(argv=None) -> int:
                          "int8 with per-token-per-head scales — about "
                          "half the bytes per page (outputs are "
                          "tolerance-close, not bitwise)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="paged mode: split each engine's KV page bank "
+                         "into this many shards with one free-list each; "
+                         "admission puts a request's pages on the "
+                         "least-loaded shard.  When at least this many "
+                         "devices are visible the bank also gets a mesh "
+                         "of them")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    metavar="N",
+                    help="with --platform cpu: N logical CPU devices, for "
+                         "a --shards mesh without hardware")
     ap.add_argument("--platform", default=None, choices=("cpu", "gpu"),
                     help="cpu: the plain PyTorch path on the CPU; gpu "
                          "(the default): the CUDA card")
@@ -166,11 +191,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--multi-step", type=int, default=1,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--shards", type=int, default=None,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--host-devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--prefix-cache", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -180,6 +201,11 @@ def main(argv=None) -> int:
         asked.insert(0, "--mode speculative")
     if asked:
         ap.error(f"{', '.join(asked)}: not yet ported to repro_torch")
+    if args.shards is not None and (args.shards < 1 or not args.paged):
+        ap.error("--shards needs --paged and a positive shard count")
+    if args.host_devices is not None and args.host_devices < 1:
+        ap.error(f"host device count must be >= 1, got "
+                 f"{args.host_devices}")
     if args.quantize_kv != "none" and not args.paged:
         ap.error("--quantize-kv targets the shared page pool: it requires "
                  "--paged")
@@ -208,6 +234,13 @@ def main(argv=None) -> int:
                          name="stats-reporter").start()
     reqs = list(request_stream(names, cfgs, args.requests, args.batch,
                                args.seq, args.seed))
+    mesh = None
+    devices = visible_devices(args.platform, args.host_devices)
+    if args.shards is not None and args.shards > 1 \
+            and len(devices) >= args.shards:
+        # enough devices: the sharded bank gets a mesh of them (the host
+        # allocator shards regardless)
+        mesh = make_mesh((args.shards,), ("model",), devices)
 
     t0 = time.perf_counter()
     if args.mode in ("queue", "continuous"):
@@ -217,7 +250,8 @@ def main(argv=None) -> int:
                          prefill_chunk=args.prefill_chunk,
                          paged=args.paged, page_size=args.page_size,
                          quantize_kv=(None if args.quantize_kv == "none"
-                                      else args.quantize_kv)))
+                                      else args.quantize_kv),
+                         shards=args.shards, mesh=mesh))
         with sched_cls(server) as sched:
             futs = [(sched.submit(n, t, steps=args.steps),
                      time.perf_counter()) for n, t in reqs]

@@ -17,6 +17,9 @@ Entry points by execution mode:
   * ``attention_verify``        — K tokens against the row cache
   * ``attention_verify_pages``  — K tokens against the shared page pool
     (both: chunked prefill's chunk, a speculative verify block)
+  * ``attention_decode_pages_sharded`` / ``attention_verify_pages_sharded``
+    — the same over a page bank sharded over a mesh, each shard reading
+    only its own slice (``shard=(mesh, axis)`` of the two above)
 
 A sliding-window model (``cfg.sliding_window = W > 0``) keeps a RING row
 cache of ``S = min(max_len, W)`` slots: position t lives at slot ``t % S``
@@ -31,11 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.mesh import pmax, psum
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     gather_pages, gather_scales, paged_decode_attention,
-    paged_verify_attention)
+    paged_decode_partial, paged_verify_attention)
 from repro_torch.kernels.verify_attention.ops import verify_attention
 from repro_torch.models.common import PSpec
 
@@ -325,7 +329,7 @@ def _gather_dequant(cache: PagedKV, tables, dtype):
 
 
 def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
-                           cfg: ArchConfig, wmask=None):
+                           cfg: ArchConfig, wmask=None, shard=None):
     """One-step decode against the shared page pool.  x: (B, 1, D);
     pos: (B,) int32 (or scalar, broadcast); tables: (B, P) int32;
     ``wmask`` ((B,) bool, optional): False rows write to the park page.
@@ -333,7 +337,12 @@ def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
     Write-then-read in the same order as ``attention_decode`` -- the new
     token's k/v land in its page first, then row b attends to its
     positions [0, pos[b]] through its table -- so live rows' outputs equal
-    the row cache's.  Returns (out (B, 1, D), cache)."""
+    the row cache's.  ``shard`` (``(mesh, axis)``, optional) switches to
+    per-shard local reads (``attention_decode_pages_sharded``).  Returns
+    (out (B, 1, D), cache)."""
+    if shard is not None:
+        return attention_decode_pages_sharded(params, x, pos, cache, tables,
+                                              cfg, shard, wmask=wmask)
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
     positions = pos[:, None]
@@ -348,7 +357,7 @@ def attention_decode_pages(params, x, pos, cache: PagedKV, tables,
 
 def attention_verify_pages(params, x, pos, cache: PagedKV, tables,
                            cfg: ArchConfig, wmask=None, offsets=None,
-                           tree=None):
+                           tree=None, shard=None):
     """K tokens per row against the shared page pool: x (B, K, D) at
     positions ``pos[b] .. pos[b]+K-1``.  Attention reads the pool as it
     stood BEFORE the block (through the tables; an int8 pool dequantized)
@@ -364,7 +373,13 @@ def attention_verify_pages(params, x, pos, cache: PagedKV, tables,
     ((B, K) int32 ancestor bitmasks) the causal mask: bit j of ``tree[b,
     i]`` makes block token j visible to block query i.  Siblings share a
     depth, so the caller parks all but one writer per depth through
-    ``wmask``.  Returns (out (B, K, D), cache)."""
+    ``wmask``.  ``shard`` (``(mesh, axis)``, optional) switches to
+    per-shard local reads (``attention_verify_pages_sharded``).  Returns
+    (out (B, K, D), cache)."""
+    if shard is not None:
+        return attention_verify_pages_sharded(params, x, pos, cache, tables,
+                                              cfg, shard, wmask=wmask,
+                                              offsets=offsets, tree=tree)
     B, K, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
     if offsets is None:
@@ -377,6 +392,193 @@ def attention_verify_pages(params, x, pos, cache: PagedKV, tables,
                                  tree=tree)
     _page_write(cache, k, v, tables, positions, wmask=wmask)
     return _out(params, out, x), cache
+
+
+# ---------------------------------------------------------------------------
+# sharded page bank: per-shard LOCAL reads
+#
+# The functions above read the WHOLE bank through the page table.  The
+# sharded paths below read it shard by shard instead: shard s of a mesh
+# axis of N shards holds local pages [s*L, (s+1)*L) of the bank (L =
+# NP/N; here a view of the one bank tensor), recovers its local index as
+# ``table - s*L``, reads and writes ONLY the entries it owns, and the
+# per-shard unnormalized flash partials (acc, m, l) merge with one
+# pmax/psum.  The merged softmax is mathematically the global one, but
+# the reduction ORDER differs, so local-read outputs are allclose to the
+# global-read path, not bitwise equal.  Out-of-slice writes land in the
+# shard's own reserved local page 0 (``ShardedPagePool`` never allocates
+# any shard's local page 0), so no write crosses shards either.
+# ---------------------------------------------------------------------------
+
+def _local_pages(tables, num_local: int, shard: int):
+    """Shard ``shard``'s view of the (B, P) page table -> (local_table,
+    owned): ``owned`` marks the entries whose page lives on this shard,
+    ``local_table`` holds their local indices (every other entry points
+    at the shard's local park page 0)."""
+    lt = tables.long() - shard * num_local
+    owned = (lt >= 0) & (lt < num_local)
+    return torch.where(owned, lt, torch.full_like(lt, PARK_PAGE)), owned
+
+
+def _bank_slice(cache: PagedKV, shard: int, num_local: int) -> PagedKV:
+    """Shard ``shard``'s slice of every bank leaf: views, so writes
+    through it land in the bank."""
+    sl = slice(shard * num_local, (shard + 1) * num_local)
+    return PagedKV(*(None if t is None else t[sl] for t in cache))
+
+
+def _paged_partial(q, kg, vg, valid, scale):
+    """Unnormalized flash partial over ONE gathered bank slice.
+
+    q: (B, K, H, hd); kg/vg: (B, Hkv, S, hd); valid: (B, K, S) bool (or a
+    broadcastable (B, 1, S)) -> (acc (B, Hkv, K, G, hd) f32, m, l (B,
+    Hkv, K, G) f32).  ``NEG_INF`` is finite, so a fully masked row has
+    ``m == NEG_INF`` and ``exp(s - m) == 1`` there: re-masking ``p`` (not
+    just ``s``) keeps that row's l and acc at exactly 0, which the
+    cross-shard merge then ignores."""
+    B, K, H, hd = q.shape
+    Hkv = kg.shape[1]
+    G = H // Hkv
+    qh = q.reshape(B, K, Hkv, G, hd).permute(0, 2, 1, 3, 4).float()
+    s = torch.einsum("bnigd,bnsd->bnigs", qh, kg.float()) * scale
+    vmask = valid[:, None, :, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bnigs,bnsd->bnigd", p, vg.float())
+    return acc, m, p.sum(dim=-1)
+
+
+def _psum_partials(accs, ms, ls):
+    """Merge per-shard flash partials (lists in shard order): rescale
+    every shard's (acc, l) to the global running max, then sum.  Returns
+    the still unnormalized (acc, m, l)."""
+    mg = pmax(ms)
+    ws = [torch.exp(m.to(mg.device) - mg) for m in ms]
+    return (psum([a.to(mg.device) * w[..., None] for a, w in zip(accs, ws)]),
+            mg, psum([l.to(mg.device) * w for l, w in zip(ls, ws)]))
+
+
+def _fold_block(acc, m, l, qh, kb, vb, scale, tree):
+    """Fold the verify block's own K keys/values -- the same for every
+    shard -- into the merged cache partial, then normalize.  qh: (B, Hkv,
+    K, G, hd) f32; kb/vb: (B, K, Hkv, hd); ``tree`` ((B, K) int32
+    ancestor bitmasks) replaces the intra-block causal mask.  With
+    ``_psum_partials`` this is ``verify_reference``'s joint softmax in
+    another reduction order."""
+    kbh = kb.float().transpose(1, 2)                     # (B, Hkv, K, hd)
+    vbh = vb.float().transpose(1, 2)
+    K = kbh.shape[2]
+    s = torch.einsum("bnigd,bnjd->bnigj", qh, kbh) * scale
+    ar = torch.arange(K, device=qh.device)
+    if tree is None:
+        keep = (ar[None, :] <= ar[:, None])[None, None, :, None, :]
+    else:
+        t = torch.as_tensor(tree, device=qh.device).to(torch.int32)
+        keep = (((t[:, :, None] >> ar.to(torch.int32)) & 1)
+                == 1)[:, None, :, None, :]
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    m2 = torch.maximum(m, s.amax(dim=-1))
+    pb = torch.where(keep, torch.exp(s - m2[..., None]), torch.zeros_like(s))
+    l2 = l * torch.exp(m - m2) + pb.sum(dim=-1)
+    acc2 = (acc * torch.exp(m - m2)[..., None]
+            + torch.einsum("bnigj,bnjd->bnigd", pb, vbh))
+    return acc2 / torch.clamp(l2, min=1e-30)[..., None]
+
+
+def _heads_out(out, dt):
+    """(B, Hkv, K, G, hd) f32 merged attention -> (B, K, H, hd) in the
+    activation dtype."""
+    out = out.permute(0, 2, 1, 3, 4)
+    return out.reshape(out.shape[0], out.shape[1], -1, out.shape[-1]).to(dt)
+
+
+def attention_decode_pages_sharded(params, x, pos, cache: PagedKV, tables,
+                                   cfg: ArchConfig, shard, wmask=None):
+    """``attention_decode_pages`` over a bank sharded on mesh axis
+    ``shard = (mesh, axis)``.  Each shard first writes the new token into
+    its own slice (a token whose page it does not own parks in its local
+    page 0), then the B5 partial (``paged_decode_partial``) reads only
+    its slice; the shards' partials merge with one pmax/psum.  Allclose,
+    not bitwise, to the global-read path.  Returns (out (B, 1, D),
+    cache), the bank written IN PLACE."""
+    mesh, axis = shard
+    n = mesh.shape[axis]
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    positions = pos[:, None]
+    q, k, v = _qkv(params, x, positions, cfg)              # q: (B, 1, H, hd)
+    NP, _, page, _ = cache.k.shape
+    L = NP // n
+    P = tables.shape[1]
+    pidx = torch.clamp(positions.long() // page, max=P - 1)
+    wm = None if wmask is None else wmask[:, None]
+    accs, ms, ls = [], [], []
+    for s in range(n):
+        lc = _bank_slice(cache, s, L)
+        lt, owned = _local_pages(tables, L, s)
+        own_tok = torch.gather(owned, 1, pidx)                   # (B, 1)
+        _page_write(lc, k, v, lt, positions,
+                    wmask=own_tok if wm is None else own_tok & wm)
+        acc, m, l = paged_decode_partial(q[:, 0], lc.k, lc.v, tables, pos,
+                                         s * L, k_scale=lc.ks,
+                                         v_scale=lc.vs)
+        accs.append(acc[:, :, None])
+        ms.append(m[:, :, None])
+        ls.append(l[:, :, None])
+    accg, _, lg = _psum_partials(accs, ms, ls)
+    out = accg / torch.clamp(lg, min=1e-30)[..., None]
+    return _out(params, _heads_out(out, x.dtype).to(x.device), x), cache
+
+
+def attention_verify_pages_sharded(params, x, pos, cache: PagedKV, tables,
+                                   cfg: ArchConfig, shard, wmask=None,
+                                   offsets=None, tree=None):
+    """``attention_verify_pages`` over a bank sharded on mesh axis
+    ``shard = (mesh, axis)``: each shard reads its slice as it stood
+    before the block (plain partials, ``_paged_partial``; JAX has no
+    kernel here either) and then writes the block's tokens it owns; the
+    partials merge with one pmax/psum and the block's own keys fold in
+    once (``_fold_block``).  Allclose, not bitwise, to the global-read
+    path.  Returns (out (B, K, D), cache), the bank written IN PLACE."""
+    mesh, axis = shard
+    n = mesh.shape[axis]
+    B, K, _ = x.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
+    if offsets is None:
+        offsets = torch.arange(K, dtype=torch.int32, device=x.device)
+    offsets = torch.as_tensor(offsets, dtype=torch.int32, device=x.device)
+    positions = pos[:, None] + offsets[None]
+    q, k, v = _qkv(params, x, positions, cfg)              # q: (B, K, H, hd)
+    NP, Hkv, page, hd = cache.k.shape
+    L = NP // n
+    P = tables.shape[1]
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    dt = x.dtype
+    pidx = torch.clamp(positions.long() // page, max=P - 1)
+    cols = torch.arange(P * page, device=x.device)[None, :]
+    accs, ms, ls = [], [], []
+    for s in range(n):
+        lc = _bank_slice(cache, s, L)
+        lt, owned = _local_pages(tables, L, s)
+        if lc.ks is not None:
+            kg, vg = _gather_dequant(lc, lt, dt)
+        else:
+            kg, vg = gather_pages(lc.k, lt), gather_pages(lc.v, lt)
+        own_pos = owned.repeat_interleave(page, dim=1)            # (B, S)
+        valid = ((cols < pos[:, None]) & own_pos)[:, None, :]
+        acc, m, l = _paged_partial(q, kg, vg, valid, scale)
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+        own_tok = torch.gather(owned, 1, pidx)                   # (B, K)
+        _page_write(lc, k, v, lt, positions,
+                    wmask=own_tok if wmask is None else own_tok & wmask)
+    accg, mg, lg = _psum_partials(accs, ms, ls)
+    qh = (q.reshape(B, K, Hkv, -1, hd).permute(0, 2, 1, 3, 4).float()
+          * scale)
+    out = _fold_block(accg, mg, lg, qh, k, v, 1.0, tree)
+    return _out(params, _heads_out(out, dt).to(x.device), x), cache
 
 
 def insert_pages(cache: PagedKV, rows: KVCache, tables) -> PagedKV:

@@ -87,10 +87,17 @@ def _block_specs(cfg: ArchConfig, typ: tuple[str, str]) -> dict:
 
 class LM:
     """``mlstm_mode`` picks the mLSTM form of ``forward`` and ``prefill``:
-    ``auto`` (``_mlstm_train_mode``), ``parallel`` or ``chunkwise``."""
+    ``auto`` (``_mlstm_train_mode``), ``parallel`` or ``chunkwise``.
+    ``mesh`` (a ``repro_torch.distributed.mesh.Mesh``) and
+    ``moe_strategy`` pick the MoE layers' strategy as
+    ``moe.moe_apply`` does: with ``auto``, expert-parallel over a mesh of
+    several shards when the experts and the sequence split over it,
+    tensor-parallel when they do not, the dense reference without a
+    mesh.  The mesh's shards must share the model's device."""
 
     def __init__(self, cfg: ArchConfig, cache_dtype=torch.bfloat16,
-                 device=None, mlstm_mode: str = "auto"):
+                 device=None, mlstm_mode: str = "auto", mesh=None,
+                 moe_strategy: str = "auto"):
         if (cfg.family not in _FAMILIES
                 or (cfg.family == "ssm") != (cfg.xlstm is not None)
                 or cfg.frontend.kind != "none"):
@@ -110,6 +117,11 @@ class LM:
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)          # activations
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh {mesh} lies on {mesh.device}, the "
+                             f"model on {self.device}")
+        self.mesh = mesh
+        self.moe_strategy = moe_strategy
 
     def kind(self, layer: int) -> tuple[str, str]:
         """(mixer, ffn) of layer ``layer``."""
@@ -187,13 +199,14 @@ class LM:
 
     def _mixer(self, i, p, h, mode, cache, pos=None, positions=None,
                max_len=None, wmask=None, tables=None, offsets=None,
-               tree=None):
+               tree=None, shard=None):
         """Layer ``i``'s mixer on the normed input ``h`` under ``mode``
         (forward | prefill | decode | verify) -> (out, cache).  Prefill
         returns the layer's fresh cache; decode and verify write
         ``cache`` in place.  A recurrent layer runs the same call for
         decode and verify (L == K block tokens after the carried state);
-        ``tables`` switches attention to the page pool."""
+        ``tables`` switches attention to the page pool and ``shard``
+        (``(mesh, axis)``) to per-shard local reads of it."""
         cfg = self.cfg
         mixer = self.kind(i)[0]
         if mixer != "attn":
@@ -208,10 +221,12 @@ class LM:
             if mode == "decode":
                 return layers.attention_decode_pages(ap, h, pos, cache,
                                                      tables, cfg,
-                                                     wmask=wmask)
+                                                     wmask=wmask,
+                                                     shard=shard)
             return layers.attention_verify_pages(ap, h, pos, cache, tables,
                                                  cfg, wmask=wmask,
-                                                 offsets=offsets, tree=tree)
+                                                 offsets=offsets, tree=tree,
+                                                 shard=shard)
         if mode == "decode":
             return layers.attention_decode(ap, h, pos, cache, cfg)
         return layers.attention_verify(ap, h, pos, cache, cfg, wmask=wmask)
@@ -233,7 +248,8 @@ class LM:
                 continue
             h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
             if "moe" in p:
-                f, _ = moe_mod.moe_apply(p["moe"], h2, cfg)
+                f, _ = moe_mod.moe_apply(p["moe"], h2, cfg, self.mesh,
+                                         self.moe_strategy)
             else:
                 f = layers.mlp({k: w.to(x.dtype)
                                 for k, w in p["mlp"].items()}, h2)
@@ -387,19 +403,22 @@ class LM:
         return caches
 
     def decode_step_pages(self, params, caches, tokens, pos, tables,
-                          live=None):
+                          live=None, shard=None):
         """One decode step against the shared page pool.  tokens: (B, 1)
         int; pos: (B,) int32; tables: (B, P) int32; ``live`` ((B,) bool,
         optional) routes non-live rows' cache writes to the park page.
-        Returns (logits (B, 1, V), caches)."""
+        ``shard`` (``(mesh, axis)``) makes each mesh shard read and write
+        only its slice of the pool, merging the shards' partial softmaxes
+        (``layers.attention_decode_pages_sharded``).  Returns (logits
+        (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
         x, _ = self._run(params, x, "decode", caches, pos=pos,
-                         tables=tables, wmask=live)
+                         tables=tables, wmask=live, shard=shard)
         return self._head(params, x), caches
 
     def verify_step_pages(self, params, caches, tokens, pos, tables,
                           wmask=None, need_logits: bool = True,
-                          offsets=None, tree=None):
+                          offsets=None, tree=None, shard=None):
         """K tokens per row against the shared page pool: the (b, K)
         block at per-row offsets ``pos .. pos+K-1`` through the rows'
         (b, P) page tables, k/v written into the rows' own pages (False
@@ -407,14 +426,15 @@ class LM:
         whole row moves and nothing is zeroed: a recycled page is
         rewritten before any of its positions is read.  ``offsets`` /
         ``tree`` select tree verification (see
-        ``layers.attention_verify_pages``).  Returns (logits (b, K, V) f32
-        or None, caches)."""
+        ``layers.attention_verify_pages``); ``shard`` per-shard local
+        reads, as in ``decode_step_pages``.  Returns (logits (b, K, V)
+        f32 or None, caches)."""
         tables = torch.as_tensor(tables, device=self.device)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         x = self._embed_in(params, tokens)
         x, _ = self._run(params, x, "verify", caches, pos=pos,
                          tables=tables, wmask=wmask, offsets=offsets,
-                         tree=tree)
+                         tree=tree, shard=shard)
         return (self._head(params, x) if need_logits else None), caches
 
     # chunked admission is the verify pass pointed at the page pool
@@ -422,5 +442,5 @@ class LM:
 
 
 def build_model(cfg: ArchConfig, cache_dtype=torch.bfloat16,
-                device=None) -> LM:
-    return LM(cfg, cache_dtype=cache_dtype, device=device)
+                device=None, mesh=None) -> LM:
+    return LM(cfg, cache_dtype=cache_dtype, device=device, mesh=mesh)

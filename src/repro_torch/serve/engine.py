@@ -36,13 +36,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.env import synchronize
+from repro_torch.distributed.mesh import shard_count
 from repro_torch.models.model import LM
-from repro_torch.serve.pool import Generation, PagePool, SlotPool
+from repro_torch.serve.pool import (Generation, PagePool, ShardedPagePool,
+                                    SlotPool)
 from repro_torch.serve.telemetry import Telemetry, safe_ratio
 
 __all__ = ["DecodeState", "EngineKey", "Generation", "GumbelDraws",
-           "PagePool", "ServeStats", "ServingEngine", "SlotPool",
-           "StepEngine"]
+           "PagePool", "ServeStats", "ServingEngine", "ShardedPagePool",
+           "SlotPool", "StepEngine"]
 
 _M64 = (1 << 64) - 1
 
@@ -132,6 +134,7 @@ class EngineKey(NamedTuple):
     prefill_chunk: Optional[int] = None
     page_size: Optional[int] = None     # None == row layout (paged off)
     quantize_kv: Optional[str] = None
+    shards: int = 1                     # page-bank shards (1 == unsharded)
 
 
 class ServeStats:
@@ -203,8 +206,7 @@ class _PendingPrefill:
     #                                       (admit-to-first-chunk latency)
 
 
-_NOT_PORTED = ("multi_step", "prefix_cache", "bank", "shards", "mesh",
-               "local_read")
+_NOT_PORTED = ("multi_step", "prefix_cache", "bank")
 
 
 class StepEngine(SlotPool):
@@ -246,9 +248,27 @@ class StepEngine(SlotPool):
     page.  Writes quantize; the paged kernels dequantize in registers.
     Outputs are close to, not bitwise equal to, the full-precision pool's.
 
+    ``shards=N`` / ``mesh=...`` (paged only) split the page bank into N
+    equal slices with one free-list each (``ShardedPagePool``): a page id
+    encodes (shard, local page) as ``(id // pages_per_shard, id %
+    pages_per_shard)``; admission puts a small request's pages on the
+    least-loaded shard and spans a big one across shards.  ``shards``
+    alone is *logical* sharding: only page ids change, and the paged
+    read is indifferent to them, so streams are bitwise those of the
+    unsharded engine.  ``mesh`` (a ``repro_torch.distributed.mesh.Mesh``
+    of N shards) is the bank's mesh; its shards
+    must all name the model's device, where the bank stays (placing the
+    slices on several cards is not ported yet).  ``local_read=True``
+    (needs ``mesh``) makes each shard read and write only its own slice
+    in decode and chunked prefill (the B5 partial kernel for decode) and
+    merges the shards' partial softmaxes with one pmax/psum; that
+    changes the reduction order, so it is allclose, not bitwise.
+    ``num_pages`` then defaults to ``N * (ceil(need / N) + 1)`` (need =
+    the row layout's capacity in pages, plus each shard's reserved local
+    page 0).
+
     The JAX engine's other options — ``multi_step``, ``prefix_cache``,
-    ``bank``, ``shards``/``mesh``/``local_read`` — are not ported yet and
-    raise ``NotImplementedError``.
+    ``bank`` — are not ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(self, model: LM, batch_size: int, max_len: int,
@@ -266,9 +286,7 @@ class StepEngine(SlotPool):
                  local_read: bool = False):
         unported = dict(multi_step=multi_step != 1,
                         prefix_cache=bool(prefix_cache),
-                        bank=bank is not None,
-                        shards=shards not in (None, 1),
-                        mesh=mesh is not None, local_read=bool(local_read))
+                        bank=bank is not None)
         asked = [k for k in _NOT_PORTED if unported[k]]
         if asked:
             raise NotImplementedError(
@@ -310,6 +328,29 @@ class StepEngine(SlotPool):
         self._jumps = 0              # consecutive short-prompt jump-aheads
         self._pending: deque[_PendingPrefill] = deque()
 
+        # sharded page bank: resolve the mesh/shard knobs up front (the
+        # pool they configure is built in the paged branch below)
+        if mesh is not None and shards not in (None, mesh.size):
+            raise ValueError(f"shards={shards} disagrees with the mesh's "
+                             f"{mesh.size} shards")
+        shards = shard_count(shards, mesh)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if (mesh is not None or shards > 1) and not paged:
+            raise ValueError(
+                "sharding partitions the page bank: shards/mesh need "
+                "paged=True (the row cache has per-slot affinity)")
+        if local_read and mesh is None:
+            raise ValueError(
+                "local_read reads the bank shard by shard over mesh "
+                "devices: it needs mesh=")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh {mesh} lies on {mesh.device}, the "
+                             f"model on {self.device}")
+        self.mesh = mesh
+        self.local_read = bool(local_read)
+        self.num_shards = shards
+
         self.paged = paged
         if paged:
             model._require_paged_support()   # all-attention, non-ring
@@ -323,14 +364,28 @@ class StepEngine(SlotPool):
             self.page_size = page_size
             self.pages_per_row = max_len // page_size
             if num_pages is None:
-                num_pages = batch_size * self.pages_per_row + 1
-            if num_pages - 1 < self.pages_per_row:
+                # capacity parity with the row layout: every slot can
+                # always hold a worst-case row, split evenly across
+                # shards (+1 reserved local park page per shard)
+                need = batch_size * self.pages_per_row
+                num_pages = self.num_shards * (
+                    -(-need // self.num_shards) + 1)
+            if self.num_shards > 1 and num_pages % self.num_shards:
+                raise ValueError(
+                    f"num_pages {num_pages} must divide by shards "
+                    f"{self.num_shards}: the bank splits into equal "
+                    "per-shard slices")
+            if num_pages - self.num_shards < self.pages_per_row:
                 raise ValueError(
                     f"num_pages {num_pages} cannot hold one worst-case "
                     f"row ({self.pages_per_row} pages) plus the reserved "
-                    "park page")
+                    "park page(s)")
             self.num_pages = num_pages
-            self._pages = PagePool(num_pages, telemetry=telemetry)
+            self._pages = (
+                ShardedPagePool(num_pages, self.num_shards,
+                                telemetry=telemetry)
+                if self.num_shards > 1
+                else PagePool(num_pages, telemetry=telemetry))
         else:
             self.page_size = None
             self.pages_per_row = 0
@@ -379,6 +434,12 @@ class StepEngine(SlotPool):
         self._pending.clear()
         self._jumps = 0
 
+    def _shard_arg(self):
+        """``(mesh, axis)`` under local reads (the paged programs then
+        read the bank shard by shard), else None (one global read)."""
+        return ((self.mesh, self.mesh.axis_names[0]) if self.local_read
+                else None)
+
     def _call(self, fn, params, *args):
         if self.runner is None:
             return fn(params, *args)
@@ -404,21 +465,35 @@ class StepEngine(SlotPool):
             return True
         tokens = np.asarray(tokens)
         b, S = (1, tokens.shape[0]) if tokens.ndim == 1 else tokens.shape
-        ok = b * self.pages_needed(S, max_new) <= self._pages.free_pages()
-        self.last_admit_block = None if ok else "pages"
-        return ok
+        npages = self.pages_needed(S, max_new)
+        # "shard_pages": the pool has room, just not on the shard the
+        # request routes to (sharded pools only)
+        block = self._pages.blocked_rows(b, npages)
+        self.last_admit_block = block
+        return block is None
 
     # ------------------------------------------------------ page allocation
     def _take_pages(self, b: int, S: int, max_new: int):
         """Allocate each admitted row its pages and build the (b, P)
-        tables (unused tail entries point at the park page).  Returns
-        (tables, flat page list for failure restore)."""
+        tables (unused tail entries point at the park page).  Rows take
+        their pages one after another -- on a sharded pool each routes to
+        the least-loaded shard at its turn, as ``blocked_rows`` prices --
+        and a mid-batch shortage gives the earlier rows' pages back, so
+        the caller sees one atomic failure.  Returns (tables, flat page
+        list for failure restore)."""
         npages = self.pages_needed(S, max_new)
-        pages = self._pages.take(b * npages)
+        taken: list[list[int]] = []
         tables = np.full((b, self.pages_per_row), PagePool.PARK, np.int32)
-        for i in range(b):
-            tables[i, :npages] = pages[i * npages:(i + 1) * npages]
-        return tables, pages
+        try:
+            for i in range(b):
+                rows = self._pages.take(npages)
+                tables[i, :npages] = rows
+                taken.append(rows)
+        except BaseException:
+            for rows in reversed(taken):
+                self._pages.restore(rows)
+            raise
+        return tables, [p for rows in taken for p in rows]
 
     def _reserve(self, b: int, S: int, max_new: int):
         """Take b slots and, paged, their pages -> (slots, tables or
@@ -512,7 +587,8 @@ class StepEngine(SlotPool):
             kw["wmask"] = torch.arange(W, device=dev)[None, :] < nv[:, None]
         if self.paged:
             logits, _ = model.prefill_chunk_pages(
-                *args, torch.from_numpy(tables).to(dev), **kw)
+                *args, torch.from_numpy(tables).to(dev),
+                shard=self._shard_arg(), **kw)
         else:
             logits, _ = model.prefill_chunk(
                 *args, torch.from_numpy(slots).to(dev), **kw)
@@ -539,7 +615,8 @@ class StepEngine(SlotPool):
         if self.paged:
             logits, _ = model.decode_step_pages(
                 params, st.caches, tok, pos, st.table_dev,
-                live=torch.from_numpy(live).to(dev))
+                live=torch.from_numpy(live).to(dev),
+                shard=self._shard_arg())
         else:
             logits, _ = model.decode_step(params, st.caches, tok, pos)
         last = logits[:, -1]

@@ -27,9 +27,11 @@ Pool invariants:
     ``self.sampler`` (``repro_torch.serve.sampling``) get
     ``_salt_admit_key`` (the instant-retire salt) for free.
 
-The JAX package's refcounted prefix sharing (``PrefixIndex``), its
-sharded page bank (``ShardedPagePool``) and cross-engine ``SharedBank``
-are not ported yet, so every allocated page here has exactly one owner.
+``ShardedPagePool`` splits the page bank into equal per-shard slices
+with one free-list each (the JAX package's, without its refcounts).
+The JAX package's refcounted prefix sharing (``PrefixIndex``, with
+``PagePool.adopt``/``acquire``) and cross-engine ``SharedBank`` are not
+ported yet, so every allocated page here has exactly one owner.
 """
 from __future__ import annotations
 
@@ -97,6 +99,8 @@ class PagePool:
         self._tm = telemetry             # optional: free_pages gauge
         self.reset()
 
+    num_shards = 1
+
     def _note_free(self):
         if self._tm is not None:
             self._tm.registry.gauge(
@@ -108,6 +112,18 @@ class PagePool:
 
     def free_pages(self) -> int:
         return len(self._free)
+
+    def blocked(self, n: int) -> Optional[str]:
+        """Why ``take(n)`` would fail right now: ``None`` (it would not),
+        ``"pages"`` (the pool is short) or ``"shard_pages"`` (room
+        exists, but not on the shard this request routes to -- sharded
+        pools only)."""
+        return None if n <= len(self._free) else "pages"
+
+    def blocked_rows(self, b: int, n: int) -> Optional[str]:
+        """``blocked`` for ``b`` independent rows of ``n`` pages each,
+        admitted in sequence under the routing policy."""
+        return None if b * n <= len(self._free) else "pages"
 
     def take(self, n: int) -> list[int]:
         if n > len(self._free):
@@ -139,6 +155,168 @@ class PagePool:
     def reset(self):
         self._free: deque[int] = deque(range(1, self.total_pages))
         self._held: set[int] = set()
+        self._note_free()
+
+
+class ShardedPagePool(PagePool):
+    """``PagePool`` split into ``num_shards`` equal slices with one
+    free-list per shard.
+
+    Page-id encoding: global page ``p`` lives on shard
+    ``p // pages_per_shard`` at local index ``p % pages_per_shard``, so
+    the page table stays a plain (B, P) int32 array and a shard recovers
+    its local index by subtracting its base.  Local page 0 of EVERY
+    shard is reserved: shard 0's is the global PARK page (id 0), and the
+    others give each bank slice a park target of its own, so a write a
+    shard does not own lands in its own slice.  Hence ``allocatable ==
+    total_pages - num_shards``.
+
+    Routing (deterministic, so a fixed traffic pattern replays exactly):
+    a request that can ever fit on one shard (``n <=
+    per_shard_allocatable``) goes whole to the least-loaded shard (most
+    free pages, ties to the lowest index); a bigger one spans, drawing
+    its pages one at a time from whichever shard is most free at that
+    moment.  ``release`` and ``restore`` return a page to its OWNING
+    shard's free-list with the base class's FIFO / front-restore
+    contract, so the per-shard allocation order is deterministic too.
+    Per-shard gauges ``shard.{s}.free_pages`` and counters
+    ``shard.{s}.admitted_pages`` go to the telemetry registry."""
+
+    def __init__(self, total_pages: int, num_shards: int,
+                 telemetry: Telemetry | None = None):
+        if num_shards < 1:
+            raise ValueError(f"need >= 1 shard, got {num_shards}")
+        if total_pages % num_shards:
+            raise ValueError(f"total_pages {total_pages} must divide by "
+                             f"num_shards {num_shards}")
+        per = total_pages // num_shards
+        if per < 2:
+            raise ValueError(f"each shard needs its reserved local page 0 "
+                             f"plus >= 1 allocatable page; {total_pages} "
+                             f"pages over {num_shards} shards gives {per}")
+        self.num_shards = num_shards
+        self.pages_per_shard = per
+        super().__init__(total_pages, telemetry=telemetry)
+
+    # ``_free`` is never set: every base-class method that touched it is
+    # overridden, and an attribute error beats mutating a stale view.
+
+    def _note_free(self):
+        if self._tm is None:
+            return
+        reg, pre = self._tm.registry, self._tm.prefix
+        reg.gauge(pre + "free_pages", self.free_pages())
+        for s, dq in enumerate(self._shards):
+            reg.gauge(f"{pre}shard.{s}.free_pages", len(dq))
+
+    def _note_admitted(self, shard: int, n: int):
+        if self._tm is not None and n:
+            self._tm.registry.inc(
+                f"{self._tm.prefix}shard.{shard}.admitted_pages", n)
+
+    @property
+    def allocatable(self) -> int:
+        return self.total_pages - self.num_shards
+
+    @property
+    def per_shard_allocatable(self) -> int:
+        return self.pages_per_shard - 1
+
+    def free_pages(self) -> int:
+        return sum(len(dq) for dq in self._shards)
+
+    def shard_of(self, page: int) -> int:
+        return page // self.pages_per_shard
+
+    def least_loaded(self) -> int:
+        """The shard with the most free pages; ties go to the lowest
+        index."""
+        return max(range(self.num_shards),
+                   key=lambda s: (len(self._shards[s]), -s))
+
+    def route(self, n: int) -> Optional[int]:
+        if n > self.per_shard_allocatable:
+            return None                     # can never fit on one shard
+        return self.least_loaded()
+
+    def blocked(self, n: int) -> Optional[str]:
+        shard = self.route(n)               # None: the pages span shards
+        if shard is None:
+            return None if n <= self.free_pages() else "pages"
+        if n <= len(self._shards[shard]):
+            return None
+        return "shard_pages" if n <= self.free_pages() else "pages"
+
+    def blocked_rows(self, b: int, n: int) -> Optional[str]:
+        """Simulate admitting ``b`` rows of ``n`` pages each through the
+        routing policy (each row routed on its own, as ``b`` sequential
+        ``take(n)`` calls would be) without touching the free-lists."""
+        counts = [len(dq) for dq in self._shards]
+        span = n > self.per_shard_allocatable
+        for _ in range(b):
+            if span:
+                if n > sum(counts):
+                    return "pages"
+                for _ in range(n):      # spanning pops most-free first
+                    s = max(range(self.num_shards),
+                            key=lambda i: (counts[i], -i))
+                    counts[s] -= 1
+            else:
+                s = max(range(self.num_shards),
+                        key=lambda i: (counts[i], -i))
+                if n > counts[s]:
+                    return "shard_pages" if n <= sum(counts) else "pages"
+                counts[s] -= n
+        return None
+
+    def take(self, n: int) -> list[int]:
+        shard = self.route(n)
+        if shard is None:
+            return self._take_spanning(n)
+        dq = self._shards[shard]
+        if n > len(dq):
+            raise RuntimeError(f"take({n}) with {len(dq)} free pages on "
+                               f"routed shard {shard}")
+        pages = [dq.popleft() for _ in range(n)]
+        self._held.update(pages)
+        self._note_admitted(shard, n)
+        self._note_free()
+        return pages
+
+    def _take_spanning(self, n: int) -> list[int]:
+        if n > self.free_pages():
+            raise RuntimeError(f"take({n}) with {self.free_pages()} free "
+                               "pages")
+        pages, counts = [], [0] * self.num_shards
+        for _ in range(n):
+            s = self.least_loaded()
+            pages.append(self._shards[s].popleft())
+            counts[s] += 1
+        self._held.update(pages)
+        for s, c in enumerate(counts):
+            self._note_admitted(s, c)
+        self._note_free()
+        return pages
+
+    def restore(self, pages: list[int]):
+        freed = self._drop(pages)
+        for s in range(self.num_shards):
+            own = [p for p in freed if self.shard_of(p) == s]
+            if own:
+                self._shards[s].extendleft(reversed(own))
+        self._note_free()
+
+    def release(self, pages: list[int]):
+        for p in self._drop(pages):
+            self._shards[self.shard_of(p)].append(p)
+        self._note_free()
+
+    def reset(self):
+        per = self.pages_per_shard
+        self._shards: list[deque[int]] = [
+            deque(range(s * per + 1, (s + 1) * per))
+            for s in range(self.num_shards)]
+        self._held = set()
         self._note_free()
 
 

@@ -46,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.distributed.mesh import shard_count
 from repro_torch.serve.engine import EngineKey, _mix
 from repro_torch.serve.telemetry import Telemetry, safe_ratio
 
@@ -371,9 +372,12 @@ class ContinuousScheduler:
     pages.  ``prefill_chunk=C`` streams each admitted prompt into its
     slot in (b, C) chunks, one per tick, behind the decode steps;
     ``quantize_kv="int8"`` (paged) stores the page pools as int8 codes
-    with per-token scales.  The JAX scheduler's speculative contexts
-    (``draft``), multi-step decode, prefix-cached and sharded banks are
-    not ported yet: a non-empty ``draft`` raises.
+    with per-token scales; ``shards=N`` (paged) splits every engine's page
+    bank into N per-shard free-lists (over ``mesh``'s first axis when
+    given), with admission routed to the least-loaded shard.  The JAX
+    scheduler's speculative contexts (``draft``), multi-step decode and
+    prefix-cached banks are not ported yet: a non-empty ``draft``
+    raises.
 
     Per-request seeds ARE honored: a seeded row draws from its own
     generator state (folded with the row's token position), so a seeded
@@ -387,13 +391,21 @@ class ContinuousScheduler:
                  draft: Optional[dict] = None,
                  prefill_chunk: Optional[int] = None,
                  paged: bool = False, page_size: int = 256,
-                 quantize_kv: Optional[str] = None):
+                 quantize_kv: Optional[str] = None,
+                 shards: Optional[int] = None, mesh=None):
         if draft:
             raise NotImplementedError(
                 "speculative contexts (draft=) are not yet ported to "
                 "repro_torch")
         self.server = server
         self.batch_size = batch_size
+        # sharded page bank (paged mode): engines partition their page
+        # pool over `shards` per-shard free-lists (and over `mesh`'s
+        # first axis when given) with locality-routed admission
+        if (shards or mesh) and not paged:
+            raise ValueError("shards/mesh need paged=True")
+        self.shards = shards
+        self.mesh = mesh
         # paged slot pool: every context's engine pools KV pages across
         # slots (per-request memory ∝ its own length, not max_len), so
         # the same memory serves more concurrent short requests;
@@ -523,7 +535,8 @@ class ContinuousScheduler:
                                       prefill_chunk=self.prefill_chunk,
                                       paged=self.paged,
                                       page_size=self.page_size,
-                                      quantize_kv=self.quantize_kv)
+                                      quantize_kv=self.quantize_kv,
+                                      shards=self.shards, mesh=self.mesh)
         if eng.runner is None:
             cse = self.server.engine
             # every device program (prefill + step) routes through the
@@ -544,7 +557,8 @@ class ContinuousScheduler:
             ps = min(self.page_size, self.server._served[name].max_len)
         return EngineKey(name=name, batch_size=self.batch_size,
                          prefill_chunk=self.prefill_chunk, page_size=ps,
-                         quantize_kv=self.quantize_kv)
+                         quantize_kv=self.quantize_kv,
+                         shards=shard_count(self.shards, self.mesh))
 
     def _live_engines(self):
         out = {}

@@ -26,6 +26,7 @@ import numpy as np
 
 from repro_torch.core.context import ContextDescriptor, ContextSwitchEngine
 from repro_torch.core.policy import ReconfigPolicy
+from repro_torch.distributed.mesh import shard_count
 from repro_torch.models.model import LM
 from repro_torch.serve.engine import (EngineKey, GumbelDraws, ServingEngine,
                                       StepEngine, _sample)
@@ -113,7 +114,9 @@ class SwitchableServer:
     def step_engine(self, name: str, batch_size: int,
                     prefill_chunk: Optional[int] = None,
                     paged: bool = False, page_size: int = 256,
-                    quantize_kv: Optional[str] = None) -> StepEngine:
+                    quantize_kv: Optional[str] = None,
+                    shards: Optional[int] = None,
+                    mesh=None) -> StepEngine:
         """Per-context continuous-batching engine (one per configuration).
         Its decode state — slot-pooled KV rows or pages, positions,
         free-list — persists across context switches, so a paused context
@@ -121,18 +124,22 @@ class SwitchableServer:
         captured (every call runs against the engine slot's current
         buffers via the scheduler's runner hook).  Every engine knob is a
         field of the frozen ``EngineKey``: chunked and one-shot, int8 and
-        full-precision engines of one context are different engines."""
+        full-precision engines of one context are different engines.
+        ``shards``/``mesh`` split the engine's page bank (see
+        ``StepEngine``)."""
         sm = self._served[name]
         eff_ps = min(page_size, sm.max_len) if paged else None
         key = EngineKey(name=name, batch_size=batch_size,
                         prefill_chunk=prefill_chunk, page_size=eff_ps,
-                        quantize_kv=quantize_kv)
+                        quantize_kv=quantize_kv,
+                        shards=shard_count(shards, mesh))
         eng = self._step_engines.get(key)
         if eng is None:
             eng = StepEngine(sm.model, batch_size, sm.max_len,
                              temperature=sm.temperature,
                              prefill_chunk=prefill_chunk, paged=paged,
                              page_size=page_size, quantize_kv=quantize_kv,
+                             shards=shards, mesh=mesh,
                              telemetry=self.telemetry.scoped(
                                  f"eng.{next(self._eng_seq)}."))
             self._step_engines[key] = eng

@@ -3,7 +3,11 @@ PyTorch versions on the same CUDA tensors (attention: bf16 in,
 ``atol=2e-2``, the bf16 tolerance of ``test_kernels.py``; the f32
 selective scan within 1e-4 of the plain version's largest value; the f32
 chunkwise mLSTM within ``test_kernels.py``'s 5e-4 (h, C, n) and 1e-5 (m),
-scaled by the plain values' largest magnitude where it passes 1).  Every test here is marked
+scaled by the plain values' largest magnitude where it passes 1; one
+shard's f32 decode partial (acc, m, l) within 1e-4 of the plain values'
+largest magnitude, and exactly (0, -1e30, 0) on a row that owns nothing;
+the grouped matmul's bf16 output within one bf16 ulp, 1e-4 + 2**-7
+|plain|).  Every test here is marked
 ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -18,11 +22,14 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, mha_reference)
+from repro_torch.kernels.gmm.ops import (  # noqa: E402
+    expert_mlp, expert_mlp_reference, gmm, gmm_reference)
 from repro_torch.kernels.mlstm_chunk.ops import (  # noqa: E402
     mlstm_chunk, mlstm_chunk_reference)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    paged_decode_attention, paged_decode_reference, paged_verify_attention,
-    paged_verify_reference)
+    paged_decode_attention, paged_decode_partial,
+    paged_decode_partial_reference, paged_decode_reference,
+    paged_verify_attention, paged_verify_reference)
 from repro_torch.kernels.ssm_scan.ops import (  # noqa: E402
     selective_scan_reference, ssm_scan)
 from repro_torch.kernels.verify_attention.ops import (  # noqa: E402
@@ -377,3 +384,110 @@ def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk):
             got, want, rtol=0, atol=tol * max(1.0, float(want.abs().max())))
     with pytest.raises(ValueError, match="multiple of 64"):
         mlstm_chunk(q[..., :48], k[..., :48], v[..., :48], li, lf)
+
+
+# ---------------------------------------------------------------------------
+# one shard's decode partial over a sharded bank (B5), the grouped matmul
+# (B7)
+# ---------------------------------------------------------------------------
+
+def _partial_close(got, want):
+    for g, w in zip(got, want):
+        fin = w > -1e29                                  # m's empty rows
+        scale = max(1.0, float(w[fin].abs().max()))
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("hd,G", [(64, 8), (128, 4), (32, 1)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_partial_kernel_matches_plain(gen, hd, G, quantized):
+    """Every shard's partial over its slice of a 4-shard bank: rows that
+    span shards, a row that lives on one shard (the others own nothing
+    of it), a position at a page boundary; the local park page poisoned
+    with NaN changes nothing (never read)."""
+    kernels.reset_launch_counts()
+    B, Hkv, page, P, nsh, Lp = 4, 2, 32, 4, 4, 5
+    H = G * Hkv
+    NP = nsh * Lp
+    q = _rn(gen, B, H, hd)
+    if quantized:
+        (kp, ks), (vp, vs) = (_int8_pool(gen, NP, Hkv, page, hd)
+                              for _ in range(2))
+    else:
+        kp, vp = _rn(gen, NP, Hkv, page, hd), _rn(gen, NP, Hkv, page, hd)
+    table = torch.tensor([[1, 6, 11, 16], [7, 8, 9, 0], [12, 17, 2, 0],
+                          [13, 14, 0, 0]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([127, 70, 64, 40], dtype=torch.int32, device="cuda")
+    for shard in range(nsh):
+        sl = slice(shard * Lp, (shard + 1) * Lp)
+        kl, vl = kp[sl].clone(), vp[sl].clone()
+        sc = {} if not quantized else dict(k_scale=ks[sl].contiguous(),
+                                           v_scale=vs[sl].contiguous())
+        want = paged_decode_partial_reference(q, kl, vl, table, pos,
+                                              shard * Lp, **sc)
+        if not quantized:
+            kl[0], vl[0] = float("nan"), float("nan")    # local park page
+        got = paged_decode_partial(q, kl, vl, table, pos, shard * Lp, **sc)
+        torch.cuda.synchronize()
+        _partial_close(got, want)
+        if shard != 1:                       # row 1 lives on shard 1 only
+            acc, m, l = (t[1] for t in got)
+            assert torch.equal(acc, torch.zeros_like(acc))
+            assert torch.equal(l, torch.zeros_like(l))
+            assert torch.equal(m, torch.full_like(m, -1e30))
+    n = (paged_decode_partial.launches_int8 if quantized
+         else paged_decode_partial.launches)
+    assert n == nsh
+
+
+@pytest.mark.parametrize("E,C,D,F", [(2, 320, 256, 512), (3, 20, 64, 136),
+                                     (1, 1, 32, 64)])
+def test_gmm_kernel_matches_plain(gen, E, C, D, F):
+    """Ragged C (20, 1: rows past C are masked), F not a multiple of the
+    128-column tile (136)."""
+    kernels.reset_launch_counts()
+    x = _rn(gen, E, C, D)
+    w = (torch.randn((E, D, F), generator=gen, device="cuda")
+         / D ** 0.5).to(torch.bfloat16)
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    want = gmm_reference(x, w)
+    lim = 1e-4 + 2.0 ** -7 * want.float().abs()
+    assert ((got.float() - want.float()).abs() <= lim).all()
+    assert gmm.launches == 1
+
+
+def test_expert_mlp_kernels_match_plain(gen):
+    """The expert FFN, three grouped matmuls with bf16 roundings between
+    them, within the file's bf16 TOL of its plain version."""
+    kernels.reset_launch_counts()
+    E, C, D, F = 2, 320, 256, 512
+    x = _rn(gen, E, C, D)
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device="cuda")
+               / D ** 0.5).to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=gen, device="cuda")
+          / F ** 0.5).to(torch.bfloat16)
+    got = expert_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    _close(got, expert_mlp_reference(x, wg, wu, wd))
+    assert gmm.launches == 3
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x = torch.zeros(2, 8, 64, device="cuda")                 # float32
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm(x, torch.zeros(2, 64, 64, device="cuda"))
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="D % 32"):
+        gmm(xb[..., :48], torch.zeros(2, 48, 64, dtype=torch.bfloat16,
+                                      device="cuda"))
+    pool = torch.zeros(4, 2, 16, 64, dtype=torch.bfloat16, device="cuda")
+    table = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_decode_partial(torch.zeros(2, 4, 64, device="cuda"), pool,
+                             pool, table, 5, 0)
+    with pytest.raises(ValueError, match="group"):
+        paged_decode_partial(torch.zeros(2, 6, 64, dtype=torch.bfloat16,
+                                         device="cuda"),
+                             pool[:, :1].contiguous(),
+                             pool[:, :1].contiguous(), table, 5, 0)

@@ -174,11 +174,13 @@ def test_router_and_moe_dense_ref_match_jax(name):
     assert out.shape == x.shape
     _close(out, jout, atol=1e-5, rtol=1e-4)
     _close(aux, jaux, atol=1e-6, rtol=1e-5)
-    for strategy in ("ep", "tp"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            TM.moe_apply(tp, torch.from_numpy(x), tcfg, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TM._dispatch_local(None)
+    # without a mesh: ep has nothing to split over, tp is JAX's moe_tp
+    with pytest.raises(ValueError, match="needs a mesh"):
+        TM.moe_apply(tp, torch.from_numpy(x), tcfg, strategy="ep")
+    out, aux = TM.moe_apply(tp, torch.from_numpy(x), tcfg, strategy="tp")
+    jout, jaux = JM.moe_tp(jp, jnp.asarray(x), jcfg)
+    _close(out, jout, atol=1e-5, rtol=1e-4)
+    _close(aux, jaux, atol=1e-6, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
