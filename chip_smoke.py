@@ -7,14 +7,22 @@ Phases, in order; any failure exits non-zero before the result lines:
 
   1. setup    — the card's name and power limit (nvidia-smi), then every
                 hand-written kernel built from the sources in this
-                checkout (one nvcc per source, all in parallel).
+                checkout (one nvcc per source, all in parallel), and the
+                count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
+                in the SASS of the flash and gmm libraries (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
                 work where there is one (timed only; the port never calls
                 it) and its bound.  tinyllama-1.1b attention (H=32,
                 Hkv=4, hd=64, bf16; verify at chunk width 128, the tree
-                mask at 8), bf16 within 2e-2; the ring bodies at
+                mask at 8), bf16 within 2e-2, and flash again at
+                mixtral-8x7b's prefill (H=32, Hkv=8, hd=128, one
+                4160-token prompt, window 4096, the model's transposed
+                views; its library call SDPA under the same mask; each
+                query row within 2**-7 relative L2 of the plain one, a
+                limit that a window edge off by one key tile or by one
+                key is shown to leave); the ring bodies at
                 mixtral-8x7b's (H=32, Hkv=8, hd=128, a 4096-slot ring),
                 each element within 1e-4 + 2**-7 of the plain value, a
                 limit that a one-slot mask fault is shown to leave.  The
@@ -30,8 +38,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 max(1, the plain output's largest value), the merged
                 partials against one paged decode.  The grouped matmul
                 (B7) at mixtral-8x7b's expert shapes after a 4-shard
-                all_to_all, (2, 320, 4096) @ (2, 4096, 14336), within
-                one bf16 ulp.
+                all_to_all, (2, 320, 4096) @ (2, 4096, 14336) and the
+                down product (2, 320, 14336) @ (2, 14336, 4096), within
+                one bf16 ulp.  Flash and gmm records also log their
+                device kernel time (torch.profiler).
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -96,6 +106,12 @@ TOL = 2e-2                   # bf16 kernel vs plain version on the card
 # one bf16 ulp (2**-7 of the value); at 4096 live keys a typical output
 # is only about 0.03, so the flat TOL would pass a one-slot mask fault
 RING_ATOL, RING_RTOL = 1e-4, 2.0 ** -7
+# windowed flash, per query row: |kernel - plain|_2 <= ROW_RTOL * |plain|_2.
+# The kernel rounds P to bf16 before P.V, so where a row's few terms cancel
+# an element may miss the ring rule, but a row stays within one bf16 ulp
+# (2**-7) relative; a key tile dropped behind the window moves a row by
+# about 10-20%, a single key by up to about 10% (check_window_rows)
+ROW_RTOL = 2.0 ** -7
 SCAN_RTOL = 1e-4             # f32 scan: max abs error / max |plain|
 # f32 chunkwise mLSTM, times max(1, max |plain|): test_kernels.py's limits
 MLSTM_TOL, MLSTM_M_TOL = 5e-4, 1e-5
@@ -212,6 +228,48 @@ def check_sensitivity(name, q, k, v, mask, fault) -> None:
                              "mask fault")
 
 
+def row_error(got, ref):
+    """Relative L2 error of each query row of (B, H, S, hd) attention
+    outputs -> (B, H, S)."""
+    ref = ref.float()
+    return ((got.float() - ref).norm(dim=-1)
+            / ref.norm(dim=-1).clamp_min(1e-30))
+
+
+def check_window_rows(name, got, ref, run, W, tile) -> None:
+    """The windowed flash record's row limit, and that it catches a
+    window edge off by one key tile or by one key: ``run(w)`` is the
+    kernel under window ``w``, held against the plain version under
+    ``W``.  A tile shift must move every row that loses a whole tile out
+    of the limit, a one-key shift at least one row (either fails the
+    record).  Logs the correct kernel's worst row and each fault's."""
+    import torch
+    worst = row_error(got, ref).max().item()
+    log(f"kernel {name}: worst row relative L2 error {worst:.3e} (limit "
+        f"{ROW_RTOL:.3e}; ratio {worst / ROW_RTOL:.3f})")
+    if not worst <= ROW_RTOL:
+        raise AssertionError(f"{name}: a row's relative L2 error {worst} "
+                             f"passes its limit {ROW_RTOL}")
+    S = got.shape[2]
+    t = torch.arange(S, device=got.device)
+    for shift, whole in ((-tile, t >= W - 1), (-1, None)):
+        bad = row_error(run(W + shift), ref) / ROW_RTOL
+        rows = t >= W + shift               # rows whose key set changed
+        most = bad[..., rows].max().item()
+        msg = (f"kernel {name}: window {W}{shift:+d} (a fault) moves the "
+               f"rows it changes to at most {most:.3f} times the limit")
+        ok = most > 1.0
+        if whole is not None:
+            least = bad[..., whole].min().item()
+            msg += (f", every row that loses a whole tile to at least "
+                    f"{least:.3f}")
+            ok = ok and least > 1.0
+        log(msg)
+        if not ok:
+            raise AssertionError(f"{name}: the row limit does not catch a "
+                                 f"window off by {-shift} keys")
+
+
 def bound_ms(nbytes: float, flops: float,
              peak: float = BF16_FLOPS) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -300,6 +358,48 @@ def kernel_phase(dev) -> list[dict]:
            time_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True), flush=flush),
            nbytes, flops)
+    log_kernel_time("flash_attention", lambda: flash_attention(q, k, v),
+                    flush)
+
+    # windowed flash prefill at mixtral-8x7b's: one 4160-token prompt,
+    # window 4096, on the model's (B, S, H, hd) projections seen as (B, H,
+    # S, hd) views, as the attention layer passes them; bytes and
+    # operations count only the pairs inside the window
+    B, S, W = 1, LONG_PROMPT, RING
+    q = rn(B, S, MH, MHD).transpose(1, 2)
+    k, v = (rn(B, S, MHKV, MHD).transpose(1, 2) for _ in range(2))
+    got = flash_attention(q, k, v, window=W)
+    torch.cuda.synchronize()
+    ref = mha_reference(q, k, v, window=W)
+    check_window_rows("flash_attention_window", got, ref,
+                      lambda w: flash_attention(q, k, v, window=w), W, 128)
+    i = torch.arange(S, device=dev)
+    wmask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    pairs = sum(min(t + 1, W) for t in range(S))
+    record("flash_attention_window",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", got, ref,
+           time_ms(lambda: flash_attention(q, k, v, window=W), flush=flush),
+           time_ms(lambda: mha_reference(q, k, v, window=W), iters=5,
+                   flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=wmask, enable_gqa=True), flush=flush),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4 * MHD * B * MH * pairs)
+    log_kernel_time("flash_attention_window",
+                    lambda: flash_attention(q, k, v, window=W), flush)
+    # the library yardsticks' kernel time: SDPA under the window mask (the
+    # record's library call) runs off its flash backend; causal SDPA with
+    # no window is a flash kernel over the same pairs and 64 rows' more
+    # (99.95% of the causal pairs lie inside the window)
+    masked = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=wmask, enable_gqa=True), flush=flush)
+    causal = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush=flush)
+    log(f"kernel flash_attention_window: SDPA kernel time ms under the "
+        f"window mask={masked}, causal without the window={causal} "
+        f"(window pairs / causal pairs {pairs / (S * (S + 1) // 2):.6f})")
+    del q, k, v, got, ref, wmask
 
     # row decode: B=8 rows at mixed positions up to 640, cache S=768
     B, S = 8, 768
@@ -767,27 +867,58 @@ def partial_records(dev, gen, rn, flush, record) -> None:
 def gmm_record(dev, gen, flush, record) -> None:
     """Kernel B7, the grouped matmul, at mixtral-8x7b's expert shapes
     after the 4-shard all_to_all: 2 experts a shard, capacity 80 from
-    each of 4 shards (C = 320), (2, 320, 4096) @ (2, 4096, 14336), bf16.
-    Each output element within one bf16 ulp of the plain version (f32
-    einsum rounded to bf16), the ring records' limit.  Library call: one
-    ``torch.bmm`` on the same bf16 operands."""
+    each of 4 shards (C = 320), bf16; ``gmm`` the gate and up products,
+    (2, 320, 4096) @ (2, 4096, 14336), ``gmm_down`` the down product,
+    (2, 320, 14336) @ (2, 14336, 4096).  Each output element within one
+    bf16 ulp of the plain version (f32 einsum rounded to bf16), the ring
+    records' limit.  Library call: one ``torch.bmm`` on the same bf16
+    operands."""
     import torch
     from repro_torch.kernels.gmm.ops import gmm, gmm_reference
 
-    E, C, D, Fo = 2, 320, 4096, 14336
-    x = torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
-    w = (torch.randn((E, D, Fo), generator=gen, device=dev)
-         / D ** 0.5).to(torch.bfloat16)
-    got = gmm(x, w)
-    torch.cuda.synchronize()
-    ref = gmm_reference(x, w)
-    record("gmm", "src/repro_torch/kernels/gmm/csrc/gmm.cu",
-           "src/repro/kernels/gmm/kernel.py:46", got, ref,
-           time_ms(lambda: gmm(x, w), flush=flush),
-           time_ms(lambda: gmm_reference(x, w), iters=5, flush=flush),
-           time_ms(lambda: torch.bmm(x, w), flush=flush),
-           2 * (x.numel() + w.numel() + E * C * Fo), 2 * E * C * D * Fo,
-           tol=RING_ATOL, rtol=RING_RTOL)
+    for name, (E, C, D, Fo) in (("gmm", (2, 320, 4096, 14336)),
+                                ("gmm_down", GMM_DOWN_SHAPE)):
+        x = torch.randn((E, C, D), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = (torch.randn((E, D, Fo), generator=gen, device=dev)
+             / D ** 0.5).to(torch.bfloat16)
+        got = gmm(x, w)
+        torch.cuda.synchronize()
+        ref = gmm_reference(x, w)
+        record(name, "src/repro_torch/kernels/gmm/csrc/gmm.cu",
+               "src/repro/kernels/gmm/kernel.py:46", got, ref,
+               time_ms(lambda: gmm(x, w), flush=flush),
+               time_ms(lambda: gmm_reference(x, w), iters=5, flush=flush),
+               time_ms(lambda: torch.bmm(x, w), flush=flush),
+               2 * (x.numel() + w.numel() + E * C * Fo), 2 * E * C * D * Fo,
+               tol=RING_ATOL, rtol=RING_RTOL)
+        log_kernel_time(name, lambda: gmm(x, w), flush)
+        del x, w, got, ref
+
+
+def log_kernel_time(name, fn, flush) -> None:
+    """Logs the device kernel time of one call (``torch.profiler``),
+    which leaves out the host's time to launch it; the records' ``ms``
+    (CUDA events) include whatever of it the card waits for."""
+    log(f"kernel {name}: kernel time ms={device_ms(fn, flush=flush)}")
+
+
+def sass_counts() -> None:
+    """The tensor-core kernels compile to Hopper's own instructions: logs
+    the count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in the
+    SASS of the flash and gmm libraries, and fails where either is 0."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_attention", "gmm"):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        log(f"sass {name}: " + json.dumps(counts))
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
+                                 "SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -1048,7 +1179,8 @@ def _tree(fn, tree):
 
 def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
-    ring routes count apart)."""
+    ring routes count apart), and the launches of flash and gmm at the
+    shapes of their second records."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1077,7 +1209,10 @@ def _launch_counters() -> dict:
             "paged_decode_partial": lambda: paged_decode_partial.launches,
             "paged_decode_partial_int8":
                 lambda: paged_decode_partial.launches_int8,
-            "gmm": lambda: gmm.launches}
+            "gmm": lambda: gmm.launches,
+            "flash_attention_window":
+                lambda: flash_attention.launches_by_shape[FLASH_WINDOW_SHAPE],
+            "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE]}
 
 
 def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
@@ -1211,12 +1346,22 @@ def serving_phase(dev) -> dict:
     return totals
 
 
-# no engine verifies a tree or a ring yet, so those routes launch no time
-# on the main path; their records also carry their body's launches
+# records whose launches are a route's or a shape's of a kernel body also
+# carry the body's launches: no engine verifies a tree or a ring yet, so
+# those routes launch no time on the main path; the windowed flash and the
+# down product count the launches at their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
-              "verify_attention_ring": "verify_attention"}
+              "verify_attention_ring": "verify_attention",
+              "flash_attention_window": "flash_attention",
+              "gmm_down": "gmm"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
+# the shapes of the windowed flash and down-product records, as counted
+# by the wrappers' launches_by_shape: mixtral-8x7b's long prefill, (B, H,
+# Hkv, S, hd, window), and its down product after the 4-shard all_to_all,
+# (E, C, D, F)
+FLASH_WINDOW_SHAPE = (1, MH, MHKV, LONG_PROMPT, MHD, RING)
+GMM_DOWN_SHAPE = (2, 320, 14336, 4096)
 
 
 def moe_hybrid_pass(dev) -> dict:
@@ -1226,9 +1371,10 @@ def moe_hybrid_pass(dev) -> dict:
     widths, random bf16 weights from a seed, pinned in host memory like
     ``build_server``'s.  Prompts of 128-512 tokens, except one mixtral
     prompt of 4160 tokens whose decode runs on the wrapped ring; 32 new
-    tokens each, max_len 4224.  Flash, decode (jamba's attention layer),
-    ring decode (mixtral) and the selective scan (jamba's prefills) must
-    each launch.  -> launch counts."""
+    tokens each, max_len 4224.  Flash (also at the windowed record's
+    shape, the 4160-token prefill), decode (jamba's attention layer), ring
+    decode (mixtral) and the selective scan (jamba's prefills) must each
+    launch.  -> launch counts."""
     import gc
 
     import numpy as np
@@ -1267,8 +1413,8 @@ def moe_hybrid_pass(dev) -> dict:
     counts, _ = run_pass(
         dev, "continuous_row_moe_hybrid", server, cfgs, reqs,
         lambda s: ContinuousScheduler(s, batch_size=2),
-        {"flash_attention", "decode_attention", "decode_attention_ring",
-         "ssm_scan"})
+        {"flash_attention", "flash_attention_window", "decode_attention",
+         "decode_attention_ring", "ssm_scan"})
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1629,9 +1775,10 @@ def moe_ep_mesh_pass(dev) -> dict:
     for o in out:
         if o.shape != (B, cfg.vocab_size) or not torch.isfinite(o).all():
             raise AssertionError("moe_ep_mesh: bad logits")
-    if counts["gmm"] != want:
+    if (counts["gmm"], counts["gmm_down"]) != (want, want // 3):
         raise AssertionError(f"moe_ep_mesh: gmm launched {counts['gmm']} "
-                             f"times, expected {want}")
+                             f"times, {counts['gmm_down']} at the down "
+                             f"product, expected {want} and {want // 3}")
     log("serving " + json.dumps({
         "pass": "moe_ep_mesh", "prefill_tokens": B * S, "decode_steps": steps,
         "wall_s": wall, "max_memory_allocated":
@@ -1729,6 +1876,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     log(f"kernel build seconds: {time.perf_counter() - t0:.2f}")
+    sass_counts()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

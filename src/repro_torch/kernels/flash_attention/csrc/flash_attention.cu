@@ -1,167 +1,354 @@
-// Causal (optionally sliding-window) prefill attention, for Hopper (sm_90a).
+// Causal (optionally sliding-window) prefill attention for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces: repro/kernels/flash_attention/kernel.py ::
 //   flash_attention_kernel (body _flash_kernel).
 //
-// What bounds it on an H100: at serving prompt lengths (S <= 2k, hd 64)
-// it is bound by bytes on paper (Q, K, V, O are read/written once: ~8 * S
-// * hd bytes per head against ~2 * S^2 * hd causal flops, i.e. S/4 flops
-// per byte), but this first version runs its products on the CUDA cores
-// in f32, so in practice it is bound by operations at the f32 FMA rate,
-// far below the 989 TFLOP/s bf16 tensor-core peak.
+// What bounds it on an H100: Q, K, V and O cross device memory once (about
+// 8 S hd bytes a head) against 4 S^2 hd / 2 causal flops, S / 4 flops a
+// byte: at serving prompt lengths (S of a few hundred to a few thousand)
+// it is bound by bytes below S of about 1200 and by the bf16 tensor-core
+// rate above it.  Either way the products must run on the tensor cores
+// and the loads must overlap them.
 //
-// What the design does: one block per (q tile of 64 rows, head, row); the
+// What the design does: one block per (128 query rows, q head, batch row):
+// two consumer warpgroups of 64 rows each and a producer warp.  The
+// producer loads the block's Q tile once, then streams the K and V tiles
+// through a ring of shared-memory stages by TMA (4-D descriptors over the
+// caller's strided (B, H, S, hd) views, so no copy is made; rows past S
+// arrive as zeros), each stage completing on an mbarrier and released by
+// the consumers when both products have read it.  Each consumer computes
+// S = Q K^T with wgmma (both operands in shared memory, K-major), keeps
+// the online softmax (m, l) of its two rows a thread in registers, rounds
+// P to bf16 in registers in the layout of wgmma's A operand and adds
+// P V with wgmma (V MN-major in shared memory, the transpose bit).  The
 // kv scan that the TPU grid carried across its "arbitrary" axis in VMEM
-// scratch is a loop inside the block with (m, l, acc) in registers, so
-// the S x S scores never reach HBM.  Each K/V tile is staged once in
-// shared memory (f32, rows padded by one word against bank conflicts) and
-// shared by the block's 64 query rows; two threads own a query row (keys
-// and head dims split between them, partner values through one shuffle).
-// GQA reads kv head h / G, with no head repeat.  Tiles wholly above the
-// causal diagonal or behind the window are skipped; the ragged edge past
-// S is masked here, so the caller needs no padding.
-// Not yet done: wgmma/mma tensor-core products and TMA staging.
-#include "attn_common.cuh"
+// scratch is the loop inside the block.  GQA reads kv head h / G (any G).
+// Tiles wholly above the diagonal or behind the window are neither loaded
+// nor multiplied (per block), and a warpgroup skips the products of a
+// tile that is wholly masked for its 64 rows.  Within a warpgroup the
+// products of the next tile's scores are started before this tile's P V,
+// so the softmax of one tile runs while the tensor cores work on the
+// other.  Instantiated head widths: 32 (64-byte swizzle), 64, 128 and 256
+// (128-byte swizzle, 64 columns an atom); the wrapper pads any other
+// width to the next one.  Key tiles are 128 wide (64 at hd 256).  The
+// compiler holds each thread of a wgmma kernel to 168 registers (with
+// setmaxnreg or without), so at hd 128 the 128-key tile spills about 200
+// bytes and its products run serialized; on the card it still beat
+// 64-key tiles at mixtral's 4160-token prefill (0.331 against 0.382 ms
+// of kernel time).
+#include "hopper.cuh"
 
 namespace {
 
-using repro::bf16;
-using repro::NEG_INF;
-using repro::FULL;
+using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int THREADS = 128;    // 2 threads per query row
+constexpr int BQ = 128;          // query rows of a block
+constexpr int CONSUMERS = 256;   // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
 
-template <int HD, int BK>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int H,
-             int Hkv, int S, int causal, int window, float scale) {
-  constexpr int KPT = BK / 2;   // keys of a tile per thread
-  constexpr int DH = HD / 2;    // head dims per thread in the PV update
-  __shared__ float k_s[BK][HD + 1];
-  __shared__ float v_s[BK][HD + 1];
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD == 256 ? 64 : 128;       // keys of a tile
+  static constexpr int STAGES = HD <= 64 ? 3 : 2;
+  static constexpr int ATOM = HD == 32 ? 32 : 64;       // columns of an atom
+  static constexpr int ROWB = 2 * ATOM;                 // bytes of an atom row
+  static constexpr int ATOMS = HD / ATOM;
+  static constexpr int SWZ = HD == 32 ? hopper::SW64 : hopper::SW128;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+             long long osb, long long osh, long long oss, int H, int Hkv,
+             int S, int causal, int window, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t q_full, k_full[ST], v_full[ST], empty[ST];
+  // tiles start on 1024-byte boundaries (the swizzle atoms' phase)
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* k_s = q_s + C::Q_BYTES;              // stage s: + s * KV_BYTES
+  uint8_t* v_s = k_s + ST * C::KV_BYTES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // longest rows first
   const int hk = h / (H / Hkv);
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int q_start = qt * BQ;
-  const int qrow = q_start + r;
-  const bf16* kb = k + ((size_t)b * Hkv + hk) * S * HD;
-  const bf16* vb = v + ((size_t)b * Hkv + hk) * S * HD;
+  const int q_end = min(q0 + BQ, S);
+  const int kt_end = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  float qr[HD];
-  if (qrow < S) {
-    repro::load_row<HD>(q + (((size_t)b * H + h) * S + qrow) * HD, qr);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] *= scale;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index, warp-uniform as the compiler sees it (so the
+  // roles' branches, and the products under them, are not divergent)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (wg == CONSUMERS / 128) {
+    // producer (one thread loads): Q once, then the K and V tiles
+    // through the ring
+    if (threadIdx.x == CONSUMERS) {
+      hopper::mbar_expect_tx(&q_full, C::Q_BYTES);
+      for (int a = 0; a < C::ATOMS; ++a)
+        hopper::tma_load_4d(q_s + a * BQ * C::ROWB, &tq, &q_full, a * C::ATOM,
+                            q0, h, b);
+      for (int t = kt_begin, i = 0; t < kt_end; ++t, ++i) {
+        const int s = i % ST;
+        hopper::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        uint8_t* ks = k_s + s * C::KV_BYTES;
+        uint8_t* vs = v_s + s * C::KV_BYTES;
+        hopper::mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        for (int a = 0; a < C::ATOMS; ++a)
+          hopper::tma_load_4d(ks + a * BK * C::ROWB, &tk, &k_full[s],
+                              a * C::ATOM, t * BK, hk, b);
+        hopper::mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        for (int a = 0; a < C::ATOMS; ++a)
+          hopper::tma_load_4d(vs + a * BK * C::ROWB, &tv, &v_full[s],
+                              a * C::ATOM, t * BK, hk, b);
+      }
+    }
   } else {
+    // consumer warpgroup wg: query rows r0 .. r0 + 63; this thread holds
+    // rows row0 and row0 + 8 (the wgmma accumulator layout)
+    const int r0 = q0 + 64 * wg;
+    const int row0 = r0 + 16 * (warp % 4) + lane / 4;
+    const int cq = 2 * (lane % 4);
+    // the tiles this warpgroup's rows need: a contiguous part of the
+    // block's [kt_begin, kt_end); the rest it releases unread
+    int lo = kt_begin, hi = kt_end;
+    if (r0 >= S) {
+      lo = hi = kt_end;
+    } else {
+      if (causal) hi = min(hi, min(r0 + 63, S - 1) / BK + 1);
+      if (window > 0) lo = max(lo, max(0, r0 - window + 1) / BK);
+      lo = min(lo, hi);
+    }
+    float o[HD / 2], sc[BK / 2];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f, acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+    for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+    // running max (scaled, log2 domain) and sum of each of the two rows
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t pa[BK / 16][4];
 
-  const int q_last = min(q_start + BQ, S) - 1;
-  const int nk = (S + BK - 1) / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int k_start = j * BK;
-    if (causal && k_start > q_last) break;                  // above diagonal
-    if (window > 0 && k_start + BK - 1 <= q_start - window) continue;
-
-    // stage the K and V tiles (8 bf16 per vector load; rows past S -> 0)
-    for (int i = threadIdx.x; i < BK * HD / 8; i += THREADS) {
-      const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
-      float kf[8], vf[8];
-      if (k_start + row < S) {
-        repro::load_row<8>(kb + (size_t)(k_start + row) * HD + c, kf);
-        repro::load_row<8>(vb + (size_t)(k_start + row) * HD + c, vf);
-      } else {
+    // S = Q K^T of tile t into sc, once its K tile has arrived
+    // (asynchronous: committed, not waited)
+    auto scores = [&](int t) {
+      const int i = t - kt_begin;
+      const uint8_t* ks = k_s + (i % ST) * C::KV_BYTES;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int a = kk * 16 / C::ATOM, off = (kk * 16 % C::ATOM) * 2;
+        const uint64_t dq = hopper::make_desc(
+            q_s + a * BQ * C::ROWB + wg * 64 * C::ROWB + off, 16, 8 * C::ROWB,
+            C::SWZ);
+        const uint64_t dk = hopper::make_desc(ks + a * BK * C::ROWB + off, 16,
+                                              8 * C::ROWB, C::SWZ);
+        hopper::wgmma_ss<BK, 0>(sc, dq, dk, kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // O += P V of tile t (asynchronous)
+    auto pv = [&](int t) {
+      const uint8_t* vs = v_s + ((t - kt_begin) % ST) * C::KV_BYTES;
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c)
+        hopper::wgmma_rs<HD>(
+            o, pa[c],
+            hopper::make_desc(vs + c * 16 * C::ROWB, BK * C::ROWB,
+                              8 * C::ROWB, C::SWZ));
+      hopper::wgmma_commit();
+    };
+    auto wait_k = [&](int t) {
+      const int i = t - kt_begin;
+      hopper::mbar_wait(&k_full[i % ST], (i / ST) & 1);
+    };
+    auto wait_v = [&](int t) {
+      const int i = t - kt_begin;
+      hopper::mbar_wait(&v_full[i % ST], (i / ST) & 1);
+    };
+    auto free_tile = [&](int t) {
+      hopper::mbar_arrive(&empty[(t - kt_begin) % ST]);
+    };
+    // online softmax of the scores in sc (tile t): scales them into the
+    // log2 domain, masks, updates m and l, sets alpha (the factor of the
+    // old sums) and leaves exp2 of the scores less the new max in sc
+    auto softmax = [&](int t) {
+      const int k0 = t * BK;
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] *= scale_log2;
+      if (k0 + BK > S || (causal && k0 + BK - 1 > r0) ||
+          (window > 0 && k0 <= r0 + 63 - window)) {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) {
+          const int col = k0 + (j / 4) * 8 + cq + (j & 1);
+          const int row = row0 + 8 * ((j >> 1) & 1);
+          if (col >= S || (causal && col > row) ||
+              (window > 0 && row - col >= window))
+            sc[j] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;   // a row masked so far
+        alpha[r] = hopper::exp2_approx(m[r] - base[r]);
+        m[r] = m_new;
       }
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        k_s[row][c + e] = kf[e];
-        v_s[row][c + e] = vf[e];
+      for (int j = 0; j < BK / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        sc[j] = hopper::exp2_approx(sc[j] - base[r]);
+        sum[r] += sc[j];
       }
-    }
-    __syncthreads();
-
-    // scores of this thread's keys kk = 2i + half
-    float p[KPT];
-    float mx = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kk = 2 * i + half;
-      const int col = k_start + kk;
-      bool valid = col < S;
-      if (causal) valid = valid && col <= qrow;
-      if (window > 0) valid = valid && (qrow - col) < window;
-      float s = NEG_INF;
-      if (valid) {
-        s = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) s += qr[d] * k_s[kk][d];
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
       }
-      p[i] = valid ? s : -INFINITY;   // -inf marks masked for the exp below
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
+    };
+    // rescale O by alpha and round P to bf16 as wgmma's A fragments (the
+    // 16 keys of step c: four bf16 pairs in the accumulator's order)
+    auto to_p = [&]() {
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      p[i] = (p[i] == -INFINITY) ? 0.f : expf(p[i] - m_new);
-      psum += p[i];
-    }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    l = alpha * l + psum;
-    m = m_new;
+      for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
+      for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[c][e] = hopper::pack_bf16(sc[8 * c + 2 * e],
+                                       sc[8 * c + 2 * e + 1]);
+    };
 
-    // acc[d] += sum over the tile's keys of p * v, for dims half*DH + d
-    const int dbase = half * DH;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float mine = p[i];
-      const float other = __shfl_xor_sync(FULL, mine, 1);
-      const float* va = v_s[2 * i + half] + dbase;
-      const float* vo = v_s[2 * i + 1 - half] + dbase;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += mine * va[d] + other * vo[d];
-    }
-    __syncthreads();
-  }
+    auto release = [&](int t) {            // wait for tile t, then free it
+      wait_k(t);
+      wait_v(t);
+      free_tile(t);
+    };
+    for (int t = kt_begin; t < lo; ++t) release(t);
+    hopper::mbar_wait(&q_full, 0);
 
-  if (qrow < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* o = out + (((size_t)b * H + h) * S + qrow) * HD + half * DH;
+    // Pipelined: while the tensor cores add P V of tile t, the softmax of
+    // tile t + 1 (whose scores were started first) runs on the CUDA cores.
+    // Every batch of products follows its barrier waits and a fence in
+    // straight-line code, so the compiler keeps them asynchronous.
+    if (lo < hi) {
+      wait_k(lo);
+      hopper::wgmma_fence();
+      scores(lo);
+      hopper::wgmma_wait<0>();
+      softmax(lo);
+      to_p();
+    }
+    for (int t = lo; t + 1 < hi; ++t) {
+      wait_k(t + 1);
+      wait_v(t);
+      hopper::wgmma_fence();
+      scores(t + 1);
+      pv(t);
+      hopper::wgmma_wait<1>();           // the scores of tile t + 1
+      softmax(t + 1);
+      hopper::wgmma_wait<0>();           // P V of tile t
+      free_tile(t);
+      to_p();
+    }
+    if (lo < hi) {
+      wait_v(hi - 1);
+      hopper::wgmma_fence();
+      pv(hi - 1);
+      hopper::wgmma_wait<0>();
+      free_tile(hi - 1);
+    }
+    for (int t = hi; t < kt_end; ++t) release(t);
+
+    float inv[2];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = __float2bfloat16(acc[d] * inv);
+    for (int r = 0; r < 2; ++r) inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* ob = out + b * osb + h * osh;
+#pragma unroll
+    for (int j = 0; j < HD / 2; j += 2) {
+      const int r = (j >> 1) & 1;
+      const int row = row0 + 8 * r;
+      if (row < S)
+        *reinterpret_cast<uint32_t*>(ob + row * oss + (j / 4) * 8 + cq) =
+            hopper::pack_bf16(o[j] * inv[r], o[j + 1] * inv[r]);
+    }
   }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Hkv, int S, int causal, int window, float scale,
+           const long long* st, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const CUtensorMapSwizzle swz = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap mq, mk, mv;
+  const uint64_t dq[4] = {HD, (uint64_t)S, (uint64_t)H, (uint64_t)B};
+  const uint64_t dkv[4] = {HD, (uint64_t)S, (uint64_t)Hkv, (uint64_t)B};
+  // byte strides of (S, heads, B): st holds (sb, sh, ss) per operand
+  const uint64_t sq[3] = {2ull * st[2], 2ull * st[1], 2ull * st[0]};
+  const uint64_t sk[3] = {2ull * st[5], 2ull * st[4], 2ull * st[3]};
+  const uint64_t sv[3] = {2ull * st[8], 2ull * st[7], 2ull * st[6]};
+  const uint32_t bq[4] = {C::ATOM, BQ, 1, 1};
+  const uint32_t bk[4] = {C::ATOM, C::BK, 1, 1};
+  if (!hopper::encode_map(&mq, q, 4, dq, sq, bq, swz) ||
+      !hopper::encode_map(&mk, k, 4, dkv, sk, bk, swz) ||
+      !hopper::encode_map(&mv, v, 4, dkv, sv, bk, swz))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = hopper::allow_smem<flash_kernel<HD>>(C::SMEM);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_kernel<HD><<<grid, THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, (bf16*)out, st[9], st[10], st[11], H, Hkv, S, causal,
+      window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, H, S, hd), k/v (B, Hkv, S, hd), out (B, H, S, hd), all bf16 and
-// contiguous.  Returns a cudaError_t.
+// q (B, H, S, hd), k/v (B, Hkv, S, hd), out (B, H, S, hd): bf16 views
+// whose last dimension is contiguous, 16-byte aligned, with the other
+// strides (elements, multiples of 8) in `strides` as (sb, sh, ss) for q,
+// k, v, out in turn.  hd one of 32, 64, 128, 256; H % Hkv == 0.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int B, int H,
                                     int Hkv, int S, int hd, int causal,
-                                    int window, float scale, void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-#define LAUNCH(HD_, BK_)                                                 \
-  flash_kernel<HD_, BK_><<<grid, THREADS, 0, (cudaStream_t)stream>>>(   \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, Hkv, \
-      S, causal, window, scale)
-  if (hd == 32) LAUNCH(32, 64);
-  else if (hd == 64) LAUNCH(64, 64);
-  else if (hd == 128) LAUNCH(128, 32);
-  else return (int)cudaErrorInvalidValue;
-#undef LAUNCH
-  return (int)cudaGetLastError();
+                                    int window, float scale,
+                                    const long long* strides, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32: return launch<32>(q, k, v, out, B, H, Hkv, S, causal, window,
+                               scale, strides, s);
+    case 64: return launch<64>(q, k, v, out, B, H, Hkv, S, causal, window,
+                               scale, strides, s);
+    case 128: return launch<128>(q, k, v, out, B, H, Hkv, S, causal, window,
+                                 scale, strides, s);
+    case 256: return launch<256>(q, k, v, out, B, H, Hkv, S, causal, window,
+                                 scale, strides, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,9 +2,14 @@
 from three of its calls.
 
 A CPU tensor runs the plain version (``ref.gmm_reference``); a CUDA
-tensor launches ``csrc/gmm.cu`` (bf16 only) or raises.
+tensor launches ``csrc/gmm.cu`` (bf16 only) or raises.  The kernel loads
+through TMA, whose rows must be multiples of 16 bytes: D and F that are
+not multiples of 8 run zero-padded (``with_stride_padding``), which is
+exact.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -15,18 +20,24 @@ from repro_torch.kernels.gmm.ref import expert_mlp_reference, gmm_reference
 _fn = None
 
 
-def gmm(x, w) -> torch.Tensor:
-    """Grouped matmul x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype,
-    with f32 accumulation.  The kernel takes bf16, any C >= 1, D a
-    multiple of 32 and F a multiple of 8."""
-    if K.on_cpu(x, w):
-        return gmm_reference(x, w)
+def with_stride_padding(body, x, w):
+    """``body(x, w)`` on x (E, C, D) and w (E, D, F) zero-padded so that D
+    and F are multiples of 8, the output cropped back to F columns.  Zero
+    depth adds nothing to a product and the padded columns are cropped,
+    so the result is exact."""
+    D, Fo = x.shape[2], w.shape[2]
+    Dp, Fp = -(-D // 8) * 8, -(-Fo // 8) * 8
+    if (Dp, Fp) == (D, Fo):
+        return body(x, w)
+    out = body(F.pad(x, (0, Dp - D)), F.pad(w, (0, Fp - Fo, 0, Dp - D)))
+    return out[..., :Fo].contiguous()
+
+
+def _launch(x, w):
     global _fn
     E, C, D = x.shape
     Fo = w.shape[2]
-    if C < 1 or D % 32 or Fo % 8:
-        raise ValueError(f"gmm: kernel takes C >= 1, D % 32 == 0 and "
-                         f"F % 8 == 0, got C={C}, D={D}, F={Fo}")
+    x, w = x.contiguous(), w.contiguous()
     K.check_cuda_input("x", x, torch.bfloat16, (E, C, D))
     K.check_cuda_input("w", w, torch.bfloat16, (E, D, Fo))
     if _fn is None:
@@ -36,10 +47,32 @@ def gmm(x, w) -> torch.Tensor:
              K.stream_ptr(x))
     K.check_launch("gmm_bf16", rc)
     gmm.launches += 1
+    gmm.launches_by_shape[(E, C, D, Fo)] += 1
     return out
 
 
+def gmm(x, w) -> torch.Tensor:
+    """Grouped matmul x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype,
+    with f32 accumulation.  The kernel takes bf16 and any E, C, D, F >=
+    1."""
+    if K.on_cpu(x, w):
+        return gmm_reference(x, w)
+    E, C, D = x.shape
+    if w.shape[:2] != (E, D):
+        raise ValueError(f"gmm: w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if min(E, C, D, w.shape[2]) < 1:
+        raise ValueError(f"gmm: kernel takes E, C, D, F >= 1, got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    for label, t in (("x", x), ("w", w)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{label}: kernel takes torch.bfloat16, got "
+                            f"{t.dtype}")
+    return with_stride_padding(_launch, x, w)
+
+
 gmm.launches = 0
+gmm.launches_by_shape = collections.Counter()   # (E, C, D, F) -> launches
 
 
 def expert_mlp(x, w_gate, w_up, w_down) -> torch.Tensor:
@@ -52,4 +85,5 @@ def expert_mlp(x, w_gate, w_up, w_down) -> torch.Tensor:
     return gmm(h.to(x.dtype), w_down)
 
 
-__all__ = ["expert_mlp", "expert_mlp_reference", "gmm", "gmm_reference"]
+__all__ = ["expert_mlp", "expert_mlp_reference", "gmm", "gmm_reference",
+           "with_stride_padding"]

@@ -18,8 +18,10 @@ Three modes:
     ``--quantize-kv int8`` (with ``--paged``) stores the page pools in
     int8 with per-token-per-head scales; ``--shards N`` (with
     ``--paged``) splits each page bank into N per-shard free-lists, over
-    a mesh of N devices when N are visible (``--platform cpu
-    --host-devices N`` makes N logical CPU devices).
+    a mesh of N devices only when every shard lies on the model's device
+    (``--platform cpu --host-devices N`` makes N logical CPU devices);
+    otherwise, on one card or several, the bank shards logically
+    (``serving_mesh``).
   * ``--mode sync`` — the synchronous round-robin loop (the baseline the
     paper compares against).
 
@@ -126,6 +128,23 @@ def visible_devices(platform: str | None, host_devices: int | None):
             for i in range(torch.cuda.device_count())]
 
 
+def serving_mesh(shards: int | None, devices, model_device):
+    """The mesh a ``--paged --shards N`` run gives its page bank, or None.
+
+    As in JAX, a mesh needs N visible devices; the port adds that every
+    shard must lie on the model's device, since placing shards on several
+    distinct cards is not ported yet.  So the CPU platform's N logical
+    devices get ``Mesh((cpu,) * N)``, and a machine with one card, or with
+    N or more distinct cards, gets None: the bank shards logically (one
+    free-list per shard over one bank), as on a one-card machine."""
+    if shards is None or shards <= 1 or len(devices) < shards:
+        return None
+    devices = [torch.device(d) for d in devices[:shards]]
+    if any(d != torch.device(model_device) for d in devices):
+        return None
+    return make_mesh((shards,), ("model",), devices)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--archs", default="supersub-super,supersub-sub")
@@ -155,9 +174,10 @@ def main(argv=None) -> int:
                     help="paged mode: split each engine's KV page bank "
                          "into this many shards with one free-list each; "
                          "admission puts a request's pages on the "
-                         "least-loaded shard.  When at least this many "
-                         "devices are visible the bank also gets a mesh "
-                         "of them")
+                         "least-loaded shard.  The bank gets a mesh only "
+                         "when every shard lies on the model's device "
+                         "(--platform cpu --host-devices N); otherwise it "
+                         "shards logically")
     ap.add_argument("--host-devices", type=int, default=None,
                     metavar="N",
                     help="with --platform cpu: N logical CPU devices, for "
@@ -234,13 +254,9 @@ def main(argv=None) -> int:
                          name="stats-reporter").start()
     reqs = list(request_stream(names, cfgs, args.requests, args.batch,
                                args.seq, args.seed))
-    mesh = None
-    devices = visible_devices(args.platform, args.host_devices)
-    if args.shards is not None and args.shards > 1 \
-            and len(devices) >= args.shards:
-        # enough devices: the sharded bank gets a mesh of them (the host
-        # allocator shards regardless)
-        mesh = make_mesh((args.shards,), ("model",), devices)
+    mesh = serving_mesh(args.shards,
+                        visible_devices(args.platform, args.host_devices),
+                        device)
 
     t0 = time.perf_counter()
     if args.mode in ("queue", "continuous"):

@@ -7,7 +7,9 @@ scaled by the plain values' largest magnitude where it passes 1; one
 shard's f32 decode partial (acc, m, l) within 1e-4 of the plain values'
 largest magnitude, and exactly (0, -1e30, 0) on a row that owns nothing;
 the grouped matmul's bf16 output within one bf16 ulp, 1e-4 + 2**-7
-|plain|).  Every test here is marked
+|plain|).  Flash and the grouped matmul are held over their whole
+domain: any head width (padded past the instantiated 32/64/128/256) and
+group, any C, D and F.  Every test here is marked
 ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -95,13 +97,58 @@ def test_paged_kernel_never_reads_the_park_page(gen):
     torch.testing.assert_close(out, base, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("hd,G,S,window", [
+    (32, 1, 1, 0), (64, 8, 200, 0), (64, 16, 333, 48), (128, 4, 257, 200),
+    (128, 2, 300, 0), (256, 2, 190, 0), (32, 4, 129, 300), (48, 3, 77, 0),
+    (80, 16, 150, 40)])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_kernel_over_its_domain(gen, hd, G, S, window, layout):
+    """Every instantiated head width (48 and 80 run padded), groups up to
+    16, S of 1 and ragged, windows narrower and wider than the 128-key
+    tile, and the model's transposed (B, S, H, hd) views, which the kernel
+    reads in place."""
+    B, Hkv = 2, 2
+    H = G * Hkv
+    if layout == "bshd":
+        q = _rn(gen, B, S, H, hd).transpose(1, 2)
+        k, v = (_rn(gen, B, S, Hkv, hd).transpose(1, 2) for _ in range(2))
+    else:
+        q, k, v = (_rn(gen, B, H, S, hd), _rn(gen, B, Hkv, S, hd),
+                   _rn(gen, B, Hkv, S, hd))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, S, hd)
+    _close(got, mha_reference(q, k, v, window=window))
+    assert flash_attention.launches == 1
+    width = min(w for w in (32, 64, 128, 256) if w >= hd)
+    assert flash_attention.launches_by_shape == {
+        (B, H, Hkv, S, width, window): 1}
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.25, 2.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_takes_any_scale_and_mask(gen, scale, causal):
+    """Scores are scaled before they are masked, so a zero or negative
+    scale is as exact as the usual 1/sqrt(hd); without the causal mask
+    every key up to S (within the window) counts."""
+    q, k, v = _rn(gen, 1, 8, 150, 64), _rn(gen, 1, 2, 150, 64), \
+        _rn(gen, 1, 2, 150, 64)
+    for window in (0, 40):
+        _close(flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale),
+               mha_reference(q, k, v, causal=causal, window=window,
+                             scale=scale))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     q = torch.zeros(1, 4, 8, 64, device="cuda")      # float32
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q, q, q)
-    qb = q.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(qb[..., :48], qb[..., :48], qb[..., :48])
+    qb = torch.randn(1, 4, 8, 64, device="cuda").to(torch.bfloat16)
+    # head_dim 48 is no longer refused: it runs padded to 64
+    _close(flash_attention(qb[..., :48], qb[..., :48], qb[..., :48]),
+           mha_reference(qb[..., :48], qb[..., :48], qb[..., :48]))
     kv = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="group"):
         decode_attention(torch.zeros(1, 48, 64, dtype=torch.bfloat16,
@@ -440,11 +487,15 @@ def test_paged_decode_partial_kernel_matches_plain(gen, hd, G, quantized):
     assert n == nsh
 
 
-@pytest.mark.parametrize("E,C,D,F", [(2, 320, 256, 512), (3, 20, 64, 136),
-                                     (1, 1, 32, 64)])
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 320, 256, 512), (3, 20, 64, 136), (1, 1, 32, 64), (2, 130, 136, 130),
+    (1, 7, 13, 9), (2, 320, 14336, 4096), (2, 320, 4096, 1000),
+    (2, 320, 512, 14336)])
 def test_gmm_kernel_matches_plain(gen, E, C, D, F):
-    """Ragged C (20, 1: rows past C are masked), F not a multiple of the
-    128-column tile (136)."""
+    """Ragged C (20, 130, 7, 1: rows past C load as zeros and are not
+    stored), F not a multiple of the column tile (136, 1000), D and F that
+    run padded to multiples of 8 (13, 9, 130), mixtral's down shape and
+    its gate shape; the launch counts at the shape the kernel ran."""
     kernels.reset_launch_counts()
     x = _rn(gen, E, C, D)
     w = (torch.randn((E, D, F), generator=gen, device="cuda")
@@ -455,6 +506,7 @@ def test_gmm_kernel_matches_plain(gen, E, C, D, F):
     lim = 1e-4 + 2.0 ** -7 * want.float().abs()
     assert ((got.float() - want.float()).abs() <= lim).all()
     assert gmm.launches == 1
+    assert gmm.launches_by_shape == {(E, C, -(-D // 8) * 8, -(-F // 8) * 8): 1}
 
 
 def test_expert_mlp_kernels_match_plain(gen):
@@ -477,10 +529,13 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(2, 8, 64, device="cuda")                 # float32
     with pytest.raises(TypeError, match="bfloat16"):
         gmm(x, torch.zeros(2, 64, 64, device="cuda"))
-    xb = x.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="D % 32"):
-        gmm(xb[..., :48], torch.zeros(2, 48, 64, dtype=torch.bfloat16,
-                                      device="cuda"))
+    xb = torch.randn(2, 8, 64, device="cuda").to(torch.bfloat16)
+    wb = torch.randn(2, 48, 64, device="cuda").to(torch.bfloat16)
+    # D = 48 is no longer refused (any D >= 1 is)
+    got = gmm(xb[..., :48], wb)
+    want = gmm_reference(xb[..., :48], wb)
+    assert ((got.float() - want.float()).abs()
+            <= 1e-4 + 2.0 ** -7 * want.float().abs()).all()
     pool = torch.zeros(4, 2, 16, 64, dtype=torch.bfloat16, device="cuda")
     table = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError, match="bfloat16"):

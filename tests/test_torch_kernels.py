@@ -61,6 +61,7 @@ def _shuffled_tables(rng, B, P, page, pos):
     (1, 4, 2, 100, 32, 0),      # G=2, ragged
     (2, 4, 2, 64, 16, 24),      # G=2, sliding window
     (1, 2, 1, 40, 32, 7),       # G=2, window narrower than a block
+    (1, 8, 2, 48, 128, 20),     # G=4 at hd 128 (mixtral), window < S
 ])
 def test_flash_plain_matches_jax(B, H, Hkv, S, hd, window):
     rng = np.random.default_rng(S + window)
