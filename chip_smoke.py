@@ -9,14 +9,18 @@ Phases, in order; any failure exits non-zero before the result lines:
                 hand-written kernel built from the sources in this
                 checkout (one nvcc per source, all in parallel), and the
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
-                in the SASS of the flash and gmm libraries (nonzero).
+                in the SASS of the flash, gmm, paged and verify libraries
+                (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
                 work where there is one (timed only; the port never calls
                 it) and its bound.  tinyllama-1.1b attention (H=32,
                 Hkv=4, hd=64, bf16; verify at chunk width 128, the tree
-                mask at 8), bf16 within 2e-2, and flash again at
+                mask at 8), bf16 within 2e-2, the verify records also each
+                score row within 2**-7 relative L2, a limit shown to catch
+                the cache/block boundary or the causal diagonal one key
+                late and one tree bit cleared, and flash again at
                 mixtral-8x7b's prefill (H=32, Hkv=8, hd=128, one
                 4160-token prompt, window 4096, the model's transposed
                 views; its library call SDPA under the same mask; each
@@ -25,7 +29,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 key is shown to leave); the ring bodies at
                 mixtral-8x7b's (H=32, Hkv=8, hd=128, a 4096-slot ring),
                 each element within 1e-4 + 2**-7 of the plain value, a
-                limit that a one-slot mask fault is shown to leave.  The
+                limit that a one-slot mask fault is shown to leave (ring
+                verify also each score row within 2**-7).  The
                 selective scan at jamba-v0.1-52b's (d_in=8192, N=16, f32,
                 L=512, and L=8 from a carried state) within 1e-4 of the
                 plain version's largest value.  The chunkwise mLSTM at
@@ -40,8 +45,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                 (B7) at mixtral-8x7b's expert shapes after a 4-shard
                 all_to_all, (2, 320, 4096) @ (2, 4096, 14336) and the
                 down product (2, 320, 14336) @ (2, 14336, 4096), within
-                one bf16 ulp.  Flash and gmm records also log their
-                device kernel time (torch.profiler).
+                one bf16 ulp.  Flash, gmm and the verify records also log
+                their device kernel time (torch.profiler), the verify
+                records beside their SDPA call's.
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -268,6 +274,36 @@ def check_window_rows(name, got, ref, run, W, tile) -> None:
         if not ok:
             raise AssertionError(f"{name}: the row limit does not catch a "
                                  f"window off by {-shift} keys")
+
+
+def check_verify_rows(name, got, ref, q, k, v, mask, faults) -> None:
+    """A verify record's row limit, and that it catches planted mask
+    faults.  ``got``/``ref``: the kernel's and the plain version's (B, H,
+    K, hd) outputs, each score row within ``ROW_RTOL`` relative L2.  Each
+    fault ``(label, fmask)`` is the record's (B, 1, K, T) mask over (q
+    (B, H, K, hd), keys k/v (B, Hkv, T, hd)) with one planted fault: the
+    plain attention under it is held against the plain attention under
+    ``mask``, and the fault must move some changed row past the limit (so
+    it fails the record).  Logs the kernel's worst row and, for each
+    fault, its least and most moved changed rows."""
+    worst = row_error(got, ref).max().item()
+    log(f"kernel {name}: worst score row relative L2 error {worst:.3e} "
+        f"(limit {ROW_RTOL:.3e}; ratio {worst / ROW_RTOL:.3f})")
+    if not worst <= ROW_RTOL:
+        raise AssertionError(f"{name}: a score row's relative L2 error "
+                             f"{worst} passes its limit {ROW_RTOL}")
+    good = masked_attention(q, k, v, mask)
+    for label, fmask in faults:
+        bad = masked_attention(q, k, v, fmask)
+        ratio = row_error(bad, good) / ROW_RTOL             # (B, H, K)
+        rows = (fmask != mask).any(dim=-1)                  # (B, 1, K)
+        moved = ratio[rows.expand_as(ratio)]
+        log(f"kernel {name}: fault '{label}' moves its {int(rows.sum())} "
+            f"changed rows (x {q.shape[1]} heads) to {moved.min().item():.3f}"
+            f"-{moved.max().item():.3f} times the row limit")
+        if not moved.max().item() > 1.0:
+            raise AssertionError(f"{name}: the row limit does not catch the "
+                                 f"fault '{label}'")
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -507,7 +543,26 @@ def kernel_phase(dev) -> list[dict]:
         qbytes = 2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
         if tree is not None:
             qbytes += 4 * tree.numel()
-        return qv.transpose(1, 2), qv, bk, bv, vmask, flops, qbytes
+        # planted faults: the cache/block boundary one key late (each row
+        # reads slot pos too), the causal diagonal one key late (query i
+        # sees block key i + 1), one tree bit cleared (each query's lowest
+        # ancestor other than itself)
+        late = torch.arange(S, device=dev)[None, None, :] < vpos[:, None,
+                                                                 None] + 1
+        faults = [("cache/block boundary +1 key",
+                   torch.cat([late.expand(B, Kb, S), vis], dim=-1)[:, None])]
+        if tree is None:
+            diag = ar[None, :] <= ar[:, None] + 1
+            faults.append(("causal diagonal +1 key", torch.cat(
+                [cols.expand(B, Kb, S), diag[None].expand(B, Kb, Kb)],
+                dim=-1)[:, None]))
+        else:
+            anc = tree & ~(torch.ones_like(tree) << ar.to(torch.int32))
+            low = anc & -anc                          # lowest ancestor bit
+            cut = ((tree & ~low)[:, :, None] >> ar[None, None, :]) & 1 == 1
+            faults.append(("one tree bit cleared", torch.cat(
+                [cols.expand(B, Kb, S), cut], dim=-1)[:, None]))
+        return qv.transpose(1, 2), qv, bk, bv, vmask, flops, qbytes, faults
 
     def lib(qt, kc, vc, bk, bv, vmask):
         kall = torch.cat([kc, bk.transpose(1, 2)], dim=2)
@@ -532,24 +587,35 @@ def kernel_phase(dev) -> list[dict]:
              (kgp, vgp), 2 * 2 * HD),
             ("paged_verify_attention_int8", K, None, (kq, vq),
              dict(k_scale=ks, v_scale=vs), (kgq, vgq), 2 * (HD + 4))):
-        qt, qv, bk, bv, vmask, flops, qbytes = verify_case(Kb, tree)
+        qt, qv, bk, bv, vmask, flops, qbytes, faults = verify_case(Kb, tree)
         args = (qv, *pool, bk, bv, vtable, vpos)
         kw = dict(tree=tree, **scales)
         got = paged_verify_attention(*args, **kw)
         ref = paged_verify_reference(*args, **kw)
+        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
+                      for c, b in zip(gathered, (bk, bv)))
+        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
+                          qt, kall, vall, vmask, faults)
         nbytes = qbytes + 4 * B * P + kv_bytes * cache_keys * HKV
+        sdpa = lib(qt, *gathered, bk, bv, vmask)
         record(name, paged_src,
                "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
                time_ms(lambda: paged_verify_attention(*args, **kw),
                        flush=flush),
                time_ms(lambda: paged_verify_reference(*args, **kw),
                        flush=flush),
-               time_ms(lib(qt, *gathered, bk, bv, vmask), flush=flush),
-               nbytes, flops)
+               time_ms(sdpa, flush=flush), nbytes, flops)
+        log_kernel_time(name, lambda: paged_verify_attention(*args, **kw),
+                        flush, sdpa)
 
-    qt, qv, bk, bv, vmask, flops, qbytes = verify_case(K)
+    qt, qv, bk, bv, vmask, flops, qbytes, faults = verify_case(K)
     got = verify_attention(qv, kr, vr, bk, bv, vpos)
     ref = verify_reference(qv, kr, vr, bk, bv, vpos)
+    kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
+                  for c, b in ((kr, bk), (vr, bv)))
+    check_verify_rows("verify_attention", got.transpose(1, 2),
+                      ref.transpose(1, 2), qt, kall, vall, vmask, faults)
+    sdpa = lib(qt, kr, vr, bk, bv, vmask)
     record("verify_attention",
            "src/repro_torch/kernels/verify_attention/csrc/"
            "verify_attention.cu",
@@ -558,8 +624,11 @@ def kernel_phase(dev) -> list[dict]:
                    flush=flush),
            time_ms(lambda: verify_reference(qv, kr, vr, bk, bv, vpos),
                    flush=flush),
-           time_ms(lib(qt, kr, vr, bk, bv, vmask), flush=flush),
+           time_ms(sdpa, flush=flush),
            qbytes + 2 * 2 * HD * cache_keys * HKV, flops)
+    log_kernel_time("verify_attention",
+                    lambda: verify_attention(qv, kr, vr, bk, bv, vpos), flush,
+                    sdpa)
     ring_records(dev, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
@@ -635,6 +704,9 @@ def ring_records(dev, rn, flush, record) -> None:
     # wrapped row sees one key older than its window
     fvis = torch.cat([(p >= 0) & (p >= pb + i - S), bvis], dim=-1)[:, None]
     check_sensitivity("verify_attention_ring", qt, kall, vall, vmask, fvis)
+    check_verify_rows("verify_attention_ring", got.transpose(1, 2),
+                      ref.transpose(1, 2), qt, kall, vall, vmask,
+                      [("window one key wide", fvis)])
     pairs = int(cvis.sum()) + int(bvis.sum())
     cache_keys = int(torch.clamp(vpos, max=S).sum())
     record("verify_attention_ring",
@@ -651,6 +723,11 @@ def ring_records(dev, rn, flush, record) -> None:
            2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
            + 2 * 2 * MHD * cache_keys * MHKV, 4 * MHD * G * MHKV * pairs,
            tol=RING_ATOL, rtol=RING_RTOL)
+    log_kernel_time("verify_attention_ring",
+                    lambda: verify_attention(qv, kc, vc, bk, bv, vpos,
+                                             ring=True), flush,
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kall, vall, attn_mask=vmask, enable_gqa=True))
 
 
 def scan_record(dev, gen, flush, record) -> None:
@@ -790,7 +867,7 @@ def partial_records(dev, gen, rn, flush, record) -> None:
                            device=dev, dtype=torch.int8) for _ in range(2)]
     scales = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
               for _ in range(2)]
-    src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+    src = "src/repro_torch/kernels/paged_attention/csrc/paged_partial.cu"
     for name, pool, sc, kv_bytes in (
             ("paged_decode_partial", (kp, vp), None, 2 * HD),
             ("paged_decode_partial_int8", tuple(codes), scales, HD + 4)):
@@ -896,21 +973,27 @@ def gmm_record(dev, gen, flush, record) -> None:
         del x, w, got, ref
 
 
-def log_kernel_time(name, fn, flush) -> None:
+def log_kernel_time(name, fn, flush, library=None) -> None:
     """Logs the device kernel time of one call (``torch.profiler``),
     which leaves out the host's time to launch it; the records' ``ms``
-    (CUDA events) include whatever of it the card waits for."""
-    log(f"kernel {name}: kernel time ms={device_ms(fn, flush=flush)}")
+    (CUDA events) include whatever of it the card waits for.  With
+    ``library``, the library call's kernel time beside it."""
+    msg = f"kernel {name}: kernel time ms={device_ms(fn, flush=flush)}"
+    if library is not None:
+        msg += f", library kernel time ms={device_ms(library, flush=flush)}"
+    log(msg)
 
 
 def sass_counts() -> None:
     """The tensor-core kernels compile to Hopper's own instructions: logs
     the count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in the
-    SASS of the flash and gmm libraries, and fails where either is 0."""
+    SASS of the flash, gmm, paged (verify) and row verify libraries, and
+    fails where either is 0."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("flash_attention", "gmm"):
+    for name in ("flash_attention", "gmm", "paged_attention",
+                 "verify_attention"):
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout

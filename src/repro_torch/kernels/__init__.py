@@ -95,30 +95,78 @@ F = ctypes.c_float
 
 MAX_TREE = 31       # a tree bitmask lives in a non-negative int32
 
-
-def check_group(name: str, hd: int, G: int) -> None:
-    if hd not in (32, 64, 128) or G not in (1, 2, 4, 8):
-        raise ValueError(f"{name}: kernel takes head_dim 32/64/128 and "
-                         f"group 1/2/4/8, got {hd}, {G}")
+HEAD_DIMS = (32, 64, 128, 256)   # the attention kernels' instantiated widths
+DECODE_GROUPS = (1, 2, 4, 8, 16)  # the decode bodies' instantiated groups
 
 
-def verify_operands(name: str, q, blk_k, blk_v, tree, Hkv: int):
-    """Check the block side of a verify call for the kernels and lay it
-    out as they take it: q (B, Kb, H, hd) -> (B, Hkv, Kb*G, hd) score rows
-    (row r = block query r // G under head r % G), blk_k/blk_v (B, Kb,
-    Hkv, hd) -> (B, Hkv, Kb, hd), all contiguous bf16.  -> (qg, kb, vb,
-    tree, G)."""
-    B, Kb, H, hd = q.shape
+def kernel_head_dim(hd: int) -> int:
+    """The narrowest instantiated head width that holds ``hd``."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"kernel takes head_dim up to {HEAD_DIMS[-1]}, got {hd}")
+
+
+def kernel_group(G: int) -> int:
+    """The narrowest instantiated decode group that holds ``G`` <= 16."""
+    return next(g for g in DECODE_GROUPS if G <= g)
+
+
+def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended to its last dimension up to
+    ``width`` (``t`` itself when it is that wide)."""
+    n = t.shape[-1]
+    if n == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - n))
+
+
+def decode_padded(q, Hkv: int, kv: tuple, body) -> tuple:
+    """The decode family's domain: q (B, H, hd), H = Hkv * G, run through
+    ``body`` padded to what the decode kernels take, exactly.  head_dim
+    goes to the next of ``HEAD_DIMS`` (zero columns of q and of each
+    tensor in ``kv``, whose last dimension is head_dim), the group to the
+    next of ``DECODE_GROUPS`` (zero query heads; a group past 16 runs in
+    slices of 16 heads, one launch each).  ``body(qp, kvp, Gp)`` takes qp
+    (B, Hkv * Gp, width) contiguous and returns outputs shaped (B, Hkv,
+    Gp, ...); -> those outputs cropped to the true heads (and, where a
+    4-D output ends in head_dim, columns), each (B, Hkv, G, ...).  A zero
+    column adds nothing to a score and is cropped from the output; a zero
+    head is cropped whole; the scale stays the caller's."""
+    B, H, hd = q.shape
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
     G = H // Hkv
-    check_group(name, hd, G)
+    width = kernel_head_dim(hd)
+    kv = tuple(pad_last(t, width) for t in kv)
+    qg = q.reshape(B, Hkv, G, hd)
+    parts = []
+    for g0 in range(0, G, DECODE_GROUPS[-1]):
+        gc = min(DECODE_GROUPS[-1], G - g0)
+        gp = kernel_group(gc)
+        qc = qg[:, :, g0:g0 + gc]
+        if gp != gc or width != hd:
+            qc = torch.nn.functional.pad(qc, (0, width - hd, 0, gp - gc))
+        outs = body(qc.reshape(B, Hkv * gp, width).contiguous(), kv, gp)
+        parts.append([o[:, :, :gc] for o in outs])
+    outs = [torch.cat(p, dim=2) if len(p) > 1 else p[0] for p in zip(*parts)]
+    return tuple(o[..., :hd] if o.dim() == 4 else o for o in outs)
+
+
+def verify_padded(name: str, q, blk_k, blk_v, tree, Hkv: int):
+    """The block side of a verify call, padded to the tensor-core verify
+    body's widths: q (B, Kb, H, hd), blk_k/blk_v (B, Kb, Hkv, hd), any
+    group, head_dim zero-padded to the next of ``HEAD_DIMS`` (exact: the
+    caller pads its cache alike and crops the output's columns).  The
+    kernel reads q and the block in place and writes (B, Kb, H, width)
+    itself, so nothing is permuted.  -> (q, blk_k, blk_v, tree, G, width),
+    contiguous; ``check_verify_operands`` then holds them to the kernel's
+    types."""
+    B, Kb, H, hd = q.shape
+    if H % Hkv:
+        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
     if Kb < 1:
         raise ValueError(f"{name}: empty block")
-    for label, t in (("q", q), ("blk_k", blk_k), ("blk_v", blk_v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{label}: kernel takes torch.bfloat16, got "
-                            f"{t.dtype}")
     if tuple(blk_k.shape) != (B, Kb, Hkv, hd) or blk_v.shape != blk_k.shape:
         raise ValueError(f"blk_k/blk_v: expected shape {(B, Kb, Hkv, hd)}, "
                          f"got {tuple(blk_k.shape)}, {tuple(blk_v.shape)}")
@@ -127,22 +175,21 @@ def verify_operands(name: str, q, blk_k, blk_v, tree, Hkv: int):
             raise ValueError(f"{name}: a tree mask takes at most "
                              f"{MAX_TREE} block tokens, got {Kb}")
         tree = tree.expand(B, Kb).contiguous()
+    width = kernel_head_dim(hd)
+    q, blk_k, blk_v = (pad_last(t, width).contiguous()
+                       for t in (q, blk_k, blk_v))
+    return q, blk_k, blk_v, tree, H // Hkv, width
+
+
+def check_verify_operands(q, blk_k, blk_v, tree) -> None:
+    """Raise unless ``verify_padded``'s results are what the verify kernels
+    take: bf16 q and block, an int32 tree (or none)."""
+    B, Kb, _, width = q.shape
+    check_cuda_input("q", q, torch.bfloat16, tuple(q.shape))
+    for label, t in (("blk_k", blk_k), ("blk_v", blk_v)):
+        check_cuda_input(label, t, torch.bfloat16, tuple(blk_k.shape))
+    if tree is not None:
         check_cuda_input("tree", tree, torch.int32, (B, Kb))
-    qg = (q.reshape(B, Kb, Hkv, G, hd).permute(0, 2, 1, 3, 4)
-          .reshape(B, Hkv, Kb * G, hd).contiguous())
-    kb = blk_k.transpose(1, 2).contiguous()
-    vb = blk_v.transpose(1, 2).contiguous()
-    check_cuda_input("q", qg, torch.bfloat16, (B, Hkv, Kb * G, hd))
-    check_cuda_input("blk_k", kb, torch.bfloat16, (B, Hkv, Kb, hd))
-    check_cuda_input("blk_v", vb, torch.bfloat16, (B, Hkv, Kb, hd))
-    return qg, kb, vb, tree, G
-
-
-def verify_output(out, Kb: int, H: int):
-    """The verify kernels' (B, Hkv, Kb*G, hd) rows -> (B, Kb, H, hd)."""
-    B, Hkv, _, hd = out.shape
-    return (out.reshape(B, Hkv, Kb, H // Hkv, hd).permute(0, 2, 1, 3, 4)
-            .reshape(B, Kb, H, hd))
 
 
 def reset_launch_counts() -> None:

@@ -33,6 +33,7 @@ SOURCES = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
+    "paged_partial": "paged_attention/csrc/paged_partial.cu",
     "verify_attention": "verify_attention/csrc/verify_attention.cu",
     "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
     "mlstm_chunk": "mlstm_chunk/csrc/mlstm_chunk.cu",

@@ -1,9 +1,9 @@
 // Shared device code of the attention kernels: warp reductions, row loads
 // (bf16, or int8 codes times a per-row scale), the Rows functor that says
-// where key t of one (row, kv head) lives and how it is stored, the
+// where key t of one (row, kv head) lives and how it is stored, and the
 // one-token flash-decode fold (row and paged decode, and one shard's
-// unnormalized partial) and the multi-query verify block (row and paged
-// verify / chunked prefill).
+// unnormalized partial).  The multi-query verify body (row and paged
+// verify, chunked prefill) is verify_tc.cuh, on the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -207,18 +207,23 @@ struct PartialOut {
 // and hands each (head, dim) to the epilogue as (A, L, M).  Keys at or
 // past n are never loaded, so a row's unwritten tail (and, paged, its
 // park page) is never read.  A row that admits no key ends at (0, NEG_INF,
-// 0): NEG_INF is finite, so the combine's exp(m - M) stays 1 there.
+// 0): NEG_INF is finite, so the combine's exp(m - M) stays 1 there.  A key
+// row is scored in slices of at most 64 head dims (in order, so each dot
+// product sums as one loop would), which keeps a 256-wide row out of the
+// registers; q's f32 copy and the combine share one shared-memory buffer.
 template <int HD, int G, int NW, class R, class Vis, class Epi>
 __device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
                                             const R& rows, int n, Vis vis,
                                             float scale, Epi epi) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int DPL = HD / 32;
-  __shared__ float q_s[G][HD];
+  constexpr int KC = HD < 64 ? HD : 64;     // head dims of a key slice
+  __shared__ float qa_s[NW * G * HD];       // q_s, then acc_s
   __shared__ float p_s[NW][G][32];
   __shared__ float m_s[NW][G];
   __shared__ float l_s[NW][G];
-  __shared__ float acc_s[NW][G][HD];
+  float (*q_s)[HD] = reinterpret_cast<float (*)[HD]>(qa_s);
+  float (*acc_s)[G][HD] = reinterpret_cast<float (*)[G][HD]>(qa_s);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -247,14 +252,19 @@ __device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
     }
     float s[G];
     if (valid) {
-      float kr[HD];
-      rows.template key<HD>(t, 0, kr);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) dot += q_s[g][d] * kr[d];
-        s[g] = dot;
+      for (int c = 0; c < HD; c += KC) {
+        float kr[KC];
+        rows.template key<KC>(t, c, kr);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = s[g];
+#pragma unroll
+          for (int d = 0; d < KC; ++d) dot += q_s[g][c + d] * kr[d];
+          s[g] = dot;
+        }
       }
     } else {
 #pragma unroll
@@ -289,6 +299,7 @@ __device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
     __syncwarp();
   }
 
+  __syncthreads();                      // every warp is done with q_s
   if (lane == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -318,6 +329,14 @@ __device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
   }
 }
 
+// Warps of a decode block: 8, fewer where G * HD is wide, so that the
+// combine's and the probabilities' NW * G * (HD + 32) floats stay within
+// 40 KB of static shared memory.
+template <int HD, int G>
+constexpr int decode_warps() {
+  return 10240 / (G * (HD + 32)) >= 8 ? 8 : 10240 / (G * (HD + 32));
+}
+
 // The normalized one-token decode over keys [0, n) (row and paged decode).
 template <int HD, int G, int NW, class R>
 __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
@@ -327,220 +346,27 @@ __device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
   decode_fold<HD, G, NW>(q, rows, n, AllKeys{}, scale, NormOut{out});
 }
 
-// ---------------------------------------------------------------------------
-// Multi-query verify block (chunked prefill, speculative verify)
-// ---------------------------------------------------------------------------
-
-constexpr int VQ = 64;          // score rows per verify block
-constexpr int VTHREADS = 128;   // two threads per score row
-
-// Key tile width of the verify block: the two f32 tiles stay under 48 KB.
-template <int HD>
-struct VerifyTile {
-  static constexpr int BK = HD >= 128 ? 32 : 64;
-};
-
-// Fold keys [0, n) of `rows` into one thread's running softmax state
-// (m, l, acc).  n is the same for the whole block.  Each tile of BK keys
-// is staged once in shared memory as f32 (int8 codes dequantized on the
-// way in), rows padded by one word against bank conflicts, and shared by
-// the block's VQ score rows.  Thread (row, half) scores the tile's keys
-// 2i + half (vis(col) says whether its row sees key col) and owns head
-// dims [half * HD/2, (half + 1) * HD/2) of the PV update; the partner's
-// probabilities arrive through one shuffle.  Keys at or past n are never
-// loaded.
-template <int HD, int BK, class R, class Vis>
-__device__ __forceinline__ void fold_keys(const R& rows, int n, Vis vis,
-                                          const float* qr,
-                                          float (&k_s)[BK][HD + 1],
-                                          float (&v_s)[BK][HD + 1], float& m,
-                                          float& l, float* acc) {
-  constexpr int KPT = BK / 2;   // keys of a tile per thread
-  constexpr int DH = HD / 2;    // head dims per thread in the PV update
-  const int half = threadIdx.x & 1;
-  for (int t0 = 0; t0 < n; t0 += BK) {
-    for (int i = threadIdx.x; i < BK * HD / 8; i += VTHREADS) {
-      const int kk = i / (HD / 8), c = (i % (HD / 8)) * 8;
-      float kf[8], vf[8];
-      if (t0 + kk < n) {
-        rows.template key<8>(t0 + kk, c, kf);
-        rows.template value<8>(t0 + kk, c, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        k_s[kk][c + e] = kf[e];
-        v_s[kk][c + e] = vf[e];
-      }
-    }
-    __syncthreads();
-
-    float p[KPT];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kk = 2 * i + half;
-      const int col = t0 + kk;
-      const bool valid = col < n && vis(col);
-      float s = NEG_INF;
-      if (valid) {
-        s = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) s += qr[d] * k_s[kk][d];
-      }
-      p[i] = valid ? s : -INFINITY;   // -inf marks masked for the exp below
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      p[i] = (p[i] == -INFINITY) ? 0.f : expf(p[i] - m_new);
-      psum += p[i];
-    }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    l = alpha * l + psum;
-    m = m_new;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-
-    const int dbase = half * DH;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float mine = p[i];
-      const float other = __shfl_xor_sync(FULL, mine, 1);
-      const float* va = v_s[2 * i + half] + dbase;
-      const float* vo = v_s[2 * i + 1 - half] + dbase;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += mine * va[d] + other * vo[d];
-    }
-    __syncthreads();
-  }
-}
-
-// Keys [0, n) of `a`, then the keys of `b`, as one key range: the verify
-// block's cache before the block, followed by the block's own keys.
-template <class A, class B>
-struct Concat {
-  A a;
-  B b;
-  int n;
-  template <int N>
-  __device__ __forceinline__ void key(int t, int c, float* dst) const {
-    if (t < n) a.template key<N>(t, c, dst);
-    else b.template key<N>(t - n, c, dst);
-  }
-  template <int N>
-  __device__ __forceinline__ void value(int t, int c, float* dst) const {
-    if (t < n) a.template value<N>(t, c, dst);
-    else b.template value<N>(t - n, c, dst);
-  }
-};
-
-// K block queries of one (row, kv head) at positions pos .. pos+K-1, the
-// score rows [row0, row0 + VQ) of this block.  q holds the (K*G, HD) score
-// rows: row r is block query i = r / G under query head r % G.  Every row
-// sees the n_cache cache keys (the cache BEFORE the block: positions
-// < pos), then block key j when j <= i (anc == nullptr) or when bit j of
-// anc[i] is set (tree verify, K <= 31).  Cache and block fold as one key
-// range into one softmax, so the result is the JAX kernel's
-// cache-plus-block joint softmax.  Under the causal mask the range stops
-// after the last block key any row of this block sees; block key i is
-// visible to query i, so l > 0 even at pos == 0 where the cache is empty.
-//
-// ring_S > 0 makes the cache a ring of ring_S slots (a sliding window;
-// n_cache = min(pos, ring_S), ring_pos = pos): cache slot s holds position
-// p(s) = (pos-1) - ((pos-1-s) mod S) and is visible to query i only inside
-// its window, p(s) > pos + i - S (p(s) >= 0 holds for every s < n_cache).
-// Block keys stay visible under j <= i: K <= S keeps them in the window.
-template <int HD, class CacheRows, class BlockRows>
-__device__ __forceinline__ void verify_block(
-    const bf16* __restrict__ q, const CacheRows& cache, int n_cache,
-    const BlockRows& blk, int K, int G, const int* __restrict__ anc,
-    float scale, bf16* __restrict__ out, int row0, int ring_pos = 0,
-    int ring_S = 0) {
-  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int BK = VerifyTile<HD>::BK;
-  constexpr int DH = HD / 2;
-  __shared__ float k_s[BK][HD + 1];
-  __shared__ float v_s[BK][HD + 1];
-
-  const int KG = K * G;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int qrow = row0 + r;
-  const bool live = qrow < KG;          // rows past KG compute, never store
-  const int i = (live ? qrow : KG - 1) / G;
-
-  float qr[HD];
-  if (live) {
-    load_row<HD>(q + (size_t)qrow * HD, qr);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] *= scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f, acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-
-  const bool tree = anc != nullptr;
-  const unsigned bits = tree ? (unsigned)anc[i] : 0u;
-  const int n_blk = tree ? K : min(K, (min(row0 + VQ, KG) - 1) / G + 1);
-  const Concat<CacheRows, BlockRows> keys{cache, blk, n_cache};
-  fold_keys<HD, BK>(keys, n_cache + n_blk,
-                    [=](int col) {
-                      const int j = col - n_cache;
-                      if (j < 0) {
-                        if (ring_S == 0) return true;
-                        const int p = ring_pos - 1 -
-                                      (ring_pos - 1 - col) % ring_S;
-                        return p >= 0 && p > ring_pos + i - ring_S;
-                      }
-                      return tree ? ((bits >> j) & 1u) != 0u : j <= i;
-                    },
-                    qr, k_s, v_s, m, l, acc);
-
-  if (live) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* o = out + (size_t)qrow * HD + half * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = __float2bfloat16(acc[d] * inv);
-  }
-}
-
 }  // namespace repro
 
-// Instantiate LAUNCH(HD, G) for every supported (head dim, group) pair;
-// the C entry points return cudaErrorInvalidValue for any other pair.
-#define REPRO_DECODE_DISPATCH(hd, G, LAUNCH)                        \
+// Instantiate LAUNCH(HD, G) for every supported (head dim, group) pair:
+// head dim 32, 64, 128 or 256 and group 1, 2, 4, 8 or 16 (the wrappers pad
+// any other width or group with zeros); the C entry points return
+// cudaErrorInvalidValue for any other pair.
+#define REPRO_DECODE_G(hd_, G, LAUNCH)                              \
   do {                                                              \
-    if (hd == 32 && G == 1) { LAUNCH(32, 1); }                      \
-    else if (hd == 32 && G == 2) { LAUNCH(32, 2); }                 \
-    else if (hd == 32 && G == 4) { LAUNCH(32, 4); }                 \
-    else if (hd == 32 && G == 8) { LAUNCH(32, 8); }                 \
-    else if (hd == 64 && G == 1) { LAUNCH(64, 1); }                 \
-    else if (hd == 64 && G == 2) { LAUNCH(64, 2); }                 \
-    else if (hd == 64 && G == 4) { LAUNCH(64, 4); }                 \
-    else if (hd == 64 && G == 8) { LAUNCH(64, 8); }                 \
-    else if (hd == 128 && G == 1) { LAUNCH(128, 1); }               \
-    else if (hd == 128 && G == 2) { LAUNCH(128, 2); }               \
-    else if (hd == 128 && G == 4) { LAUNCH(128, 4); }               \
-    else if (hd == 128 && G == 8) { LAUNCH(128, 8); }               \
+    if (G == 1) { LAUNCH(hd_, 1); }                                 \
+    else if (G == 2) { LAUNCH(hd_, 2); }                            \
+    else if (G == 4) { LAUNCH(hd_, 4); }                            \
+    else if (G == 8) { LAUNCH(hd_, 8); }                            \
+    else if (G == 16) { LAUNCH(hd_, 16); }                          \
     else { return (int)cudaErrorInvalidValue; }                     \
   } while (0)
 
-// Instantiate LAUNCH(HD) for every supported head dim of the verify block,
-// after checking the shape arguments every verify entry point takes.
-#define REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH)                     \
+#define REPRO_DECODE_DISPATCH(hd, G, LAUNCH)                        \
   do {                                                              \
-    if (G < 1 || K < 1) return (int)cudaErrorInvalidValue;          \
-    if (hd == 32) { LAUNCH(32); }                                   \
-    else if (hd == 64) { LAUNCH(64); }                              \
-    else if (hd == 128) { LAUNCH(128); }                            \
+    if (hd == 32) { REPRO_DECODE_G(32, G, LAUNCH); }                \
+    else if (hd == 64) { REPRO_DECODE_G(64, G, LAUNCH); }           \
+    else if (hd == 128) { REPRO_DECODE_G(128, G, LAUNCH); }         \
+    else if (hd == 256) { REPRO_DECODE_G(256, G, LAUNCH); }         \
     else { return (int)cudaErrorInvalidValue; }                     \
   } while (0)

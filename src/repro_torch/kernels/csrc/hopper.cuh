@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (flash
-// prefill, the grouped matmul): shared-memory addresses, mbarriers, TMA
-// tile loads, wgmma descriptors and products, and the host side of a TMA
-// descriptor.  Raw PTX, no library.
+// prefill, verify, the grouped matmul): shared-memory addresses,
+// mbarriers, TMA tile loads, wgmma descriptors and products, and the host
+// side of a TMA descriptor.  Raw PTX, no library.
 //
 // The layouts the products read are the canonical wgmma ones that a TMA
 // load with a 128-byte (or 64-byte) swizzle writes:
@@ -90,7 +90,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---------------------------------------------------------------- TMA
 
-// a 3-D / 4-D tile of `map` at coordinates (innermost first) into shared
+// a 3-D / 4-D / 5-D tile of `map` at coordinates (innermost first) into shared
 // memory at `dst`, completing on `bar`; rows past the tensor's edge fill
 // with zeros
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -115,6 +115,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// fetches a TMA descriptor (a __grid_constant__ kernel parameter) into the
+// descriptor cache ahead of its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// orders this thread's plain shared-memory stores before later reads of
+// the async proxy (wgmma operands): a tile written by threads instead of
+// TMA is fenced by each writer before the barrier that hands it over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier among `count` threads of the block (a multiple of 32), named
+// `id` (1-15; __syncthreads is 0)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

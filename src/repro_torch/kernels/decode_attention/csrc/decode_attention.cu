@@ -18,6 +18,9 @@
 // `k_start <= pos` tile gate, at key granularity); the running softmax
 // state (m, l, acc) lives in registers for the whole scan -- the loop
 // inside the block replaces the TPU grid's sequential "arbitrary" axis.
+// Instantiated for head widths 32/64/128/256 and groups 1/2/4/8/16 (the
+// wrapper pads any other width or group with zeros); a wide group keeps
+// fewer warps a block (decode_warps), so its combine fits in shared memory.
 // Not yet done: splitting one row's keys over several blocks, so a small
 // batch (B * Hkv blocks) fills only part of the 132 SMs.
 #include "attn_common.cuh"
@@ -49,10 +52,11 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      void* out, int B, int Hkv, int G,
                                      int S, int hd, float scale,
                                      void* stream) {
-  constexpr int NW = 8;
   const dim3 grid(Hkv, B);
 #define LAUNCH(HD_, G_)                                                    \
-  decode_kernel<HD_, G_, NW><<<grid, NW * 32, 0, (cudaStream_t)stream>>>( \
+  decode_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>                   \
+      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                     \
+         (cudaStream_t)stream>>>(                                          \
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)pos,    \
       (bf16*)out, Hkv, S, scale)
   REPRO_DECODE_DISPATCH(hd, G, LAUNCH);

@@ -8,6 +8,10 @@ kernel body and plain version: the JAX ring mask ``(idx <= pos % S) |
 (pos >= S)`` selects slots ``0 .. min(pos, S-1)``, which is what both
 read for any pos.  ``ring`` only selects the launch count:
 ``decode_attention.launches_ring`` instead of ``.launches``.
+
+The kernel is instantiated for head widths 32/64/128/256 and groups
+1/2/4/8/16; any other width up to 256 and any group run zero-padded
+(``kernels.decode_padded``), which is exact.
 """
 from __future__ import annotations
 
@@ -29,31 +33,33 @@ def decode_attention(q, k, v, pos, *, ring: bool = False,
     pos = pos.expand(B).contiguous()
     if K.on_cpu(q, k, v, pos):
         return decode_reference(q, k, v, pos, scale=scale)
-    global _fn
     Hkv, S = k.shape[1], k.shape[2]
-    if H % Hkv:
-        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
-    G = H // Hkv
-    K.check_group("decode_attention", hd, G)
-    q = q.contiguous()
-    K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
-    K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, hd))
-    K.check_cuda_input("v", v, torch.bfloat16, (B, Hkv, S, hd))
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    out = torch.empty_like(q)
-    if _fn is None:
-        _fn = K.c_function("decode_attention", "decode_attention_bf16",
-                           [K.P] * 5 + [K.I] * 5 + [K.F, K.P])
-    rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), B, Hkv, G, S, hd, float(scale),
-             K.stream_ptr(q))
-    K.check_launch("decode_attention", rc)
-    if ring:
-        decode_attention.launches_ring += 1
-    else:
-        decode_attention.launches += 1
-    return out
+
+    def body(qp, kv, G):
+        global _fn
+        kp, vp = kv
+        width = qp.shape[-1]
+        K.check_cuda_input("q", qp, torch.bfloat16, (B, Hkv * G, width))
+        K.check_cuda_input("k", kp, torch.bfloat16, (B, Hkv, S, width))
+        K.check_cuda_input("v", vp, torch.bfloat16, (B, Hkv, S, width))
+        out = torch.empty_like(qp)
+        if _fn is None:
+            _fn = K.c_function("decode_attention", "decode_attention_bf16",
+                               [K.P] * 5 + [K.I] * 5 + [K.F, K.P])
+        rc = _fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), B, Hkv, G, S, width, float(scale),
+                 K.stream_ptr(qp))
+        K.check_launch("decode_attention", rc)
+        if ring:
+            decode_attention.launches_ring += 1
+        else:
+            decode_attention.launches += 1
+        return (out.view(B, Hkv, G, width),)
+
+    (out,) = K.decode_padded(q, Hkv, (k, v), body)
+    return out.reshape(B, H, hd)
 
 
 decode_attention.launches = 0

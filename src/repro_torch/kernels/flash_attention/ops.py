@@ -15,23 +15,13 @@ import ctypes
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention.ref import mha_reference
 
-HEAD_DIMS = (32, 64, 128, 256)     # the kernel's instantiated widths
+kernel_head_dim = K.kernel_head_dim
 
 _fn = None
-
-
-def kernel_head_dim(hd: int) -> int:
-    """The narrowest instantiated head width that holds ``hd``."""
-    for width in HEAD_DIMS:
-        if hd <= width:
-            return width
-    raise ValueError(f"flash kernel takes head_dim up to {HEAD_DIMS[-1]}, "
-                     f"got {hd}")
 
 
 def with_head_dim_padding(body, q, k, v, *, causal: bool, window: int,
@@ -46,8 +36,7 @@ def with_head_dim_padding(body, q, k, v, *, causal: bool, window: int,
     width = kernel_head_dim(hd)
     if width == hd:
         return body(q, k, v, causal=causal, window=window, scale=scale)
-    pad = (0, width - hd)
-    out = body(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), causal=causal,
+    out = body(*(K.pad_last(t, width) for t in (q, k, v)), causal=causal,
                window=window, scale=scale)
     return out[..., :hd]
 

@@ -8,7 +8,7 @@
 // gates, (C_p, n_p, m_p) the state before the chunk, NEG_INF at first):
 //   m_t[l] = max(max_{s<=l}(g_l - g_s + li_s), g_l + m_p)
 //   D[l,s] = exp(g_l - g_s + li_s - m_t[l])                 (s <= l)
-//   S[l,s] = (q_l . k_s) * scale * D[l,s]           scale = 1/sqrt(dh)
+//   S[l,s] = (q_l . k_s) * scale * D[l,s]    scale = 1/sqrt(dh), passed in
 //   w_l    = exp(g_l + m_p - m_t[l])
 //   h_l    = (sum_s S[l,s] v_s + w_l q_l C_p)
 //            / max(|sum_s S[l,s] + w_l q_l . n_p|, exp(-m_t[l]))
@@ -58,7 +58,8 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ li,
                    const float* __restrict__ lf, float* __restrict__ h,
                    float* __restrict__ C, float* __restrict__ n,
-                   float* __restrict__ m, int H, int L, int dh, int c) {
+                   float* __restrict__ m, int H, int L, int dh, int c,
+                   float scale) {
   extern __shared__ float smem[];
   float* Cs = smem;                         // [dh][TILE] this block's slice
   float* ns = Cs + (size_t)dh * TILE;       // [dh]
@@ -80,7 +81,6 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + bh * L * dh;
   const float* vb = v + bh * L * dh;
   float* hb = h + bh * L * dh;
-  const float scale = 1.0f / sqrtf((float)dh);
 
   for (int i = tid; i < dh * TILE; i += THREADS) Cs[i] = 0.f;
   for (int i = tid; i < dh; i += THREADS) ns[i] = 0.f;
@@ -285,12 +285,14 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q/k/v (B, H, L, dh), li/lf (B, H, L) -> h (B, H, L, dh), C (B, H, dh,
 // dh), n (B, H, dh), m (B, H); all f32 and contiguous.  dh a multiple of
-// 64 up to 512; the chunk c divides L and is at most 256.  Returns a
-// cudaError_t.
+// 64 up to 512 (the wrapper pads any other width with zero columns and
+// passes the true width's scale, 1/sqrt(dh)); the chunk c divides L and is
+// at most 256.  Returns a cudaError_t.
 extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
                                const void* li, const void* lf, void* h,
                                void* C, void* n, void* m, int B, int H,
-                               int L, int dh, int c, void* stream) {
+                               int L, int dh, int c, float scale,
+                               void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1 || dh < TILE ||
       dh % TILE || dh > 512 || c < 1 || c > MAX_C || L % c)
     return (int)cudaErrorInvalidValue;
@@ -303,6 +305,6 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
   mlstm_chunk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)li,
       (const float*)lf, (float*)h, (float*)C, (float*)n, (float*)m, H, L, dh,
-      c);
+      c, scale);
   return (int)cudaGetLastError();
 }

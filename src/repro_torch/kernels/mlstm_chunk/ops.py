@@ -5,6 +5,8 @@ CUDA tensor launches ``csrc/mlstm_chunk.cu`` or raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch import kernels as K
@@ -18,24 +20,28 @@ MAX_DH = 512             # a block keeps a (dh, 64) column slice of C
 _fn = None
 
 
-def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
-    """q/k/v: (B, H, L, dh); li/lf: (B, H, L) -> (h (B, H, L, dh) f32, (C
-    (B, H, dh, dh), n (B, H, dh), m (B, H)) f32), from no history.
-    Casts to f32 and shrinks the chunk to a divisor of L, as the JAX
-    wrapper does."""
-    L = q.shape[2]
-    c = min(chunk, L)
-    while L % c:
-        c //= 2
-    q, k, v, li, lf = (K.f32_operand(t) for t in (q, k, v, li, lf))
-    if K.on_cpu(q, k, v, li, lf):
-        return mlstm_chunk_reference(q, k, v, li, lf, c)
+def with_dh_padding(body, q, k, v, li, lf, chunk: int):
+    """``body(q, k, v, li, lf, chunk, scale)`` with dh zero-padded to a
+    multiple of 64 and the scale 1/sqrt(dh) of the true width; h, C and n
+    cropped back.  A zero column of k adds nothing to a score or to n, of
+    q nothing to n . q or q C, of v nothing to the kept columns of C or
+    h, so the result is exact."""
+    dh = q.shape[-1]
+    width = -(-dh // 64) * 64
+    if width > MAX_DH:
+        raise ValueError(f"mlstm_chunk: kernel takes dh up to {MAX_DH}, "
+                         f"got {dh}")
+    scale = 1.0 / math.sqrt(dh)
+    if width == dh:
+        return body(q, k, v, li, lf, chunk, scale)
+    h, (C, n, m) = body(*(K.pad_last(t, width) for t in (q, k, v)), li, lf,
+                        chunk, scale)
+    return h[..., :dh], (C[..., :dh, :dh], n[..., :dh], m)
+
+
+def _launch(q, k, v, li, lf, c, scale):
     global _fn
-    B, H, _, dh = q.shape
-    if dh % 64 or dh > MAX_DH or c > MAX_CHUNK or L < 1:
-        raise ValueError(f"mlstm_chunk: kernel takes dh a multiple of 64 up "
-                         f"to {MAX_DH} and a chunk of at most {MAX_CHUNK}, "
-                         f"got dh={dh}, chunk={c}")
+    B, H, L, dh = q.shape
     for name, t, shape in (("q", q, (B, H, L, dh)), ("k", k, (B, H, L, dh)),
                            ("v", v, (B, H, L, dh)), ("li", li, (B, H, L)),
                            ("lf", lf, (B, H, L))):
@@ -46,16 +52,35 @@ def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if _fn is None:
         _fn = K.c_function("mlstm_chunk", "mlstm_chunk_f32",
-                           [K.P] * 9 + [K.I] * 5 + [K.P])
+                           [K.P] * 9 + [K.I] * 5 + [K.F, K.P])
     rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
              lf.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-             m.data_ptr(), B, H, L, dh, c, K.stream_ptr(q))
+             m.data_ptr(), B, H, L, dh, c, float(scale), K.stream_ptr(q))
     K.check_launch("mlstm_chunk", rc)
     mlstm_chunk.launches += 1
     return h, (C, n, m)
 
 
+def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
+    """q/k/v: (B, H, L, dh); li/lf: (B, H, L) -> (h (B, H, L, dh) f32, (C
+    (B, H, dh, dh), n (B, H, dh), m (B, H)) f32), from no history.
+    Casts to f32 and shrinks the chunk to a divisor of L, as the JAX
+    wrapper does.  Any dh up to 512: multiples of 64 run as they are,
+    other widths zero-padded (``with_dh_padding``)."""
+    L = q.shape[2]
+    c = min(chunk, L)
+    while L % c:
+        c //= 2
+    q, k, v, li, lf = (K.f32_operand(t) for t in (q, k, v, li, lf))
+    if K.on_cpu(q, k, v, li, lf):
+        return mlstm_chunk_reference(q, k, v, li, lf, c)
+    if c > MAX_CHUNK or L < 1:
+        raise ValueError(f"mlstm_chunk: kernel takes a chunk of at most "
+                         f"{MAX_CHUNK}, got {c}")
+    return with_dh_padding(_launch, q, k, v, li, lf, c)
+
+
 mlstm_chunk.launches = 0
 
 __all__ = ["mlstm_chunk", "mlstm_chunk_reference",
-           "mlstm_recurrent_reference"]
+           "mlstm_recurrent_reference", "with_dh_padding"]

@@ -3,13 +3,21 @@ verify and one shard's decode partial over its slice of a sharded bank,
 over a full-precision or an int8 page pool.
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-``csrc/paged_attention.cu`` or raises.  An int8 pool passes its
+``csrc/paged_attention.cu`` (decode, verify) or ``csrc/paged_partial.cu``
+(the partial) or raises.  An int8 pool passes its
 (NP, Hkv, page) f32 ``k_scale``/``v_scale``; its launches count in
 ``<wrapper>.launches_int8``, the full-precision body's in
 ``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
 ``paged_verify_attention.launches_tree`` instead, whatever the pool.
 ``paged_decode_partial`` takes one shard's local slice of a sharded bank
 and the shard's first global page id.
+
+The decode and partial kernels are instantiated for head widths
+32/64/128/256 and groups 1/2/4/8/16, the verify kernel for the same
+widths and any group; any other width up to 256 and any group run
+zero-padded (``kernels.decode_padded``, ``kernels.verify_padded``), which
+is exact.  The verify kernel reads q (B, Kb, H, hd) and the block's keys
+and values in place and writes its (B, Kb, H, hd) output itself.
 """
 from __future__ import annotations
 
@@ -49,12 +57,11 @@ def _scales(k_scale, v_scale):
     return () if k_scale is None else (k_scale, v_scale)
 
 
-def _c(symbol: str, nptr: int, nint: int):
+def _c(symbol: str, nptr: int, nint: int, lib: str = "paged_attention"):
     fn = _fns.get(symbol)
     if fn is None:
         fn = _fns[symbol] = K.c_function(
-            "paged_attention", symbol, [K.P] * nptr + [K.I] * nint
-            + [K.F, K.P])
+            lib, symbol, [K.P] * nptr + [K.I] * nint + [K.F, K.P])
     return fn
 
 
@@ -77,29 +84,31 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
         return paged_decode_reference(q, k_pages, v_pages, page_table, pos,
                                       scale=scale, k_scale=k_scale,
                                       v_scale=v_scale)
-    pool, quant, NP, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
-                                               v_scale, page_table, B)
-    if H % Hkv:
-        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
-    G = H // Hkv
-    K.check_group("paged_decode_attention", hd, G)
-    q = q.contiguous()
-    K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
+    Hkv = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    out = torch.empty_like(q)
-    sym = ("paged_decode_attention_int8" if quant
-           else "paged_decode_attention_bf16")
-    rc = _c(sym, 4 + len(pool), 6)(
-        q.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, Hkv, G, P, page, hd, float(scale),
-        K.stream_ptr(q))
-    K.check_launch(sym, rc)
-    if quant:
-        paged_decode_attention.launches_int8 += 1
-    else:
-        paged_decode_attention.launches += 1
-    return out
+
+    def body(qp, kv, G):
+        pool, quant, _, _, page, P = _pool_args(*kv, k_scale, v_scale,
+                                                page_table, B)
+        width = qp.shape[-1]
+        K.check_cuda_input("q", qp, torch.bfloat16, (B, Hkv * G, width))
+        out = torch.empty_like(qp)
+        sym = ("paged_decode_attention_int8" if quant
+               else "paged_decode_attention_bf16")
+        rc = _c(sym, 4 + len(pool), 6)(
+            qp.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), B, Hkv, G, P, page, width, float(scale),
+            K.stream_ptr(qp))
+        K.check_launch(sym, rc)
+        if quant:
+            paged_decode_attention.launches_int8 += 1
+        else:
+            paged_decode_attention.launches += 1
+        return (out.view(B, Hkv, G, width),)
+
+    (out,) = K.decode_padded(q, Hkv, (k_pages, v_pages), body)
+    return out.reshape(B, H, hd)
 
 
 paged_decode_attention.launches = 0
@@ -128,20 +137,24 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
                                       page_table, pos, scale=scale,
                                       k_scale=k_scale, v_scale=v_scale,
                                       tree=tree)
-    pool, quant, NP, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
-                                               v_scale, page_table, B)
-    qg, kb, vb, tree, G = K.verify_operands("paged_verify_attention", q,
-                                            blk_k, blk_v, tree, Hkv)
+    Hkv = k_pages.shape[1]
+    q, blk_k, blk_v, tree, G, width = K.verify_padded(
+        "paged_verify_attention", q, blk_k, blk_v, tree, Hkv)
+    K.check_verify_operands(q, blk_k, blk_v, tree)
+    k_pages, v_pages = K.pad_last(k_pages, width), K.pad_last(v_pages,
+                                                              width)
+    pool, quant, NP, _, page, P = _pool_args(k_pages, v_pages, k_scale,
+                                             v_scale, page_table, B)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    out = torch.empty_like(qg)
+    out = torch.empty_like(q)
     sym = ("paged_verify_attention_int8" if quant
            else "paged_verify_attention_bf16")
-    rc = _c(sym, 7 + len(pool), 7)(
-        qg.data_ptr(), *pool, kb.data_ptr(), vb.data_ptr(),
+    rc = _c(sym, 7 + len(pool), 8)(
+        q.data_ptr(), *pool, blk_k.data_ptr(), blk_v.data_ptr(),
         page_table.data_ptr(), pos.data_ptr(),
         None if tree is None else tree.data_ptr(), out.data_ptr(),
-        B, Hkv, G, Kb, P, page, hd, float(scale), K.stream_ptr(q))
+        B, Hkv, G, Kb, P, page, NP, width, float(scale), K.stream_ptr(q))
     K.check_launch(sym, rc)
     if tree is not None:
         paged_verify_attention.launches_tree += 1
@@ -149,7 +162,7 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
         paged_verify_attention.launches_int8 += 1
     else:
         paged_verify_attention.launches += 1
-    return K.verify_output(out, Kb, H)
+    return out[..., :hd]
 
 
 paged_verify_attention.launches = 0
@@ -177,31 +190,33 @@ def paged_decode_partial(q, k_pages, v_pages, page_table, pos, base: int,
         return paged_decode_partial_reference(
             q, k_pages, v_pages, page_table, pos, base, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
-    pool, quant, L, Hkv, page, P = _pool_args(k_pages, v_pages, k_scale,
-                                              v_scale, page_table, B)
-    if H % Hkv:
-        raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
-    G = H // Hkv
-    K.check_group("paged_decode_partial", hd, G)
-    q = q.contiguous()
-    K.check_cuda_input("q", q, torch.bfloat16, (B, H, hd))
+    Hkv = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    acc = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    sym = ("paged_decode_partial_int8" if quant
-           else "paged_decode_partial_bf16")
-    rc = _c(sym, 6 + len(pool), 8)(
-        q.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, G, P, page, hd,
-        int(base), L, float(scale), K.stream_ptr(q))
-    K.check_launch(sym, rc)
-    if quant:
-        paged_decode_partial.launches_int8 += 1
-    else:
-        paged_decode_partial.launches += 1
-    return acc, m, l
+
+    def body(qp, kv, G):
+        pool, quant, L, _, page, P = _pool_args(*kv, k_scale, v_scale,
+                                                page_table, B)
+        width = qp.shape[-1]
+        K.check_cuda_input("q", qp, torch.bfloat16, (B, Hkv * G, width))
+        acc = torch.empty((B, Hkv, G, width), dtype=torch.float32,
+                          device=qp.device)
+        m = torch.empty((B, Hkv, G), dtype=torch.float32, device=qp.device)
+        l = torch.empty_like(m)
+        sym = ("paged_decode_partial_int8" if quant
+               else "paged_decode_partial_bf16")
+        rc = _c(sym, 6 + len(pool), 8, "paged_partial")(
+            qp.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, G, P, page,
+            width, int(base), L, float(scale), K.stream_ptr(qp))
+        K.check_launch(sym, rc)
+        if quant:
+            paged_decode_partial.launches_int8 += 1
+        else:
+            paged_decode_partial.launches += 1
+        return acc, m, l
+
+    return K.decode_padded(q, Hkv, (k_pages, v_pages), body)
 
 
 paged_decode_partial.launches = 0

@@ -100,7 +100,8 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
 
 // u/dt (B, L, d_in), Bm/Cm (B, L, N), A (d_in, N), D (d_in,), init_state
 // (B, d_in, N) or NULL (zeros), y (B, L, d_in), s_out (B, d_in, N); all
-// f32 and contiguous.  N is 8 or 16.  Returns a cudaError_t.
+// f32 and contiguous.  N is 8, 16, 32 or 64 (the wrapper pads any other N
+// with zero state columns).  Returns a cudaError_t.
 extern "C" int ssm_scan_f32(const void* u, const void* dt, const void* Bm,
                             const void* Cm, const void* A, const void* D,
                             const void* s0, void* y, void* s_out, int B,
@@ -117,6 +118,10 @@ extern "C" int ssm_scan_f32(const void* u, const void* dt, const void* Bm,
     LAUNCH(8);
   } else if (N == 16) {
     LAUNCH(16);
+  } else if (N == 32) {
+    LAUNCH(32);
+  } else if (N == 64) {
+    LAUNCH(64);
   } else {
     return (int)cudaErrorInvalidValue;
   }

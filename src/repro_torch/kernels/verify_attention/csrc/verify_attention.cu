@@ -1,77 +1,63 @@
-// K-query verify attention over a row KV cache, for Hopper (sm_90a):
-// chunked prefill on the row cache (and speculative verify).
+// K-query verify attention over a row KV cache, for Hopper (sm_90a), on
+// the tensor cores: chunked prefill on the row cache (and speculative
+// verify).
 //
 // Replaces: repro/kernels/verify_attention/kernel.py ::
 //   verify_attention_kernel (body _verify_kernel): causal or tree mask,
 //   and the sliding-window ring (ring=True, causal only).
 //
 // What bounds it on an H100: each row's cache keys 0..pos-1 and the K
-// block keys are read once for K * G query rows, about 2 * K * G flops
-// per byte (2048 at K = 128, G = 8): bound by operations on paper, and
-// this first version runs its products on the CUDA cores in f32.
+// block keys are read once for K * G query rows, about K * G / 2 flops a
+// byte (512 at K = 128, G = 8).  At tinyllama-1.1b's chunk (B 4, K 128,
+// 740 cache keys in all) that is 0.0016 ms of bytes against 0.0011 of
+// operations: a few microseconds, so what bounds a launch is latency (one
+// TMA round trip per tile, a handful of tiles per block).  A 4096-slot
+// ring at mixtral-8x7b's heads does about 21.7 GFLOP of products, 0.0219 ms
+// at the bf16 tensor-core rate: bound by operations.
 //
-// What the design does: the verify block of attn_common.cuh (shared with
-// the paged verify kernel, which differs only in where key t lives), one
-// block per (tile of 64 score rows, kv head, row).  The TPU grid's
-// sequential kv axis, with (m, l, acc) carried in VMEM scratch, is a loop
-// inside the block with the state in registers; the cache tiles (keys
-// < pos, the cache BEFORE the block's writes) and then the block's own
-// keys fold into one running softmax, the block's under the causal mask
-// (stopping after the last key the tile's rows see) or the tree bitmask.
-// Cache slots at or past pos are never read.  A ring cache (a runtime
-// flag, not a template parameter: instantiations dominate the build)
-// reads its min(pos, S) written slots and masks each by the position it
-// holds against the query's window.
-// Not yet done: tensor-core products, and reading each cache tile once
-// for all score-row tiles of a (row, kv head) instead of once per tile.
-#include "attn_common.cuh"
+// What the design does: the tensor-core verify body of verify_tc.cuh
+// (shared with the paged verify, which differs only in where a cache tile
+// comes from), one block per (128 score rows, kv head, batch row): Q K^T
+// and P V as wgmma, K and V tiles streamed by TMA through an mbarrier
+// ring by a producer warpgroup, each cache tile read once for all the rows of
+// the tile (G heads of up to 128 / G queries).  The row cache is read
+// through a 4-D TMA view, a full tile in one load; the last partial tile
+// is copied by the producer warpgroup, so slots at or past pos are never read.
+// A ring cache (a template flag) reads its min(pos, S) written slots,
+// masks each by the position it holds against the query's window, and
+// splits P into two bf16 parts for its one-ulp records.
+#include "verify_tc.cuh"
 
-namespace {
-
-using repro::bf16;
-
-template <int HD>
-__global__ void __launch_bounds__(repro::VTHREADS)
-verify_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ kb,
-              const bf16* __restrict__ vb, const int* __restrict__ pos,
-              const int* __restrict__ anc, bf16* __restrict__ out, int Hkv,
-              int G, int K, int S, int ring, float scale) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * Hkv + h;
-  const size_t KG = (size_t)K * G;
-  using KV = repro::Bf16KV<HD>;
-  repro::Rows<KV, repro::ContigMap> cache{{k, v}, {bh * S}};
-  repro::Rows<KV, repro::ContigMap> blk{{kb, vb}, {bh * K}};
-  const int n = min(max(pos[b], 0), S);            // cache keys < pos
-  repro::verify_block<HD>(q + bh * KG * HD, cache, n, blk, K, G,
-                          anc == nullptr ? nullptr : anc + (size_t)b * K,
-                          scale, out + bh * KG * HD, blockIdx.x * repro::VQ,
-                          ring ? pos[b] : 0, ring ? S : 0);
-}
-
-}  // namespace
-
-// q (B, Hkv, K*G, hd) bf16 (row r = block query r / G, head r % G), k/v
-// (B, Hkv, S, hd) bf16 cache as it stood BEFORE the block, kb/vb (B, Hkv,
-// K, hd) bf16 block keys/values, pos (B,) int32 base positions, tree
-// (B, K) int32 ancestor bitmasks or NULL (causal), out like q; all
-// contiguous.  ring != 0: the cache is a sliding-window ring of S slots
-// (causal only, K <= S).  Returns a cudaError_t.
+// q (B, K, H, hd) bf16, H = Hkv * G; k/v (B, Hkv, S, hd) bf16 cache as it
+// stood BEFORE the block; kb/vb (B, K, Hkv, hd) bf16 block keys/values;
+// pos (B,) int32 base positions; tree (B, K) int32 ancestor bitmasks or
+// NULL (causal); out (B, K, H, hd) bf16; all contiguous, 16-byte aligned.
+// hd one of 32, 64, 128, 256.  ring != 0: the cache is a sliding-window
+// ring of S slots (causal only, K <= S).  Returns a cudaError_t.
 extern "C" int verify_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* kb,
                                      const void* vb, const void* pos,
                                      const void* tree, void* out, int B,
                                      int Hkv, int G, int K, int S, int hd,
                                      int ring, float scale, void* stream) {
-  if (ring && (tree != nullptr || K > S)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K * G + repro::VQ - 1) / repro::VQ, Hkv, B);
-#define LAUNCH(HD_)                                                         \
-  verify_kernel<HD_><<<grid, repro::VTHREADS, 0, (cudaStream_t)stream>>>(  \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)kb,      \
-      (const bf16*)vb, (const int*)pos, (const int*)tree, (bf16*)out, Hkv, \
-      G, K, S, ring, scale)
-  REPRO_VERIFY_DISPATCH(hd, G, K, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  if (S < 1 || (ring && (tree != nullptr || K > S)))
+    return (int)cudaErrorInvalidValue;
+  repro::vtc::Args a{};
+  a.k = k;
+  a.v = v;
+  a.pos = (const int*)pos;
+  a.anc = (const int*)tree;
+  a.out = (repro::bf16*)out;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.K = K;
+  a.P = 1;
+  a.page = S;
+  a.cap = S;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ring)
+    return repro::vtc::dispatch<false, true>(hd, q, kb, vb, B, B, scale, a,
+                                             s);
+  return repro::vtc::dispatch<false, false>(hd, q, kb, vb, B, B, scale, a,
+                                            s);
 }

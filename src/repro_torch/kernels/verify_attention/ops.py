@@ -3,7 +3,11 @@
 A CPU tensor runs the plain version (``ref.verify_reference``); a CUDA
 tensor launches ``csrc/verify_attention.cu`` or raises.  The ring route
 (a sliding-window cache) counts its launches apart, in
-``verify_attention.launches_ring``.
+``verify_attention.launches_ring``.  The kernel reads q (B, Kb, H, hd) and
+the block's keys and values in place and writes its (B, Kb, H, hd) output
+itself; it is instantiated for head widths 32/64/128/256 and any group,
+and any other width up to 256 runs zero-padded (``kernels.verify_padded``),
+which is exact.
 """
 from __future__ import annotations
 
@@ -39,26 +43,29 @@ def verify_attention(q, k, v, blk_k, blk_v, pos, *, ring: bool = False,
         return verify_reference(q, k, v, blk_k, blk_v, pos, ring=ring,
                                 scale=scale, tree=tree)
     global _fn
-    qg, kb, vb, tree, G = K.verify_operands("verify_attention", q, blk_k,
-                                            blk_v, tree, Hkv)
-    K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, hd))
-    K.check_cuda_input("v", v, torch.bfloat16, (B, Hkv, S, hd))
+    q, blk_k, blk_v, tree, G, width = K.verify_padded(
+        "verify_attention", q, blk_k, blk_v, tree, Hkv)
+    K.check_verify_operands(q, blk_k, blk_v, tree)
+    k, v = K.pad_last(k, width), K.pad_last(v, width)
+    K.check_cuda_input("k", k, torch.bfloat16, (B, Hkv, S, width))
+    K.check_cuda_input("v", v, torch.bfloat16, (B, Hkv, S, width))
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    out = torch.empty_like(qg)
+    out = torch.empty_like(q)
     if _fn is None:
         _fn = K.c_function("verify_attention", "verify_attention_bf16",
                            [K.P] * 8 + [K.I] * 7 + [K.F, K.P])
-    rc = _fn(qg.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
-             vb.data_ptr(), pos.data_ptr(),
+    rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), blk_k.data_ptr(),
+             blk_v.data_ptr(), pos.data_ptr(),
              None if tree is None else tree.data_ptr(), out.data_ptr(),
-             B, Hkv, G, Kb, S, hd, int(ring), float(scale), K.stream_ptr(q))
+             B, Hkv, G, Kb, S, width, int(ring), float(scale),
+             K.stream_ptr(q))
     K.check_launch("verify_attention", rc)
     if ring:
         verify_attention.launches_ring += 1
     else:
         verify_attention.launches += 1
-    return K.verify_output(out, Kb, H)
+    return out[..., :hd]
 
 
 verify_attention.launches = 0

@@ -146,14 +146,16 @@ def mlstm_recurrent(q, k, v, li, lf, state=None):
     return torch.stack(hs, dim=2), (C, n, m)
 
 
-def mlstm_chunkwise(q, k, v, li, lf, chunk: int, state=None):
+def mlstm_chunkwise(q, k, v, li, lf, chunk: int, state=None, scale=None):
     """Chunked form: the quadratic form inside each chunk plus the
-    recurrent hand-off of (C, n, m) across chunks.  L % chunk == 0."""
+    recurrent hand-off of (C, n, m) across chunks.  L % chunk == 0.  The
+    keys are scaled by 1/sqrt(dk), or by ``scale`` where given (a width
+    padded with zero columns keeps its true width's scale)."""
     L, dk = q.shape[2], q.shape[3]
     if L % chunk:
         raise ValueError(f"L {L} is not a multiple of the chunk {chunk}")
     C_p, n_p, m_p = _fresh(q, v.shape[-1]) if state is None else state
-    sq = math.sqrt(dk)
+    sq = math.sqrt(dk) if scale is None else 1.0 / scale
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=q.device).tril()
     hs = []

@@ -7,9 +7,13 @@ scaled by the plain values' largest magnitude where it passes 1; one
 shard's f32 decode partial (acc, m, l) within 1e-4 of the plain values'
 largest magnitude, and exactly (0, -1e30, 0) on a row that owns nothing;
 the grouped matmul's bf16 output within one bf16 ulp, 1e-4 + 2**-7
-|plain|).  Flash and the grouped matmul are held over their whole
-domain: any head width (padded past the instantiated 32/64/128/256) and
-group, any C, D and F.  Every test here is marked
+|plain|).  Every kernel is held over the Pallas kernels' domain: the
+attention kernels over any head width up to 256 (padded past the
+instantiated 32/64/128/256) and any group (the decode bodies padded to
+1/2/4/8/16 heads, in slices of 16 past that), the scan over any state
+size up to 64, the mLSTM over any width up to 512, the grouped matmul
+over any C, D and F; paged verify equals row verify bit for bit over the
+same keys.  Every test here is marked
 ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -149,10 +153,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     # head_dim 48 is no longer refused: it runs padded to 64
     _close(flash_attention(qb[..., :48], qb[..., :48], qb[..., :48]),
            mha_reference(qb[..., :48], qb[..., :48], qb[..., :48]))
-    kv = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="group"):
-        decode_attention(torch.zeros(1, 48, 64, dtype=torch.bfloat16,
-                                     device="cuda"), kv, kv, 3)
+    # a group of 12 is no longer refused: it runs padded to 16
+    kv = torch.randn(1, 4, 8, 64, device="cuda").to(torch.bfloat16)
+    qd = torch.randn(1, 48, 64, device="cuda").to(torch.bfloat16)
+    _close(decode_attention(qd, kv, kv, 3), decode_reference(qd, kv, kv, 3))
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        decode_attention(torch.zeros(1, 4, 300, dtype=torch.bfloat16,
+                                     device="cuda"),
+                         torch.zeros(1, 4, 8, 300, dtype=torch.bfloat16,
+                                     device="cuda"),
+                         torch.zeros(1, 4, 8, 300, dtype=torch.bfloat16,
+                                     device="cuda"), 3)
 
 
 # ---------------------------------------------------------------------------
@@ -187,18 +198,24 @@ def _tree(gen, B, Kb):
     return ((bits & below) | (torch.ones_like(i) << i)).contiguous()
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("Kb", [1, 5, 128])
-def test_verify_and_int8_kernels_match_plain(gen, hd, G, Kb):
+@pytest.mark.parametrize("page", [16, 256])
+@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("Kb", [1, 29, 128])
+def test_verify_and_int8_kernels_match_plain(gen, hd, G, Kb, page):
     """Row verify, paged verify (bf16 and int8 pools, causal and, for
     Kb <= 31, a tree mask) and int8 paged decode, each against its plain
-    version on the same CUDA tensors; rows at pos 0 (the block alone)
-    and mid-page.  Each body counts its own launches."""
+    version on the same CUDA tensors, over the verify kernels' whole
+    domain: every instantiated width (48 runs padded), groups that do and
+    do not divide the 128-row tile, blocks that end mid-tile, pages
+    shorter and longer than a key tile.  Rows at pos 0 (the block alone)
+    and at 300 (full key tiles, then one that ends mid-tile, mid-page).
+    Each body counts its own launches."""
     kernels.reset_launch_counts()
-    B, Hkv, page, P = 2, 2, 16, 4
+    B, Hkv = 2, 2
+    P = -(-(300 + Kb) // page)
     H, S = G * Hkv, P * page
-    pos = torch.tensor([0, 37], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 300], dtype=torch.int32, device="cuda")
     q = _rn(gen, B, Kb, H, hd)
     bk, bv = _rn(gen, B, Kb, Hkv, hd), _rn(gen, B, Kb, Hkv, hd)
     k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
@@ -233,6 +250,39 @@ def test_verify_and_int8_kernels_match_plain(gen, hd, G, Kb):
             paged_decode_attention.launches,
             paged_decode_attention.launches_int8) == (1 + n, 1, 1,
                                                       2 * (n - 1), 0, 1)
+
+
+@pytest.mark.parametrize("page", [12, 16, 256])
+@pytest.mark.parametrize("hd,G", [(64, 8), (128, 4), (32, 3)])
+def test_paged_verify_equals_row_verify_bitwise(gen, page, hd, G):
+    """A page pool holding the row cache's keys, page by page in shuffled
+    order, gives the row verify's output bit for bit: both run the same
+    body over the same keys in the same order (the pool's full tiles by
+    TMA a page at a time, or, at a page of 12 rows, copied by the
+    producer), causal and under a tree mask."""
+    B, Hkv, Kb = 2, 2, 24
+    H = G * Hkv
+    P = -(-(700 + Kb) // page)
+    S = P * page
+    pos = torch.tensor([700, 129], dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, Kb, H, hd)
+    bk, bv = _rn(gen, B, Kb, Hkv, hd), _rn(gen, B, Kb, Hkv, hd)
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    table = (torch.randperm(B * P, generator=gen, device="cuda") + 1)
+    table = table.reshape(B, P).to(torch.int32)
+    kp = torch.zeros(B * P + 1, Hkv, page, hd, dtype=torch.bfloat16,
+                     device="cuda")
+    vp = torch.zeros_like(kp)
+    rows = k.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
+    kp[table.long()] = rows
+    vp[table.long()] = v.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
+    for tree in (None, _tree(gen, B, Kb)):
+        row = verify_attention(q, k, v, bk, bv, pos, tree=tree)
+        paged = paged_verify_attention(q, kp, vp, bk, bv, table, pos,
+                                       tree=tree)
+        torch.cuda.synchronize()
+        assert torch.equal(row, paged)
+        _close(row, verify_reference(q, k, v, bk, bv, pos, tree=tree))
 
 
 def test_verify_kernels_never_read_past_pos_or_the_park_page(gen):
@@ -298,14 +348,23 @@ def test_verify_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         verify_attention(q, k, k, bk, bk, pos, tree=tree)
     with pytest.raises(ValueError, match="tree"):
         paged_verify_attention(q, kp, kp, bk, bk, table, pos, tree=tree)
-    q, bk = blk(4, H=6)                                 # G = 3
-    with pytest.raises(ValueError, match="group"):
-        verify_attention(q, k, k, bk, bk, pos)
-    q, bk = blk(4, d=48)                                # head dim 48
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_verify_attention(q, kp[..., :48].contiguous(),
-                               kp[..., :48].contiguous(), bk, bk, table,
-                               pos)
+    # a group of 3 and head_dim 48 are no longer refused: any group runs,
+    # and 48 runs padded to 64
+    q = torch.randn(B, 4, 6, hd, device="cuda").to(torch.bfloat16)
+    bk = torch.randn(B, 4, Hkv, hd, device="cuda").to(torch.bfloat16)
+    kr = torch.randn(B, Hkv, P * page, hd, device="cuda").to(torch.bfloat16)
+    pool = torch.randn(3, Hkv, page, hd, device="cuda").to(torch.bfloat16)
+    _close(verify_attention(q, kr, kr, bk, bk, pos + 5),
+           verify_reference(q, kr, kr, bk, bk, pos + 5))
+    q, bk, pool = q[..., :48], bk[..., :48], pool[..., :48]
+    _close(paged_verify_attention(q, pool, pool, bk, bk, table, pos + 5),
+           paged_verify_reference(q, pool, pool, bk, bk, table, pos + 5))
+    q, bk = blk(4, d=300)                               # head dim 300
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        verify_attention(q, torch.zeros(B, Hkv, 32, 300, device="cuda",
+                                        dtype=torch.bfloat16),
+                         torch.zeros(B, Hkv, 32, 300, device="cuda",
+                                     dtype=torch.bfloat16), bk, bk, pos)
     q, bk = blk(4)
     with pytest.raises(TypeError, match="float32"):     # int8 pool, scales
         paged_verify_attention(q, kp.to(torch.int8), kp.to(torch.int8), bk,
@@ -328,18 +387,99 @@ def test_verify_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                                                    device="cuda"))
 
 
+# groups past the old 1/2/4/8 and widths past 32/64/128: groups padded
+# with zero heads to 4, 8 or 16 (20 in two launches, 16 + 4), widths padded
+# with zero columns (48, 96), 256 instantiated; starcoder2-7b's (9, 128)
+# and qwen3-moe-235b-a22b's (16, 128) attention among them
+WIDE_HEADS = [(3, 64), (9, 128), (16, 128), (12, 48), (20, 96), (16, 256),
+              (8, 256), (1, 256), (5, 32)]
+
+
+def _decode_case(gen, G, hd):
+    B, Hkv, page, P = 2, 2, 16, 5
+    pos = torch.tensor([3, 70], dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, G * Hkv, hd)
+    k, v = _rn(gen, B, Hkv, P * page, hd), _rn(gen, B, Hkv, P * page, hd)
+    table = _tables(gen, B, P, page, pos)
+    return q, k, v, table, pos, B * P + 1, Hkv, page
+
+
+@pytest.mark.parametrize("G,hd", WIDE_HEADS)
+def test_decode_kernel_takes_any_group_and_width(gen, G, hd):
+    """Row decode, full and ring, against its plain version; one launch
+    per 16 query heads of a kv head."""
+    kernels.reset_launch_counts()
+    q, k, v, _, pos, _, _, _ = _decode_case(gen, G, hd)
+    _close(decode_attention(q, k, v, pos), decode_reference(q, k, v, pos))
+    _close(decode_attention(q, k, v, pos, ring=True),
+           decode_reference(q, k, v, pos))
+    torch.cuda.synchronize()
+    n = -(-G // 16)
+    assert (decode_attention.launches,
+            decode_attention.launches_ring) == (n, n)
+
+
+@pytest.mark.parametrize("G,hd", WIDE_HEADS)
+def test_paged_decode_kernels_take_any_group_and_width(gen, G, hd):
+    """Paged decode over a bf16 and an int8 pool against its plain
+    version."""
+    kernels.reset_launch_counts()
+    q, _, _, table, pos, NP, Hkv, page = _decode_case(gen, G, hd)
+    kp, vp = _rn(gen, NP, Hkv, page, hd), _rn(gen, NP, Hkv, page, hd)
+    (kq, ks), (vq, vs) = (_int8_pool(gen, NP, Hkv, page, hd)
+                          for _ in range(2))
+    i8 = dict(k_scale=ks, v_scale=vs)
+    _close(paged_decode_attention(q, kp, vp, table, pos),
+           paged_decode_reference(q, kp, vp, table, pos))
+    _close(paged_decode_attention(q, kq, vq, table, pos, **i8),
+           paged_decode_reference(q, kq, vq, table, pos, **i8))
+    torch.cuda.synchronize()
+    n = -(-G // 16)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (n, n)
+
+
+@pytest.mark.parametrize("G,hd", WIDE_HEADS)
+def test_partial_kernels_take_any_group_and_width(gen, G, hd):
+    """One shard's partial, bf16 and int8, for each half of the bank as a
+    shard, against its plain version: acc, m and l."""
+    kernels.reset_launch_counts()
+    q, _, _, table, pos, NP, Hkv, page = _decode_case(gen, G, hd)
+    kp, vp = _rn(gen, NP, Hkv, page, hd), _rn(gen, NP, Hkv, page, hd)
+    (kq, ks), (vq, vs) = (_int8_pool(gen, NP, Hkv, page, hd)
+                          for _ in range(2))
+    for base, sl in ((0, slice(0, NP // 2)), (NP // 2, slice(NP // 2, NP))):
+        for pool, sc in (((kp, vp), {}),
+                         ((kq, vq), dict(k_scale=ks, v_scale=vs))):
+            loc = {n: t[sl].contiguous() for n, t in sc.items()}
+            kl, vl = (t[sl].contiguous() for t in pool)
+            _partial_close(
+                paged_decode_partial(q, kl, vl, table, pos, base, **loc),
+                paged_decode_partial_reference(q, kl, vl, table, pos, base,
+                                               **loc))
+    torch.cuda.synchronize()
+    n = -(-G // 16)
+    assert (paged_decode_partial.launches,
+            paged_decode_partial.launches_int8) == (2 * n, 2 * n)
+
+
 # ---------------------------------------------------------------------------
 # sliding-window rings and the selective scan
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 8, 9, 16])
 @pytest.mark.parametrize("Kb", [5, 64])
-def test_ring_decode_and_verify_kernels_match_plain(gen, Kb):
-    """head_dim 128, G 4, a ring of S = 64 slots, rows at pos 0, S-1
-    (the verify block wraps), S and 2S+3.  Ring slots not yet written
-    (pos < S) hold NaN: the kernels never read them.  The ring routes
-    count apart from the full-cache routes."""
+def test_ring_decode_and_verify_kernels_match_plain(gen, Kb, G, hd):
+    """Every instantiated width (48 padded) and groups that do and do not
+    divide the verify tile, a ring of S = 160 slots (full key tiles and a
+    partial one), rows at pos 0, S-1 (the verify block wraps), S and
+    2S+3.  Ring slots not yet written (pos < S) hold NaN: the kernels
+    never read them.  The ring routes count apart from the full-cache
+    routes."""
     kernels.reset_launch_counts()
-    B, H, Hkv, hd, S = 4, 8, 2, 128, 64
+    B, Hkv, S = 4, 2, 160
+    H = G * Hkv
     pos = torch.tensor([0, S - 1, S, 2 * S + 3], dtype=torch.int32,
                        device="cuda")
     k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
@@ -396,8 +536,37 @@ def test_ssm_scan_kernel_matches_plain(gen, d_in, N, L, init):
         assert got.shape == want.shape and torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
-    with pytest.raises(ValueError, match="N in"):
-        ssm_scan(u, dt, Bm[..., :4], Cm[..., :4], A[:, :4], D)
+    with pytest.raises(ValueError, match="N up to 64"):
+        ssm_scan(u, dt, torch.zeros(B, L, 65, device="cuda"),
+                 torch.zeros(B, L, 65, device="cuda"),
+                 torch.zeros(d_in, 65, device="cuda"), D)
+
+
+@pytest.mark.parametrize("N", [4, 12, 24, 32, 40, 64])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssm_scan_kernel_takes_any_state_size(gen, N, init):
+    """State sizes past the old 8 and 16: 32 and 64 instantiated, 4, 12,
+    24 and 40 zero-padded to the next; y and the final state against the
+    plain version, at jamba-v0.1-52b's d_in."""
+    kernels.reset_launch_counts()
+    B, L, d_in = 2, 40, 8192
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+    dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+    A = -torch.exp(rn(d_in, N) * 0.5)
+    D = rn(d_in)
+    s0 = rn(B, d_in, N) if init else None
+    y, s = ssm_scan(u, dt, Bm, Cm, A, D, s0)
+    wy, ws = selective_scan_reference(u, dt, Bm, Cm, A, D, s0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == 1
+    for got, want in ((y, wy), (s, ws)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("dh", [64, 384])
@@ -429,8 +598,35 @@ def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk):
         assert got.shape == want.shape and torch.isfinite(got).all()
         torch.testing.assert_close(
             got, want, rtol=0, atol=tol * max(1.0, float(want.abs().max())))
-    with pytest.raises(ValueError, match="multiple of 64"):
-        mlstm_chunk(q[..., :48], k[..., :48], v[..., :48], li, lf)
+    with pytest.raises(ValueError, match="dh up to 512"):
+        mlstm_chunk(*(torch.zeros(1, 1, 8, 520, device="cuda")
+                      for _ in range(3)), li[:1, :1, :8], lf[:1, :1, :8])
+
+
+@pytest.mark.parametrize("dh", [48, 96, 200])
+def test_mlstm_chunk_kernel_takes_any_width(gen, dh):
+    """Widths that are not a multiple of 64 run zero-padded to the next
+    one, at their own scale 1/sqrt(dh): h and the final (C, n, m)
+    against the plain version, two chunks of 128."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launch_counts()
+    B, H, L = 2, 2, 256
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = rn(B, H, L, dh), rn(B, H, L, dh), rn(B, H, L, dh)
+    li = rn(B, H, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, H, L) + 1.0)
+    h, fin = mlstm_chunk(q, k, v, li, lf, chunk=128)
+    wh, wfin = mlstm_chunk_reference(q, k, v, li, lf, 128)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.launches == 1
+    pairs = [(h, wh, 5e-4)] + list(zip(fin, wfin, (5e-4, 5e-4, 1e-5)))
+    for got, want, tol in pairs:
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=tol * max(1.0, float(want.abs().max())))
 
 
 # ---------------------------------------------------------------------------
@@ -541,8 +737,12 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16"):
         paged_decode_partial(torch.zeros(2, 4, 64, device="cuda"), pool,
                              pool, table, 5, 0)
-    with pytest.raises(ValueError, match="group"):
-        paged_decode_partial(torch.zeros(2, 6, 64, dtype=torch.bfloat16,
-                                         device="cuda"),
-                             pool[:, :1].contiguous(),
-                             pool[:, :1].contiguous(), table, 5, 0)
+    # a group of 6 is no longer refused: it runs padded to 8
+    qp = torch.randn(2, 6, 64, device="cuda").to(torch.bfloat16)
+    pool = torch.randn(4, 1, 16, 64, device="cuda").to(torch.bfloat16)
+    table = torch.tensor([[1, 2, 0], [3, 0, 0]], dtype=torch.int32,
+                         device="cuda")
+    pos = torch.tensor([20, 10], dtype=torch.int32, device="cuda")
+    _partial_close(paged_decode_partial(qp, pool, pool, table, pos, 0),
+                   paged_decode_partial_reference(qp, pool, pool, table, pos,
+                                                  0))
