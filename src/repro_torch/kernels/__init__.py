@@ -96,7 +96,43 @@ F = ctypes.c_float
 MAX_TREE = 31       # a tree bitmask lives in a non-negative int32
 
 HEAD_DIMS = (32, 64, 128, 256)   # the attention kernels' instantiated widths
-DECODE_GROUPS = (1, 2, 4, 8, 16)  # the decode bodies' instantiated groups
+DECODE_GROUPS = (1, 2, 4, 8, 16)  # the decode family's launch groups
+
+
+DECODE_TILE = 64        # keys of a decode tile (kernels/csrc/decode_tc.cuh)
+MAX_DECODE_SPLITS = 8   # blocks of a decode cluster, at most
+
+
+def decode_splits(B: int, Hkv: int, cap: int, sms: int) -> int:
+    """The blocks (1, 2, 4 or 8, one cluster) over which a one-token
+    decode splits the keys of each (row, kv head), from shapes alone: the
+    most that keep ``B * Hkv * splits`` blocks within two a streaming
+    multiprocessor (``sms`` of them) and give every block at least one of
+    the ``cap`` keys' 64-key tiles.  Never the rows' positions: reading
+    them would sync the host and break CUDA-graph capture."""
+    tiles = -(-cap // DECODE_TILE)
+    s = 1
+    while (2 * s <= MAX_DECODE_SPLITS and 2 * s <= tiles
+           and B * Hkv * 2 * s <= 2 * sms):
+        s *= 2
+    return s
+
+
+def decode_runs(cap: int, splits: int) -> list[tuple[int, int]]:
+    """The key run ``[lo, hi)`` that each block of a decode cluster folds:
+    the ``ceil(cap / 64)`` tiles cut by key index, block r taking tiles
+    ``[r T / splits, (r + 1) T / splits)``.  The same for a row cache and
+    a page pool of ``cap`` keys a row (page ids never enter it); the
+    kernel clips each run to the row's keys ``[0, pos]``."""
+    tiles = -(-cap // DECODE_TILE)
+    return [(min(cap, DECODE_TILE * (r * tiles // splits)),
+             min(cap, DECODE_TILE * ((r + 1) * tiles // splits)))
+            for r in range(splits)]
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card that holds ``t``."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def kernel_head_dim(hd: int) -> int:

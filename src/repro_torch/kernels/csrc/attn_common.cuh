@@ -1,9 +1,10 @@
 // Shared device code of the attention kernels: warp reductions, row loads
 // (bf16, or int8 codes times a per-row scale), the Rows functor that says
 // where key t of one (row, kv head) lives and how it is stored, and the
-// one-token flash-decode fold (row and paged decode, and one shard's
-// unnormalized partial).  The multi-query verify body (row and paged
-// verify, chunked prefill) is verify_tc.cuh, on the tensor cores.
+// CUDA-core flash-decode fold of one shard's unnormalized partial
+// (paged_partial.cu).  The one-token decode (row and paged) is
+// decode_tc.cuh, the multi-query verify body (row and paged verify,
+// chunked prefill) verify_tc.cuh, both on the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,8 +99,7 @@ __device__ __forceinline__ void load_row(const int8_t* __restrict__ src,
 }
 
 // How keys and values are stored.  Both index an (HD,) key or value row
-// by its flat row number r in the cache tensor (row cache: (b*Hkv+h)*S+t;
-// page pool: (pid*Hkv+h)*page+slot).
+// by its flat row number r in the page pool, (pid*Hkv+h)*page+slot.
 template <int HD>
 struct Bf16KV {                   // full precision
   const bf16* k;
@@ -130,25 +130,8 @@ struct Int8KV {                   // int8 codes + one f32 scale per row
   }
 };
 
-// Where key t of one (row, kv head) lives: a contiguous run of rows...
-struct ContigMap {
-  size_t base;
-  __device__ __forceinline__ size_t operator()(int t) const {
-    return base + t;
-  }
-};
-
-// ... or slot t % page of pool page table[t / page].
-struct PagedMap {
-  const int* table;               // (P,) page ids of this row
-  int page, Hkv, h;
-  __device__ __forceinline__ size_t operator()(int t) const {
-    return ((size_t)table[t / page] * Hkv + h) * page + (t % page);
-  }
-};
-
 // Key / value t of one (row, kv head): N values from head dim c, as
-// floats.  The attention blocks below read every key through this.
+// floats.  The decode fold below reads every key through this.
 template <class KV, class Map>
 struct Rows {
   KV kv;
@@ -163,23 +146,14 @@ struct Rows {
   }
 };
 
-// Which keys of a one-token decode a lane may fold: all of them (row and
-// paged decode), or those a predicate admits (one shard's partial over
-// the pages it owns).
+// Which keys of a one-token decode a lane may fold: all of them, or those
+// a predicate admits (one shard's partial over the pages it owns).
 struct AllKeys {
   __device__ __forceinline__ bool operator()(int) const { return true; }
 };
 
-// Epilogues of the decode fold: the normalized output in bf16 ...
-struct NormOut {
-  bf16* out;                      // (G, HD)
-  __device__ __forceinline__ void operator()(int i, int, int, float A,
-                                             float L, float) const {
-    out[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
-  }
-};
-
-// ... or the unnormalized flash state in f32: acc (G, HD), m and l (G,).
+// The epilogue of the decode fold: the unnormalized flash state in f32,
+// acc (G, HD), m and l (G,).
 struct PartialOut {
   float* acc;
   float* m;
@@ -335,15 +309,6 @@ __device__ __forceinline__ void decode_fold(const bf16* __restrict__ q,
 template <int HD, int G>
 constexpr int decode_warps() {
   return 10240 / (G * (HD + 32)) >= 8 ? 8 : 10240 / (G * (HD + 32));
-}
-
-// The normalized one-token decode over keys [0, n) (row and paged decode).
-template <int HD, int G, int NW, class R>
-__device__ __forceinline__ void decode_block(const bf16* __restrict__ q,
-                                             const R& rows, int n,
-                                             float scale,
-                                             bf16* __restrict__ out) {
-  decode_fold<HD, G, NW>(q, rows, n, AllKeys{}, scale, NormOut{out});
 }
 
 }  // namespace repro

@@ -9,57 +9,44 @@
 // What bounds it on an H100: bytes.  A decode step reads each row's cache
 // up to its position once (2 * (pos+1) * hd bf16 per kv head) and does
 // 4 * G * hd flops per key -- about 2 * G flops per byte, far below the
-// ~295 flop/byte ridge of the card, so HBM bandwidth is the limit.
+// ~295 flop/byte ridge of the card, so HBM bandwidth is the limit; at a
+// few hundred keys a row, the launch's latency.
 //
-// What the design does about it: one block per (row, kv head) with the G
-// query heads of that kv head batched together, so every K/V byte is
-// loaded from HBM once and reused G times from registers; keys past the
-// row's position are never loaded (the per-row skip of the TPU kernel's
-// `k_start <= pos` tile gate, at key granularity); the running softmax
-// state (m, l, acc) lives in registers for the whole scan -- the loop
-// inside the block replaces the TPU grid's sequential "arbitrary" axis.
-// Instantiated for head widths 32/64/128/256 and groups 1/2/4/8/16 (the
-// wrapper pads any other width or group with zeros); a wide group keeps
-// fewer warps a block (decode_warps), so its combine fits in shared memory.
-// Not yet done: splitting one row's keys over several blocks, so a small
-// batch (B * Hkv blocks) fills only part of the 132 SMs.
-#include "attn_common.cuh"
-
-namespace {
-
-using repro::bf16;
-
-template <int HD, int G, int NW>
-__global__ void __launch_bounds__(NW * 32)
-decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const int* __restrict__ pos,
-              bf16* __restrict__ out, int Hkv, int S, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t bh = (size_t)b * Hkv + h;
-  // key t of this (row, kv head) is row bh*S + t of the cache
-  repro::Rows<repro::Bf16KV<HD>, repro::ContigMap> rows{{k, v}, {bh * S}};
-  const int n = min(pos[b], S - 1) + 1;     // keys 0..pos are valid
-  repro::decode_block<HD, G, NW>(q + bh * G * HD, rows, n, scale,
-                                 out + bh * G * HD);
-}
-
-}  // namespace
+// What the design does about it: the tensor-core decode body of
+// decode_tc.cuh, shared with the paged decode.  The G query heads of a kv
+// head share every K/V byte (the M rows of mma.sync); a row's keys are
+// split by key index over a cluster of up to 8 blocks (grid (splits, Hkv,
+// B)), so a small batch still fills the SMs, and the blocks merge their
+// flash states through distributed shared memory in the same launch; K/V
+// tiles of 64 keys stream through a 3-4 stage cp.async ring; keys past
+// the row's position are never loaded (the per-row skip of the TPU
+// kernel's `k_start <= pos` tile gate, at key granularity).  The row
+// cache is read as a store whose page b holds row b's S slots, so the
+// paged decode over the same keys gives this output bit for bit.
+// Instantiated for head widths 32/64/128/256, any group up to 16 (the
+// wrapper pads other widths and groups with zeros).
+#include "decode_tc.cuh"
 
 // q (B, Hkv, G, hd), k/v (B, Hkv, S, hd) bf16, pos (B,) int32,
-// out (B, Hkv, G, hd) bf16; all contiguous.  Returns a cudaError_t.
+// out (B, Hkv, G, hd) bf16; all contiguous.  `splits` (1, 2, 4 or 8) is
+// the blocks a row's keys are split over (kernels.decode_splits).
+// Returns a cudaError_t.
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* pos,
                                      void* out, int B, int Hkv, int G,
-                                     int S, int hd, float scale,
+                                     int S, int hd, int splits, float scale,
                                      void* stream) {
-  const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                    \
-  decode_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>                   \
-      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                     \
-         (cudaStream_t)stream>>>(                                          \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)pos,    \
-      (bf16*)out, Hkv, S, scale)
-  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  repro::dtc::Args a{};
+  a.q = (const repro::bf16*)q;
+  a.k = k;
+  a.v = v;
+  a.pos = (const int*)pos;
+  a.out = (repro::bf16*)out;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.P = 1;
+  a.page = S;
+  a.cap = S;
+  return repro::dtc::dispatch<false>(hd, a, B, splits, scale,
+                                     (cudaStream_t)stream);
 }

@@ -1,7 +1,10 @@
 """Public wrapper of the flash-decode kernel (row cache).
 
 A CPU tensor runs the plain version (``ref.decode_reference``); a CUDA
-tensor launches ``csrc/decode_attention.cu`` or raises.
+tensor launches ``csrc/decode_attention.cu`` or raises.  One launch a call
+(a slice of 16 query heads a launch past 16): a cluster of
+``kernels.decode_splits`` blocks a (row, kv head), chosen from shapes
+alone, so a call reads nothing back from the card.
 
 The ring route (a sliding-window cache of S == window slots) runs the same
 kernel body and plain version: the JAX ring mask ``(idx <= pos % S) |
@@ -47,9 +50,10 @@ def decode_attention(q, k, v, pos, *, ring: bool = False,
         out = torch.empty_like(qp)
         if _fn is None:
             _fn = K.c_function("decode_attention", "decode_attention_bf16",
-                               [K.P] * 5 + [K.I] * 5 + [K.F, K.P])
+                               [K.P] * 5 + [K.I] * 6 + [K.F, K.P])
+        splits = K.decode_splits(B, Hkv, S, K.sm_count(qp))
         rc = _fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), B, Hkv, G, S, width, float(scale),
+                 out.data_ptr(), B, Hkv, G, S, width, splits, float(scale),
                  K.stream_ptr(qp))
         K.check_launch("decode_attention", rc)
         if ring:

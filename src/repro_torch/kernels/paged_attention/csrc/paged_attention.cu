@@ -20,12 +20,18 @@
 // What the design does about it: the TPU kernel's scalar-prefetched
 // BlockSpec index map (pt[b, j]) becomes the block reading its own page
 // ids: key t of row b lives at pool[table[b, t / page], h, t % page].
-//   * decode: the decode block of attn_common.cuh (PagedMap), one block
-//     per (row, kv head), the G query heads sharing every K/V byte; the
-//     storage is a template argument of the same body (Bf16KV, or Int8KV:
-//     codes and the (NP, Hkv, page) f32 scales, dequantized in registers
-//     before the dot product).  Only keys 0..pos are visited.
-//     Instantiated for head widths 32/64/128/256 and groups 1/2/4/8/16.
+//   * decode: the tensor-core decode body of decode_tc.cuh, shared with
+//     the row-cache decode: the G query heads of a kv head are the M rows
+//     of mma.sync and share every K/V byte; a row's keys are split by key
+//     index (never by page id) over a cluster of up to 8 blocks that merge
+//     their flash states through distributed shared memory in the same
+//     launch; every 16-byte chunk of a 64-key tile finds its page itself
+//     and streams in by cp.async through a 3-4 stage ring, so any page
+//     size works and no descriptor is encoded on the host.  An int8
+//     pool's codes are copied as bytes and converted to bf16 in shared
+//     memory; the k scales multiply score columns, the v scales the
+//     probabilities.  Only keys 0..pos are loaded.  Instantiated for head
+//     widths 32/64/128/256, any group up to 16.
 //   * verify: the tensor-core verify body of verify_tc.cuh, shared with
 //     the row-cache verify: one block per (128 score rows, kv head, row),
 //     Q K^T and P V as wgmma, each cache tile read once for all its rows.
@@ -41,51 +47,49 @@
 //     under the causal or tree mask, in one softmax.
 // In both, a page starting past the last read position -- and the
 // park page 0 that dead table entries point at -- is never read.
-#include "attn_common.cuh"
+#include "decode_tc.cuh"
 #include "verify_tc.cuh"
 
 namespace {
 
-using repro::bf16;
-
-template <int HD, int G, int NW, class KV>
-__global__ void __launch_bounds__(NW * 32)
-paged_decode_kernel(const bf16* __restrict__ q, KV kv,
-                    const int* __restrict__ table,
-                    const int* __restrict__ pos, bf16* __restrict__ out,
-                    int Hkv, int P, int page, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t bh = (size_t)b * Hkv + h;
-  repro::Rows<KV, repro::PagedMap> rows{kv,
-                                        {table + (size_t)b * P, page, Hkv, h}};
-  const int n = min(pos[b], P * page - 1) + 1;
-  repro::decode_block<HD, G, NW>(q + bh * G * HD, rows, n, scale,
-                                 out + bh * G * HD);
+// the decode's launch: the pool side of `a` set by the caller
+int paged_decode(const void* q, const int* table, const void* pos,
+                 void* out, int B, int Hkv, int G, int P, int page, int hd,
+                 int splits, float scale, repro::dtc::Args a, bool quant,
+                 void* stream) {
+  if (P < 1 || page < 1) return (int)cudaErrorInvalidValue;
+  a.q = (const repro::bf16*)q;
+  a.table = table;
+  a.pos = (const int*)pos;
+  a.out = (repro::bf16*)out;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.P = P;
+  a.page = page;
+  a.cap = P * page;
+  return quant ? repro::dtc::dispatch<true>(hd, a, B, splits, scale,
+                                            (cudaStream_t)stream)
+               : repro::dtc::dispatch<false>(hd, a, B, splits, scale,
+                                             (cudaStream_t)stream);
 }
 
 }  // namespace
 
 // q (B, Hkv, G, hd) bf16, k/v pools (NP, Hkv, page, hd) bf16, table (B, P)
 // int32, pos (B,) int32, out (B, Hkv, G, hd) bf16; all contiguous.
-// Returns a cudaError_t.
+// `splits` (1, 2, 4 or 8) is the blocks a row's keys are split over
+// (kernels.decode_splits).  Returns a cudaError_t.
 extern "C" int paged_decode_attention_bf16(const void* q, const void* kp,
                                            const void* vp, const void* table,
                                            const void* pos, void* out, int B,
                                            int Hkv, int G, int P, int page,
-                                           int hd, float scale,
+                                           int hd, int splits, float scale,
                                            void* stream) {
-  const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                  \
-  paged_decode_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>          \
-      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                   \
-         (cudaStream_t)stream>>>(                                        \
-          (const bf16*)q,                                                \
-          repro::Bf16KV<HD_>{(const bf16*)kp, (const bf16*)vp},          \
-          (const int*)table, (const int*)pos, (bf16*)out, Hkv, P, page,  \
-          scale)
-  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  repro::dtc::Args a{};
+  a.k = kp;
+  a.v = vp;
+  return paged_decode(q, (const int*)table, pos, out, B, Hkv, G, P, page, hd,
+                      splits, scale, a, false, stream);
 }
 
 // As paged_decode_attention_bf16 over an int8 pool: k/v codes (NP, Hkv,
@@ -95,21 +99,15 @@ extern "C" int paged_decode_attention_int8(const void* q, const void* kp,
                                            const void* vs, const void* table,
                                            const void* pos, void* out, int B,
                                            int Hkv, int G, int P, int page,
-                                           int hd, float scale,
+                                           int hd, int splits, float scale,
                                            void* stream) {
-  const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                  \
-  paged_decode_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>          \
-      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                   \
-         (cudaStream_t)stream>>>(                                        \
-          (const bf16*)q,                                                \
-          repro::Int8KV<HD_>{(const int8_t*)kp, (const int8_t*)vp,       \
-                             (const float*)ks, (const float*)vs},        \
-          (const int*)table, (const int*)pos, (bf16*)out, Hkv, P, page,  \
-          scale)
-  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  repro::dtc::Args a{};
+  a.k = kp;
+  a.v = vp;
+  a.ks = (const float*)ks;
+  a.vs = (const float*)vs;
+  return paged_decode(q, (const int*)table, pos, out, B, Hkv, G, P, page, hd,
+                      splits, scale, a, true, stream);
 }
 
 // q (B, K, H, hd) bf16, H = Hkv * G; k/v pools (NP, Hkv, page, hd) bf16
@@ -130,7 +128,7 @@ extern "C" int paged_verify_attention_bf16(
   a.table = (const int*)table;
   a.pos = (const int*)pos;
   a.anc = (const int*)tree;
-  a.out = (bf16*)out;
+  a.out = (repro::bf16*)out;
   a.Hkv = Hkv;
   a.G = G;
   a.K = K;
@@ -157,7 +155,7 @@ extern "C" int paged_verify_attention_int8(
   a.table = (const int*)table;
   a.pos = (const int*)pos;
   a.anc = (const int*)tree;
-  a.out = (bf16*)out;
+  a.out = (repro::bf16*)out;
   a.Hkv = Hkv;
   a.G = G;
   a.K = K;

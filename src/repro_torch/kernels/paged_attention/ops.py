@@ -10,7 +10,10 @@ A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
 ``paged_verify_attention.launches_tree`` instead, whatever the pool.
 ``paged_decode_partial`` takes one shard's local slice of a sharded bank
-and the shard's first global page id.
+and the shard's first global page id.  The decode splits each (row, kv
+head)'s keys over a cluster of ``kernels.decode_splits`` blocks, by key
+index as the row-cache decode does, so a pool holding a row cache's keys
+gives that decode's output bit for bit.
 
 The decode and partial kernels are instantiated for head widths
 32/64/128/256 and groups 1/2/4/8/16, the verify kernel for the same
@@ -96,9 +99,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
         out = torch.empty_like(qp)
         sym = ("paged_decode_attention_int8" if quant
                else "paged_decode_attention_bf16")
-        rc = _c(sym, 4 + len(pool), 6)(
+        splits = K.decode_splits(B, Hkv, P * page, K.sm_count(qp))
+        rc = _c(sym, 4 + len(pool), 7)(
             qp.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, Hkv, G, P, page, width, float(scale),
+            out.data_ptr(), B, Hkv, G, P, page, width, splits, float(scale),
             K.stream_ptr(qp))
         K.check_launch(sym, rc)
         if quant:

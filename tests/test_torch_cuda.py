@@ -12,9 +12,11 @@ attention kernels over any head width up to 256 (padded past the
 instantiated 32/64/128/256) and any group (the decode bodies padded to
 1/2/4/8/16 heads, in slices of 16 past that), the scan over any state
 size up to 64, the mLSTM over any width up to 512, the grouped matmul
-over any C, D and F; paged verify equals row verify bit for bit over the
-same keys.  Every test here is marked
-``cuda`` and skips without a card.  This file imports neither JAX nor
+over any C, D and F; paged verify equals row verify, and paged decode
+row decode, bit for bit over the same keys.  The decode kernels are held
+at every split of a row's keys over a block cluster (1, 2, 4, 8 blocks),
+at each split boundary, with no host sync in a call.  Every test here is
+marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -437,6 +439,114 @@ def test_paged_decode_kernels_take_any_group_and_width(gen, G, hd):
     n = -(-G // 16)
     assert (paged_decode_attention.launches,
             paged_decode_attention.launches_int8) == (n, n)
+
+
+def _rows_for_splits(splits, Hkv, cap):
+    """Rows of a batch for which the wrappers split each (row, kv head)'s
+    keys over ``splits`` blocks on this card (``kernels.decode_splits``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = max(1, (2 * sms // splits) // Hkv)
+    assert kernels.decode_splits(B, Hkv, cap, sms) == splits
+    return B
+
+
+def _boundary_positions(B, cap, splits):
+    """pos 0 and cap - 1, and one key each side of every split boundary
+    (the row's last key one before, at and one past a run's first key),
+    cycled over B rows; the rows at small positions leave their later
+    splits empty."""
+    cuts = [lo for lo, _ in kernels.decode_runs(cap, splits)[1:]]
+    pos = [0, cap - 1] + [p for c in cuts for p in (c - 2, c - 1, c)]
+    return torch.tensor((pos * B)[:B], dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [16, 256])
+@pytest.mark.parametrize("hd,G", [(64, 8), (128, 4)])
+def test_decode_split_over_a_cluster_matches_plain(gen, splits, page, hd,
+                                                   G):
+    """Row (full and ring), paged bf16 and paged int8 decode at each split
+    the wrappers can choose, pos at 0, at cap - 1 and at each split
+    boundary +- 1; S = 592 slots (pages of 16: not a tile multiple) or 768
+    (pages of 256).  Slots past pos and the park page hold NaN: never
+    read.  One launch a call, and no call syncs with the host."""
+    Hkv = 2
+    P = 37 if page == 16 else 3
+    cap = P * page
+    B = _rows_for_splits(splits, Hkv, cap)
+    pos = _boundary_positions(B, cap, splits)
+    q = _rn(gen, B, G * Hkv, hd)
+    k, v = _rn(gen, B, Hkv, cap, hd), _rn(gen, B, Hkv, cap, hd)
+    table = _tables(gen, B, P, page, pos)
+    NP = B * P + 1
+    kp, vp = _rn(gen, NP, Hkv, page, hd), _rn(gen, NP, Hkv, page, hd)
+    (kq, ks), (vq, vs) = (_int8_pool(gen, NP, Hkv, page, hd)
+                          for _ in range(2))
+    i8 = dict(k_scale=ks, v_scale=vs)
+    want = (decode_reference(q, k, v, pos),
+            paged_decode_reference(q, kp, vp, table, pos),
+            paged_decode_reference(q, kq, vq, table, pos, **i8))
+    past = (torch.arange(cap, device="cuda")[None, None, :, None]
+            > pos[:, None, None, None])
+    k, v = (torch.where(past, float("nan"), t.float()).to(t.dtype)
+            for t in (k, v))
+    flat = torch.arange(P * page, device="cuda").reshape(1, P, page)
+    slot_past = flat > pos[:, None, None]                   # (B, P, page)
+    for pool in (kp, vp):
+        pool[table.long()] = torch.where(
+            slot_past[:, :, None, :, None], float("nan"),
+            pool[table.long()].float()).to(pool.dtype)
+        pool[0] = float("nan")                              # the park page
+    for scale in (ks, vs):
+        scale[table.long()] = torch.where(
+            slot_past[:, :, None, :], float("nan"), scale[table.long()])
+        scale[0] = float("nan")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (decode_attention(q, k, v, pos),
+               decode_attention(q, k, v, pos, ring=True),
+               paged_decode_attention(q, kp, vp, table, pos),
+               paged_decode_attention(q, kq, vq, table, pos, **i8))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for g, w in zip(got, (want[0],) + want):
+        assert torch.isfinite(g).all()
+        _close(g, w)
+    assert (decode_attention.launches, decode_attention.launches_ring,
+            paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (1, 1, 1, 1)
+
+
+@pytest.mark.parametrize("page", [1, 12, 16, 256])
+@pytest.mark.parametrize("hd,G", [(64, 8), (128, 4), (32, 3)])
+def test_paged_decode_equals_row_decode_bitwise(gen, page, hd, G):
+    """A bf16 page pool holding the row cache's keys, page by page in
+    shuffled order, gives the row decode's output bit for bit: both split
+    the same keys over the same cluster and fold them in the same order
+    (a page of 12 keys straddles the 64-key tiles; at a page of one key a
+    block's run holds more page ids than it stages, so it reads them from
+    the table)."""
+    B, Hkv = 4, 2
+    P = -(-1100 // page)
+    S = P * page
+    pos = torch.tensor([1099, 0, 63, 700], dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, G * Hkv, hd)
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    table = (torch.randperm(B * P, generator=gen, device="cuda") + 1)
+    table = table.reshape(B, P).to(torch.int32)
+    kp = torch.zeros(B * P + 1, Hkv, page, hd, dtype=torch.bfloat16,
+                     device="cuda")
+    vp = torch.zeros_like(kp)
+    kp[table.long()] = k.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
+    vp[table.long()] = v.reshape(B, Hkv, P, page, hd).permute(0, 2, 1, 3, 4)
+    row = decode_attention(q, k, v, pos)
+    paged = paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(row, paged)
+    _close(row, decode_reference(q, k, v, pos))
 
 
 @pytest.mark.parametrize("G,hd", WIDE_HEADS)
