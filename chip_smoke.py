@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 checkout (one nvcc per source, all in parallel), and the
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
                 in the SASS of the flash, gmm, paged and verify libraries,
-                of mma.sync (HMMA) and cp.async (LDGSTS) in the decode and
-                paged libraries (nonzero).
+                of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
+                paged and partial libraries (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 bank split into 4 slices, every base, rows that own no
                 page, bf16 and int8: acc, m and l each within 1e-4 times
                 max(1, the plain output's largest value), the merged
-                partials against one paged decode.  The grouped matmul
+                partials against one paged decode (bit for bit, in the
+                rows whose pages lie on one shard).  The grouped matmul
                 (B7) at mixtral-8x7b's expert shapes after a 4-shard
                 all_to_all, (2, 320, 4096) @ (2, 4096, 14336) and the
                 down product (2, 320, 14336) @ (2, 14336, 4096), within
@@ -325,7 +326,7 @@ def check_decode_rows(name, got, ref, q, k, v, mask, pos) -> None:
     import torch
     from repro_torch import kernels
     B, Hkv, T = k.shape[0], k.shape[1], k.shape[2]
-    splits = kernels.decode_splits(B, Hkv, T, kernels.sm_count(q))
+    splits = kernels.decode_splits(T)
     n = torch.clamp(pos.long(), max=T - 1) + 1                  # (B,)
     idx = torch.arange(T, device=q.device)[None, :]
     lost = torch.zeros(B, T, dtype=torch.bool, device=q.device)
@@ -356,13 +357,10 @@ def bound_ms(nbytes: float, flops: float,
 def kernel_phase(dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import (decode_attention,
-                                                          decode_reference)
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          mha_reference)
     from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_decode_attention, paged_decode_reference,
-        paged_verify_attention, paged_verify_reference)
+        gather_pages, paged_verify_attention, paged_verify_reference)
     from repro_torch.kernels.verify_attention.ops import (verify_attention,
                                                           verify_reference)
     from repro_torch.models.layers import PagedKV, _gather_dequant
@@ -474,95 +472,17 @@ def kernel_phase(dev) -> list[dict]:
         f"(window pairs / causal pairs {pairs / (S * (S + 1) // 2):.6f})")
     del q, k, v, got, ref, wmask
 
-    # row decode: B=8 rows at mixed positions up to 640, cache S=768
-    B, S = 8, 768
-    pos = torch.tensor([5, 77, 130, 255, 256, 400, 511, 640],
-                       dtype=torch.int32, device=dev)
-    q, k, v = rn(B, H, HD), rn(B, HKV, S, HD), rn(B, HKV, S, HD)
-    got = decode_attention(q, k, v, pos)
-    torch.cuda.synchronize()
-    ref = decode_reference(q, k, v, pos)
-    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])
-    mask = mask[:, None, None, :]
-    live = int((pos + 1).sum())
-    nbytes = 2 * 2 * q.numel() + 4 * B + 2 * 2 * live * HKV * HD
-    flops = 4 * live * H * HD
-    check_decode_rows("decode_attention", got, ref, q, k, v, mask, pos)
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
-    record("decode_attention",
-           "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-           "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
-           time_ms(lambda: decode_attention(q, k, v, pos), flush=flush),
-           time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
-           time_ms(sdpa, flush=flush), nbytes, flops)
-    log_kernel_time("decode_attention",
-                    lambda: decode_attention(q, k, v, pos), flush, sdpa)
+    decode_records(dev, gen, rn, flush, record)
 
-    # paged decode: page 256, 3 pages a row, tables in shuffled page
-    # order, entries past a row's position -> the park page 0
-    page, P = 256, 3
-    NP = B * P + 1
-    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
-    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
-    table = ids.reshape(B, P).to(torch.int32)
-    dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
-    table = torch.where(dead, torch.zeros_like(table), table).contiguous()
-    got = paged_decode_attention(q, kp, vp, table, pos)
-    torch.cuda.synchronize()
-    ref = paged_decode_reference(q, kp, vp, table, pos)
-    kg, vg = gather_pages(kp, table), gather_pages(vp, table)   # the library
-    nbytes += 4 * B * P                  # call reads rows gathered untimed
-    check_decode_rows("paged_decode_attention", got, ref, q, kg, vg, mask,
-                      pos)
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
-    record("paged_decode_attention",
-           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
-           time_ms(lambda: paged_decode_attention(q, kp, vp, table, pos),
-                   flush=flush),
-           time_ms(lambda: paged_decode_reference(q, kp, vp, table, pos),
-                   flush=flush),
-           time_ms(sdpa, flush=flush), nbytes, flops)
-    log_kernel_time("paged_decode_attention",
-                    lambda: paged_decode_attention(q, kp, vp, table, pos),
-                    flush, sdpa)
-    # int8 paged decode: the same rows, codes and per-token scales
+    # verify (chunked prefill): B=4 rows, a K=128 chunk each at positions
+    # 0, mid-page, a page boundary and mid second page; pages of 256
     def int8_pool(n):
         codes = torch.randint(-127, 128, (n, HKV, page, HD), generator=gen,
                               device=dev, dtype=torch.int8)
         return codes, torch.rand((n, HKV, page), generator=gen,
                                  device=dev) / 64
 
-    (kq, ks), (vq, vs) = int8_pool(NP), int8_pool(NP)
-    i8 = dict(k_scale=ks, v_scale=vs)
-    got = paged_decode_attention(q, kq, vq, table, pos, **i8)
-    ref = paged_decode_reference(q, kq, vq, table, pos, **i8)
-    kd, vd = _gather_dequant(PagedKV(kq, vq, ks, vs), table, torch.bfloat16)
-    nbytes = 2 * 2 * q.numel() + 4 * B + 4 * B * P + \
-        2 * (HD + 4) * live * HKV           # codes + one f32 scale a row
-    check_decode_rows("paged_decode_attention_int8", got, ref, q, kd, vd,
-                      mask, pos)
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True))
-    record("paged_decode_attention_int8",
-           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
-           time_ms(lambda: paged_decode_attention(q, kq, vq, table, pos,
-                                                  **i8), flush=flush),
-           time_ms(lambda: paged_decode_reference(q, kq, vq, table, pos,
-                                                  **i8), flush=flush),
-           time_ms(sdpa, flush=flush), nbytes, flops)
-    log_kernel_time("paged_decode_attention_int8",
-                    lambda: paged_decode_attention(q, kq, vq, table, pos,
-                                                   **i8), flush, sdpa)
-    del kp, vp, kq, vq, ks, vs, kg, vg, kd, vd
-    long_paged_record(dev, gen, rn, flush, record)
-
-    # verify (chunked prefill): B=4 rows, a K=128 chunk each at positions
-    # 0, mid-page, a page boundary and mid second page; pages of 256
-    B, K = 4, CHUNK
+    B, K, page = 4, CHUNK, 256
     vpos = torch.tensor([0, 100, 256, 384], dtype=torch.int32, device=dev)
     P = 3
     S = P * page                                             # 768 slots
@@ -678,7 +598,7 @@ def kernel_phase(dev) -> list[dict]:
     log_kernel_time("verify_attention",
                     lambda: verify_attention(qv, kr, vr, bk, bv, vpos), flush,
                     sdpa)
-    ring_records(dev, rn, flush, record)
+    ring_verify_record(dev, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
     partial_records(dev, gen, rn, flush, record)
@@ -687,98 +607,163 @@ def kernel_phase(dev) -> list[dict]:
     return out
 
 
-def long_paged_record(dev, gen, rn, flush, record) -> None:
-    """``paged_decode_attention_long``: the bf16 paged decode at
-    tinyllama-1.1b's heads (H=32, Hkv=4, hd=64) over rows long enough for
-    the decode's bytes to count: 8 rows at positions 1000 to 4000 through
-    shuffled page-256 tables of 16 pages (4096 keys a row), dead entries
-    on the park page 0.  The library call is one masked SDPA over the
-    gathered keys."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_decode_attention, paged_decode_reference)
-
-    B, page, P = 8, 256, 16
-    pos = torch.linspace(1000, 4000, B, device=dev).to(torch.int32)
-    NP = B * P + 1
-    q = rn(B, H, HD)
-    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
-    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
-    table = ids.reshape(B, P).to(torch.int32)
-    dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
-    table = torch.where(dead, torch.zeros_like(table), table).contiguous()
-    got = paged_decode_attention(q, kp, vp, table, pos)
-    torch.cuda.synchronize()
-    ref = paged_decode_reference(q, kp, vp, table, pos)
-    mask = torch.arange(P * page, device=dev)[None, :] <= pos[:, None]
-    mask = mask[:, None, None, :]
-    kg, vg = gather_pages(kp, table), gather_pages(vp, table)
-    check_decode_rows("paged_decode_attention_long", got, ref, q, kg, vg,
-                      mask, pos)
-    live = int((pos + 1).sum())
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True))
-    fn = (lambda: paged_decode_attention(q, kp, vp, table, pos))
-    record("paged_decode_attention_long",
-           "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-           "src/repro/kernels/paged_attention/kernel.py:130", got, ref,
-           time_ms(fn, flush=flush),
-           time_ms(lambda: paged_decode_reference(q, kp, vp, table, pos),
-                   flush=flush),
-           time_ms(sdpa, flush=flush),
-           2 * 2 * q.numel() + 4 * B + 4 * B * P + 2 * 2 * live * HKV * HD,
-           4 * live * H * HD)
-    log_kernel_time("paged_decode_attention_long", fn, flush, sdpa)
-
-
-def ring_records(dev, rn, flush, record) -> None:
-    """Ring decode and ring verify at mixtral-8x7b's shapes (H=32, Hkv=8,
-    hd=128) over a ring of 4096 slots (its window): decode 8 rows at
-    positions 100 to 9000, verify 4 rows with a 128-token block at 0,
-    2000, 4096 and 6000.  The library call is one masked SDPA over the
-    same keys (verify: cache plus block)."""
+def decode_cases(dev, gen, rn) -> dict:
+    """The decode records' inputs and calls, by record name: the row
+    decode at tinyllama-1.1b's heads (H=32, Hkv=4, hd=64: 8 rows at
+    positions 5 to 640 of 768 slots), the bf16 and int8 paged decode of
+    the same rows through shuffled page-256 tables (entries past a row's
+    position on the park page 0), ``paged_decode_attention_long`` (8
+    rows at positions 1000 to 4000 through tables of 16 pages: the
+    decode's bytes start to count) and the ring decode at mixtral-8x7b's
+    heads (H=32, Hkv=8, hd=128: 8 rows at positions 100 to 9000 of a
+    4096-slot ring).  Each case is a dict: ``fn`` (the port's call),
+    ``plain`` (its plain version) and ``sdpa`` (the library call, one
+    masked SDPA over the same keys, gathered or dequantized untimed) take
+    no argument; ``q``, ``k``, ``v`` (the keys a row reads, in key
+    order), ``mask`` and ``pos`` serve the row checks, ``nbytes`` and
+    ``flops`` the bound; the ring case also carries its planted
+    ``fault`` and its one-ulp ``tol``.  The wrappers are imported here,
+    so ``tools/decode_times.py`` times any tree's through the same
+    cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_reference)
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_decode_attention, paged_decode_reference)
+    from repro_torch.models.layers import PagedKV, _gather_dequant
+
+    def sdpa(q, k, v, mask):
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+    def key_mask(pos, T):
+        return (torch.arange(T, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+
+    def tables(B, P, page, pos):
+        NP = B * P + 1
+        ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
+        table = ids.reshape(B, P).to(torch.int32)
+        dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
+        return torch.where(dead, torch.zeros_like(table), table).contiguous()
+
+    row_src = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+    paged_src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+    row_tpu = "src/repro/kernels/decode_attention/kernel.py:75"
+    paged_tpu = "src/repro/kernels/paged_attention/kernel.py:130"
+    cases = {}
+    B, S, page, P = 8, 768, 256, 3
+    pos = torch.tensor([5, 77, 130, 255, 256, 400, 511, 640],
+                       dtype=torch.int32, device=dev)
+    q, k, v = rn(B, H, HD), rn(B, HKV, S, HD), rn(B, HKV, S, HD)
+    mask = key_mask(pos, S)
+    live = int((pos + 1).sum())
+    flops = 4 * live * H * HD
+    qb = 2 * 2 * q.numel() + 4 * B                  # q in, out, pos
+    cases["decode_attention"] = dict(
+        fn=lambda: decode_attention(q, k, v, pos),
+        plain=lambda: decode_reference(q, k, v, pos), sdpa=sdpa(q, k, v, mask),
+        q=q, k=k, v=v, mask=mask, pos=pos, src=row_src, replaces=row_tpu,
+        nbytes=qb + 2 * 2 * live * HKV * HD, flops=flops)
+
+    NP = B * P + 1
+    table = tables(B, P, page, pos)
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    kg, vg = gather_pages(kp, table), gather_pages(vp, table)
+    cases["paged_decode_attention"] = dict(
+        fn=lambda: paged_decode_attention(q, kp, vp, table, pos),
+        plain=lambda: paged_decode_reference(q, kp, vp, table, pos),
+        sdpa=sdpa(q, kg, vg, mask), q=q, k=kg, v=vg, mask=mask, pos=pos,
+        src=paged_src, replaces=paged_tpu,
+        nbytes=qb + 4 * B * P + 2 * 2 * live * HKV * HD, flops=flops)
+
+    kq, vq = (torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
+              for _ in range(2))
+    i8 = dict(k_scale=ks, v_scale=vs)
+    kd, vd = _gather_dequant(PagedKV(kq, vq, ks, vs), table, torch.bfloat16)
+    cases["paged_decode_attention_int8"] = dict(
+        fn=lambda: paged_decode_attention(q, kq, vq, table, pos, **i8),
+        plain=lambda: paged_decode_reference(q, kq, vq, table, pos, **i8),
+        sdpa=sdpa(q, kd, vd, mask), q=q, k=kd, v=vd, mask=mask, pos=pos,
+        src=paged_src, replaces=paged_tpu,
+        nbytes=qb + 4 * B * P + 2 * (HD + 4) * live * HKV,  # codes + scale
+        flops=flops)
+
+    LP = PAGED_LONG_SHAPE[3]
+    lpos = torch.linspace(1000, 4000, B, device=dev).to(torch.int32)
+    ltable = tables(B, LP, page, lpos)
+    lkp, lvp = rn(B * LP + 1, HKV, page, HD), rn(B * LP + 1, HKV, page, HD)
+    lkg, lvg = gather_pages(lkp, ltable), gather_pages(lvp, ltable)
+    lmask = key_mask(lpos, LP * page)
+    llive = int((lpos + 1).sum())
+    cases["paged_decode_attention_long"] = dict(
+        fn=lambda: paged_decode_attention(q, lkp, lvp, ltable, lpos),
+        plain=lambda: paged_decode_reference(q, lkp, lvp, ltable, lpos),
+        sdpa=sdpa(q, lkg, lvg, lmask), q=q, k=lkg, v=lvg, mask=lmask,
+        pos=lpos, src=paged_src, replaces=paged_tpu,
+        nbytes=qb + 4 * B * LP + 2 * 2 * llive * HKV * HD,
+        flops=4 * llive * H * HD)
+
+    rpos = torch.tensor([100, 1000, 2047, 4095, 4096, 5000, 8191, 9000],
+                        dtype=torch.int32, device=dev)
+    rq, rk, rv = rn(B, MH, MHD), rn(B, MHKV, RING, MHD), rn(B, MHKV, RING,
+                                                            MHD)
+    idx = torch.arange(RING, device=dev)[None, :]
+    rmask = (idx <= (rpos % RING)[:, None]) | (rpos >= RING)[:, None]
+    rlive = int(rmask.sum())
+    # the fault: slot (pos+1) % S flipped -- a wrapped row loses its
+    # oldest key, a row below S reads one slot past pos
+    fault = rmask ^ (idx == ((rpos + 1) % RING)[:, None])
+    rmask, fault = rmask[:, None, None, :], fault[:, None, None, :]
+    cases["decode_attention_ring"] = dict(
+        fn=lambda: decode_attention(rq, rk, rv, rpos, ring=True),
+        plain=lambda: decode_reference(rq, rk, rv, rpos),
+        sdpa=sdpa(rq, rk, rv, rmask), q=rq, k=rk, v=rv, mask=rmask,
+        pos=rpos, src=row_src, replaces=row_tpu, fault=fault,
+        tol=dict(tol=RING_ATOL, rtol=RING_RTOL),
+        nbytes=2 * 2 * rq.numel() + 4 * B + 2 * 2 * rlive * MHKV * MHD,
+        flops=4 * rlive * MH * MHD)
+    return cases
+
+
+def decode_records(dev, gen, rn, flush, record) -> None:
+    """The decode records (``decode_cases``): each against its plain
+    version, each row also within ``ROW_RTOL`` with its two planted
+    faults (``check_decode_rows``), the ring first against its one-slot
+    mask fault at its one-ulp limit (``check_sensitivity``); timed with
+    CUDA events beside the plain version and SDPA, and by the profiler
+    beside SDPA's kernel time."""
+    import torch
+    for name, c in decode_cases(dev, gen, rn).items():
+        got = c["fn"]()
+        torch.cuda.synchronize()
+        ref = c["plain"]()
+        if "fault" in c:
+            check_sensitivity(name, c["q"][:, :, None], c["k"], c["v"],
+                              c["mask"], c["fault"])
+        check_decode_rows(name, got, ref, c["q"], c["k"], c["v"], c["mask"],
+                          c["pos"])
+        record(name, c["src"], c["replaces"], got, ref,
+               time_ms(c["fn"], flush=flush), time_ms(c["plain"], flush=flush),
+               time_ms(c["sdpa"], flush=flush), c["nbytes"], c["flops"],
+               **c.get("tol", {}))
+        log_kernel_time(name, c["fn"], flush, c["sdpa"])
+
+
+def ring_verify_record(dev, rn, flush, record) -> None:
+    """Ring verify at mixtral-8x7b's shapes (H=32, Hkv=8, hd=128) over a
+    ring of 4096 slots (its window): 4 rows with a 128-token block at 0,
+    2000, 4096 and 6000.  The library call is one masked SDPA over the
+    cache plus block.  (Ring decode is one of ``decode_cases``.)"""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.verify_attention.ops import (verify_attention,
                                                           verify_reference)
 
     S, G = RING, MH // MHKV
-    pos = torch.tensor([100, 1000, 2047, 4095, 4096, 5000, 8191, 9000],
-                       dtype=torch.int32, device=dev)
-    B = pos.numel()
-    q, k, v = rn(B, MH, MHD), rn(B, MHKV, S, MHD), rn(B, MHKV, S, MHD)
-    got = decode_attention(q, k, v, pos, ring=True)
-    torch.cuda.synchronize()
-    ref = decode_reference(q, k, v, pos)
-    idx = torch.arange(S, device=dev)[None, :]
-    mask = ((idx <= (pos % S)[:, None]) | (pos >= S)[:, None])
-    live = int(mask.sum())
-    # the fault: slot (pos+1) % S flipped -- a wrapped row loses its
-    # oldest key, a row below S reads one slot past pos
-    fault = mask ^ (idx == ((pos + 1) % S)[:, None])
-    mask, fault = mask[:, None, None, :], fault[:, None, None, :]
-    check_sensitivity("decode_attention_ring", q[:, :, None], k, v, mask,
-                      fault)
-    check_decode_rows("decode_attention_ring", got, ref, q, k, v, mask, pos)
-    sdpa = (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
-    record("decode_attention_ring",
-           "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-           "src/repro/kernels/decode_attention/kernel.py:75", got, ref,
-           time_ms(lambda: decode_attention(q, k, v, pos, ring=True),
-                   flush=flush),
-           time_ms(lambda: decode_reference(q, k, v, pos), flush=flush),
-           time_ms(sdpa, flush=flush),
-           2 * 2 * q.numel() + 4 * B + 2 * 2 * live * MHKV * MHD,
-           4 * live * MH * MHD, tol=RING_ATOL, rtol=RING_RTOL)
-    log_kernel_time("decode_attention_ring",
-                    lambda: decode_attention(q, k, v, pos, ring=True), flush,
-                    sdpa)
-    del k, v
-
     K = 128
     vpos = torch.tensor([0, 2000, 4096, 6000], dtype=torch.int32, device=dev)
     B = vpos.numel()
@@ -938,12 +923,13 @@ def partial_records(dev, gen, rn, flush, record) -> None:
     precision and int8.  Timed: the four shards' launches of one decode
     step.  No single library call returns (acc, m, l); the log sets the
     four partials merged (pmax/psum, then normalized) beside one SDPA
-    over the same rows."""
+    over the same rows, and in rows 0-4 the merged partials must be the
+    paged decode kernel's output bit for bit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_decode_partial, paged_decode_partial_reference,
-        paged_decode_reference)
+        gather_pages, paged_decode_attention, paged_decode_partial,
+        paged_decode_partial_reference, paged_decode_reference)
     from repro_torch.models.layers import (PagedKV, _gather_dequant,
                                            _psum_partials)
 
@@ -1038,6 +1024,18 @@ def partial_records(dev, gen, rn, flush, record) -> None:
         if not err <= TOL:
             raise AssertionError(f"{name}: merged partials {err} from the "
                                  "paged decode")
+        # rows whose live pages all lie on one shard: bit for bit the
+        # global paged decode kernel's output
+        live_pg = torch.arange(P, device=dev)[None, :] * page <= pos[:, None]
+        shard_of = torch.where(live_pg, table // Lp, table[:, :1] // Lp)
+        one = (shard_of == shard_of[:, :1]).all(1)
+        glob = paged_decode_attention(q, *pool, table, pos, **kw)
+        same = torch.equal(merged().to(torch.bfloat16)[one], glob[one])
+        log(f"kernel {name}: {int(one.sum())} rows on one shard, merged "
+            f"partials bitwise the paged decode's: {same}")
+        if not same:
+            raise AssertionError(f"{name}: merged partials of rows on one "
+                                 "shard differ from the paged decode")
 
 
 def gmm_record(dev, gen, flush, record) -> None:
@@ -1085,12 +1083,14 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 
 # the instructions each library's SASS must hold: wgmma (HGMMA) and TMA
 # loads (UTMALDG) in the flash, gmm and verify bodies; mma.sync (HMMA) and
-# cp.async (LDGSTS) in the decode body (the row and paged decode)
+# cp.async (LDGSTS) in the decode body (the row and paged decode and the
+# shard partial)
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "gmm": ("HGMMA", "UTMALDG"),
             "paged_attention": ("HGMMA", "UTMALDG", "HMMA", "LDGSTS"),
             "verify_attention": ("HGMMA", "UTMALDG"),
-            "decode_attention": ("HMMA", "LDGSTS")}
+            "decode_attention": ("HMMA", "LDGSTS"),
+            "paged_partial": ("HMMA", "LDGSTS")}
 
 
 def sass_counts() -> None:
@@ -1369,9 +1369,8 @@ def _tree(fn, tree):
 
 def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
-    ring routes count apart), and the launches of flash and gmm at the
-    shapes of their second records.  The long paged decode record is the
-    bf16 paged body at longer rows: it carries that body's count."""
+    ring routes count apart), and the launches of flash, gmm and the
+    paged decode at the shapes of their second records."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1388,7 +1387,8 @@ def _launch_counters() -> dict:
             "paged_decode_attention_int8":
                 lambda: paged_decode_attention.launches_int8,
             "paged_decode_attention_long":
-                lambda: paged_decode_attention.launches,
+                lambda: paged_decode_attention.launches_by_shape[
+                    PAGED_LONG_SHAPE],
             "verify_attention": lambda: verify_attention.launches,
             "verify_attention_ring": lambda: verify_attention.launches_ring,
             "paged_verify_attention":
@@ -1541,12 +1541,14 @@ def serving_phase(dev) -> dict:
 
 # records whose launches are a route's or a shape's of a kernel body also
 # carry the body's launches: no engine verifies a tree or a ring yet, so
-# those routes launch no time on the main path; the windowed flash and the
-# down product count the launches at their record's shape
+# those routes launch no time on the main path; the windowed flash, the
+# down product and the long paged decode count the launches at their
+# record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
               "verify_attention_ring": "verify_attention",
               "flash_attention_window": "flash_attention",
-              "gmm_down": "gmm"}
+              "gmm_down": "gmm",
+              "paged_decode_attention_long": "paged_decode_attention"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -1555,6 +1557,9 @@ LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # (E, C, D, F)
 FLASH_WINDOW_SHAPE = (1, MH, MHKV, LONG_PROMPT, MHD, RING)
 GMM_DOWN_SHAPE = (2, 320, 14336, 4096)
+# and the long paged decode's, (B, Hkv, G, P, page, hd): tinyllama-1.1b's
+# heads over 8 rows of 16 pages of 256
+PAGED_LONG_SHAPE = (8, HKV, H // HKV, 16, 256, HD)
 
 
 def moe_hybrid_pass(dev) -> dict:
@@ -1701,17 +1706,15 @@ def sharded_local_read_pass(dev) -> dict:
     the unsharded chunked engine's match the unsharded one-shot's.
     Then, at model level: 8 teacher-forced ``decode_step_pages`` steps
     with ``shard=`` against the same steps without it, on copies of the
-    engine's bank, through one layer and all 22 (relative L2 of the
-    logits); and a depth sweep
+    engine's bank (relative L2 of the logits); and a depth sweep
     (``SPAN_DEPTHS``) on a bank whose every row spans the shards: one
     128-token chunk through the sharded verify and 8 decode steps, each
     against the global read, beside two yardsticks of how a
     rounding-sized change grows with depth: the global read with 1% of
     the cached values moved by one bf16 ulp, and the chunk's last logits
     from the paged verify kernel against flash prefill of the prompt and
-    chunk together.  The engine's bank read through the model cut to one
-    layer (every row) and the sweep's one-layer cut are held to
-    ``LOCAL_READ_TOL``; the rest is logged.
+    chunk together.  Rows on one shard of the engine's bank and the
+    one-layer cut are held to ``LOCAL_READ_TOL``; the rest is logged.
     -> launch counts of the three sharded runs."""
     import gc
 
@@ -1788,8 +1791,8 @@ def sharded_local_read_pass(dev) -> dict:
         return ((got - want).norm() / want.norm()).item()
 
     def copies(bank):
-        return [[PagedKV(*(None if t is None else t.clone() for t in c))
-                 for c in bank] for _ in range(2)]
+        return [bank, [PagedKV(*(None if t is None else t.clone()
+                                 for t in c)) for c in bank]]
 
     def decode8(m, p, banks, tok, pos, table, live=None, groups=None):
         """Worst rel L2 over 8 teacher-forced steps, for each group of
@@ -1808,12 +1811,10 @@ def sharded_local_read_pass(dev) -> dict:
             pos = pos + (1 if live is None else live.to(pos.dtype))
         return worst
 
-    # (1) the bank the engine filled: decode_step_pages with shard=
-    # against the same steps without it, teacher-forced, on two copies of
-    # the bank, through the model cut to its first layer (held to the
-    # limit) and through all its layers (logged, beside the sweep's
-    # one-ulp yardstick: the global read's tensor-core decode and B5's
-    # CUDA-core fold round apart, which the random-weight layers grow)
+    # (1) the full model on the bank the engine filled: decode_step_pages
+    # with shard= against the same steps without it, teacher-forced, on
+    # two copies of the bank.  Rows on one shard are held to the limit;
+    # the spanning row is logged and read against the sweep below
     shards = ((mesh, mesh.axis_names[0]), None)
     eng = StepEngine(model, **base, **local)
     for p in prompts:
@@ -1826,25 +1827,19 @@ def sharded_local_read_pass(dev) -> dict:
     if not spans.any():
         raise AssertionError("sharded_local_read: no row of the engine's "
                              "bank spans the shards")
-    one_layer = build_model(override(cfg, num_layers=1), device=dev)
-    read = {}
-    for label, m, p, bank in (
-            ("one layer", one_layer,
-             {**params, "blocks": params["blocks"][:1]}, st.caches[:1]),
-            (f"{cfg.num_layers} layers", model, params, st.caches)):
-        read[label] = decode8(
-            m, p, copies(bank), torch.from_numpy(st.tok[:, None]).to(dev),
-            torch.from_numpy(st.pos).to(dev), st.table_dev,
-            torch.from_numpy(eng._live.copy()).to(dev),
-            groups={g: torch.from_numpy(r).to(dev) for g, r in (
-                ("one_shard", eng._live & ~spans), ("spanning", spans))})
-    del eng, st, one_layer
-    log("reference sharded_local_read vs the global read on the engine's "
-        "bank, rel_l2, worst of 8 decode steps: " + "; ".join(
-            f"{label}: rows on one shard {r['one_shard']:.4e}, the row that "
-            f"spans the shards {r['spanning']:.4e}"
-            for label, r in read.items())
-        + f" (limit {LOCAL_READ_TOL} at one layer)")
+    full = decode8(model, params, copies(st.caches),
+                   torch.from_numpy(st.tok[:, None]).to(dev),
+                   torch.from_numpy(st.pos).to(dev), st.table_dev,
+                   torch.from_numpy(eng._live.copy()).to(dev),
+                   groups={g: torch.from_numpy(m).to(dev) for g, m in (
+                       ("one_shard", eng._live & ~spans),
+                       ("spanning", spans))})
+    del eng, st
+    log(f"reference sharded_local_read vs the global read, rel_l2: "
+        f"{cfg.num_layers} layers on the engine's bank, worst of 8 decode "
+        f"steps: rows on one shard {full['one_shard']:.4e} (limit "
+        f"{LOCAL_READ_TOL}), the row that spans the shards "
+        f"{full['spanning']:.4e}")
 
     # (2) depth sweep on a bank whose rows all span the shards (row r's
     # page j on shard (r + j) % 4): the local read's gap to the global
@@ -1900,8 +1895,7 @@ def sharded_local_read_pass(dev) -> dict:
         "values moved by one bf16 ulp, vs without; "
         "verify_vs_flash: the chunk's last logits from the global paged "
         "verify vs flash prefill): " + json.dumps(sweep))
-    worst = max(*read["one layer"].values(), sweep[1]["chunk"],
-                sweep[1]["decode"])
+    worst = max(full["one_shard"], sweep[1]["chunk"], sweep[1]["decode"])
     if not worst <= LOCAL_READ_TOL:
         raise AssertionError(f"sharded_local_read: local-read logits rel L2 "
                              f"{worst} > {LOCAL_READ_TOL}")

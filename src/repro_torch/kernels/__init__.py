@@ -96,24 +96,26 @@ F = ctypes.c_float
 MAX_TREE = 31       # a tree bitmask lives in a non-negative int32
 
 HEAD_DIMS = (32, 64, 128, 256)   # the attention kernels' instantiated widths
-DECODE_GROUPS = (1, 2, 4, 8, 16)  # the decode family's launch groups
+MAX_DECODE_GROUP = 16   # query heads of one decode launch, at most
 
 
 DECODE_TILE = 64        # keys of a decode tile (kernels/csrc/decode_tc.cuh)
 MAX_DECODE_SPLITS = 8   # blocks of a decode cluster, at most
+DECODE_RUN = 2          # tiles a decode block folds, at least
 
 
-def decode_splits(B: int, Hkv: int, cap: int, sms: int) -> int:
+def decode_splits(cap: int) -> int:
     """The blocks (1, 2, 4 or 8, one cluster) over which a one-token
-    decode splits the keys of each (row, kv head), from shapes alone: the
-    most that keep ``B * Hkv * splits`` blocks within two a streaming
-    multiprocessor (``sms`` of them) and give every block at least one of
-    the ``cap`` keys' 64-key tiles.  Never the rows' positions: reading
-    them would sync the host and break CUDA-graph capture."""
+    decode splits the keys of each (row, kv head): the most that give
+    every block at least ``DECODE_RUN`` of the ``cap`` keys' 64-key
+    tiles.  From the capacity alone, so a row's output does not depend on
+    its batch, the other rows or the card, and the row, paged and
+    partial decode of the same keys split them alike.  Never the rows'
+    positions: reading them would sync the host and break CUDA-graph
+    capture."""
     tiles = -(-cap // DECODE_TILE)
     s = 1
-    while (2 * s <= MAX_DECODE_SPLITS and 2 * s <= tiles
-           and B * Hkv * 2 * s <= 2 * sms):
+    while 2 * s <= MAX_DECODE_SPLITS and 2 * s * DECODE_RUN <= tiles:
         s *= 2
     return s
 
@@ -130,22 +132,12 @@ def decode_runs(cap: int, splits: int) -> list[tuple[int, int]]:
             for r in range(splits)]
 
 
-def sm_count(t: torch.Tensor) -> int:
-    """Streaming multiprocessors of the card that holds ``t``."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
-
-
 def kernel_head_dim(hd: int) -> int:
     """The narrowest instantiated head width that holds ``hd``."""
     for width in HEAD_DIMS:
         if hd <= width:
             return width
     raise ValueError(f"kernel takes head_dim up to {HEAD_DIMS[-1]}, got {hd}")
-
-
-def kernel_group(G: int) -> int:
-    """The narrowest instantiated decode group that holds ``G`` <= 16."""
-    return next(g for g in DECODE_GROUPS if G <= g)
 
 
 def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -159,16 +151,16 @@ def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
 
 def decode_padded(q, Hkv: int, kv: tuple, body) -> tuple:
     """The decode family's domain: q (B, H, hd), H = Hkv * G, run through
-    ``body`` padded to what the decode kernels take, exactly.  head_dim
-    goes to the next of ``HEAD_DIMS`` (zero columns of q and of each
-    tensor in ``kv``, whose last dimension is head_dim), the group to the
-    next of ``DECODE_GROUPS`` (zero query heads; a group past 16 runs in
-    slices of 16 heads, one launch each).  ``body(qp, kvp, Gp)`` takes qp
-    (B, Hkv * Gp, width) contiguous and returns outputs shaped (B, Hkv,
-    Gp, ...); -> those outputs cropped to the true heads (and, where a
-    4-D output ends in head_dim, columns), each (B, Hkv, G, ...).  A zero
-    column adds nothing to a score and is cropped from the output; a zero
-    head is cropped whole; the scale stays the caller's."""
+    ``body`` in what the decode body takes, exactly.  head_dim goes to the
+    next of ``HEAD_DIMS`` (zero columns of q and of each tensor in ``kv``,
+    whose last dimension is head_dim); a group past ``MAX_DECODE_GROUP``
+    runs in slices of 16 heads, one launch each (any group up to 16 is
+    one launch as it is).  ``body(qp, kvp, Gs)`` takes qp (B, Hkv * Gs,
+    width) contiguous and returns outputs shaped (B, Hkv, Gs, ...); ->
+    those outputs joined over the slices and cropped (where a 4-D output
+    ends in head_dim) to the true columns, each (B, Hkv, G, ...).  A zero
+    column adds nothing to a score and is cropped from the output; the
+    scale stays the caller's."""
     B, H, hd = q.shape
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
@@ -177,14 +169,11 @@ def decode_padded(q, Hkv: int, kv: tuple, body) -> tuple:
     kv = tuple(pad_last(t, width) for t in kv)
     qg = q.reshape(B, Hkv, G, hd)
     parts = []
-    for g0 in range(0, G, DECODE_GROUPS[-1]):
-        gc = min(DECODE_GROUPS[-1], G - g0)
-        gp = kernel_group(gc)
-        qc = qg[:, :, g0:g0 + gc]
-        if gp != gc or width != hd:
-            qc = torch.nn.functional.pad(qc, (0, width - hd, 0, gp - gc))
-        outs = body(qc.reshape(B, Hkv * gp, width).contiguous(), kv, gp)
-        parts.append([o[:, :, :gc] for o in outs])
+    for g0 in range(0, G, MAX_DECODE_GROUP):
+        gc = min(MAX_DECODE_GROUP, G - g0)
+        qc = pad_last(qg[:, :, g0:g0 + gc], width)
+        parts.append(body(qc.reshape(B, Hkv * gc, width).contiguous(), kv,
+                          gc))
     outs = [torch.cat(p, dim=2) if len(p) > 1 else p[0] for p in zip(*parts)]
     return tuple(o[..., :hd] if o.dim() == 4 else o for o in outs)
 
@@ -232,8 +221,8 @@ def reset_launch_counts() -> None:
     """Zero every kernel body's launch count (the int8 bodies of the
     paged wrappers count apart, in ``launches_int8``, the paged verify's
     tree route in ``launches_tree``, and the ring routes of the row
-    decode and verify wrappers in ``launches_ring``; flash and gmm also
-    count by shape, in ``launches_by_shape``)."""
+    decode and verify wrappers in ``launches_ring``; flash, gmm and the
+    paged decode also count by shape, in ``launches_by_shape``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -244,7 +233,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.verify_attention.ops import verify_attention
     for fn in (flash_attention, ssm_scan, mlstm_chunk, gmm):
         fn.launches = 0
-    for fn in (flash_attention, gmm):
+    for fn in (flash_attention, gmm, paged_decode_attention):
         fn.launches_by_shape.clear()
     for fn in (decode_attention, verify_attention):
         fn.launches = 0

@@ -1,7 +1,9 @@
 // The one-token decode body on Hopper's tensor cores, split over a thread
 // block cluster: the row-cache decode (decode_attention.cu, full cache and
-// ring) and the paged decode over a bf16 or an int8 page pool
-// (paged_attention.cu).  The decode counterpart of verify_tc.cuh.
+// ring), the paged decode over a bf16 or an int8 page pool
+// (paged_attention.cu) and one shard's unnormalized partial over its slice
+// of a sharded bank (paged_partial.cu).  The decode counterpart of
+// verify_tc.cuh.
 //
 // What it computes: the G query heads (G <= 16) of one kv head of batch
 // row b attend, in one softmax, over the row's keys t < n = min(pos[b],
@@ -14,18 +16,19 @@
 //
 // The design, for that:
 //   * Split-K inside a cluster.  Grid (splits, Hkv, B), cluster (splits, 1,
-//     1), splits in {1, 2, 4, 8}, chosen by the wrapper from shapes alone
-//     (kernels.decode_splits: B * Hkv, cap and the SM count; never pos, so
-//     a call needs no device-to-host read and a CUDA graph can capture
-//     it).  The cap's T = ceil(cap / 64) key tiles are cut into runs by key
-//     index: block r folds tiles [r T / splits, (r + 1) T / splits),
-//     clipped to n; a run past n loads nothing and keeps the empty state
-//     (0, -1e30, 0).  The runs do not depend on page ids or the pool, so a
-//     pool holding a row cache's keys gives the row kernel's output bit
-//     for bit.  After a cluster barrier each block merges every block's
-//     (acc, m, l) through distributed shared memory for its share of the
-//     outputs and writes them normalized, in bf16: one launch, no global
-//     workspace.
+//     1), splits in {1, 2, 4, 8}, chosen by the wrapper from cap alone
+//     (kernels.decode_splits: the most that leave each block at least two
+//     tiles; never pos, so a call needs no device-to-host read and a CUDA
+//     graph can capture it, and never B, so a row's output does not
+//     depend on its batch).  The cap's T = ceil(cap / 64) key tiles are
+//     cut into runs by key index: block r folds tiles [r T / splits, (r +
+//     1) T / splits), clipped to n; a run past n loads nothing and keeps
+//     the empty state (0, -1e30, 0).  The runs do not depend on page ids
+//     or the pool, so a pool holding a row cache's keys gives the row
+//     kernel's output bit for bit.  After a cluster barrier each block
+//     merges every block's (acc, m, l) through distributed shared memory,
+//     in rank order, for its share of the outputs and writes them
+//     normalized, in bf16: one launch, no global workspace.
 //   * Asynchronous tile copies.  K and V tiles of 64 keys go through a
 //     ring of 3 stages (4 at hd <= 64) of cp.async (16 bytes a thread) in
 //     dynamic shared memory, so each SM holds tens of KB in flight.  Each
@@ -47,6 +50,14 @@
 //   * int8 pools: codes are copied as bytes and converted to bf16 in
 //     shared memory (exact for |code| <= 128); the k scales multiply
 //     score columns, the v scales P before it is split, as verify_tc.cuh.
+//   * One shard's partial (PART): the same keys, runs and arithmetic over
+//     a table of GLOBAL page ids, of which the shard owns [base, base +
+//     L); a key on a page it does not own is zero-filled and scored -inf,
+//     like a key past n, so it is never read.  The merged state leaves
+//     unnormalized in f32 (acc, m in the natural-log domain, l), a block
+//     that owns no key as exactly (0, -1e30, 0).  A row whose pages all
+//     lie on one shard therefore ends, after the caller's pmax/psum and
+//     division, at the global decode's output bit for bit.
 // The 4 warps' states merge in shared memory (reusing the stages), then
 // the cluster's.  One instantiation per head width serves every G <= 16.
 #pragma once
@@ -74,13 +85,15 @@ constexpr int MAXG = 16;                // query heads of a launch: M rows
 constexpr int MAX_SPLITS = 8;           // blocks of a cluster, at most
 constexpr int PG_MAX = 64;              // page ids a block stages
 
-template <int HD, bool QUANT>
+template <int HD, bool QUANT, bool PART>
 struct Cfg {
   static constexpr int STAGES = HD <= 64 ? 4 : 3;
   static constexpr int ROWB = 2 * HD + 16;      // bytes of a bf16 row
   static constexpr int CROWB = HD + 16;         // bytes of an int8 row
   static constexpr int KV_B = TK * (QUANT ? CROWB : ROWB);
-  static constexpr int STAGE_B = 2 * KV_B + (QUANT ? 2 * TK * 4 : 0);
+  static constexpr int SC_B = QUANT ? 2 * TK * 4 : 0;   // k, v scales
+  static constexpr int OWN_B = PART ? TK * 4 : 0;       // keys read
+  static constexpr int STAGE_B = 2 * KV_B + SC_B + OWN_B;
   static constexpr int CONV_B = QUANT ? 2 * TK * ROWB : 0;
   static constexpr int Q_B = MAXG * ROWB;
   static constexpr int LOOP_B = STAGES * STAGE_B + CONV_B;
@@ -104,6 +117,12 @@ struct Args {
   int Hkv, G, P, page;
   int cap;                // keys a row holds: S, or P * page
   float scale_log2;       // softmax scale * log2(e)
+  // one shard's partial: it owns global page ids [base, base + L) (its
+  // slice of k/v and the scales); acc (B, Hkv, G, hd), m, l (B, Hkv, G)
+  int base, L;
+  float* acc;
+  float* m;
+  float* l;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -159,10 +178,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int HD, bool QUANT>
+template <int HD, bool QUANT, bool PART>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const Args a) {
-  using C = Cfg<HD, QUANT>;
+  using C = Cfg<HD, QUANT, PART>;
   constexpr int ST = C::STAGES, ROWB = C::ROWB;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* q_s = smem;                          // (16, hd) bf16, padded rows
@@ -179,6 +198,15 @@ decode_kernel(const Args a) {
   const int t1c = (split + 1) * T / splits;
   const int* tb = a.table == nullptr ? nullptr : a.table + (size_t)b * a.P;
 
+  // the pool page that holds a table entry: its id, or for a partial its
+  // local id in the shard's slice, -1 where the shard does not own it
+  auto local = [&](int pid) -> int {
+    if constexpr (PART) {
+      const int lp = pid - a.base;
+      return lp >= 0 && lp < a.L ? lp : -1;
+    }
+    return pid;
+  };
   // a pool's page ids for the run (its capacity, so pos is not waited
   // for), staged in shared memory once where they fit
   __shared__ int pid_s[PG_MAX];
@@ -187,7 +215,7 @@ decode_kernel(const Args a) {
     pg0 = t0 * TK / a.page;
     npg = (min(t1c * TK, a.cap) - 1) / a.page - pg0 + 1;
     if (npg <= PG_MAX)
-      for (int i = tid; i < npg; i += THREADS) pid_s[i] = tb[pg0 + i];
+      for (int i = tid; i < npg; i += THREADS) pid_s[i] = local(tb[pg0 + i]);
   }
   const bool staged = npg <= PG_MAX;
 
@@ -204,19 +232,22 @@ decode_kernel(const Args a) {
   const int NT = max(t1 - t0, 0);
   __syncthreads();                              // page ids staged
 
-  // the flat (page, head, slot) row of key t; a row cache is a store whose
-  // page bh holds the row's S slots
-  auto flat = [&](int t) -> size_t {
-    if (tb == nullptr) return bh * a.page + t;
+  // the flat (page, head, slot) row of key t, -1 on a page a partial's
+  // shard does not own; a row cache is a store whose page bh holds the
+  // row's S slots
+  auto flat = [&](int t) -> long long {
+    if (tb == nullptr) return (long long)(bh * a.page + t);
     const int pg = t / a.page;
-    const int pid = staged ? pid_s[pg - pg0] : tb[pg];
-    return ((size_t)pid * a.Hkv + h) * a.page + (t - pg * a.page);
+    const int pid = staged ? pid_s[pg - pg0] : local(tb[pg]);
+    if (PART && pid < 0) return -1;
+    return ((long long)pid * a.Hkv + h) * a.page + (t - pg * a.page);
   };
   // the rows of a tile that lies in one page (or a row cache) are one run
   auto in_one_page = [&](int k0) {
     return tb == nullptr || k0 % a.page + TK <= a.page;
   };
-  // tile i of the run into its stage; keys at or past n zero-filled
+  // tile i of the run into its stage; keys at or past n (or not owned)
+  // zero-filled
   auto issue = [&](int i) {
     uint8_t* kst = loop_s + (i % ST) * C::STAGE_B;
     uint8_t* vst = kst + C::KV_B;
@@ -227,24 +258,33 @@ decode_kernel(const Args a) {
     const uint8_t* kg = static_cast<const uint8_t*>(a.k);
     const uint8_t* vg = static_cast<const uint8_t*>(a.v);
     const bool one = in_one_page(k0);
-    const size_t base = one ? flat(k0) : 0;
+    const long long base = one ? flat(k0) : 0;
+    // key k0 + r's row, -1 where it is not read
+    auto row_of = [&](int r) -> long long {
+      if (k0 + r >= n) return -1;
+      if (!one) return flat(k0 + r);
+      return PART && base < 0 ? -1 : base + r;
+    };
 #pragma unroll
     for (int j = 0; j < TK * CPR / THREADS; ++j) {
       const int e = tid + j * THREADS, r = e / CPR, c = e % CPR;
-      const bool in = k0 + r < n;
-      const size_t row = one ? base + r : in ? flat(k0 + r) : 0;
-      const size_t off = in ? row * HD * EB + c * 16 : 0;
+      const long long row = row_of(r);
+      const bool in = row >= 0;
+      const size_t off = in ? (size_t)row * HD * EB + c * 16 : 0;
       cp_async16(kst + r * RB + c * 16, kg + off, in ? 16 : 0);
       cp_async16(vst + r * RB + c * 16, vg + off, in ? 16 : 0);
     }
-    if constexpr (QUANT) {
-      float* kss = reinterpret_cast<float*>(vst + C::KV_B);
-      if (tid < TK) {
-        const bool in = k0 + tid < n;
-        const size_t f = !in ? 0 : one ? base + tid : flat(k0 + tid);
+    if (tid < TK && (QUANT || PART)) {
+      const long long row = row_of(tid);
+      const bool in = row >= 0;
+      if constexpr (QUANT) {
+        float* kss = reinterpret_cast<float*>(vst + C::KV_B);
+        const size_t f = in ? (size_t)row : 0;
         cp_async4(kss + tid, a.ks + f, in ? 4 : 0);
         cp_async4(kss + TK + tid, a.vs + f, in ? 4 : 0);
       }
+      if constexpr (PART)
+        reinterpret_cast<int*>(vst + C::KV_B + C::SC_B)[tid] = in;
     }
   };
 
@@ -273,6 +313,7 @@ decode_kernel(const Args a) {
     const uint8_t* kt = loop_s + (i % ST) * C::STAGE_B;
     const uint8_t* vt = kt + C::KV_B;
     const float* kss = reinterpret_cast<const float*>(vt + C::KV_B);
+    const int* own = reinterpret_cast<const int*>(vt + C::KV_B + C::SC_B);
     if constexpr (QUANT) {                      // codes -> bf16, exactly
       uint8_t* conv = loop_s + ST * C::STAGE_B;
       constexpr int CPR = HD / 16;
@@ -317,7 +358,7 @@ decode_kernel(const Args a) {
         float x = s[j][e];
         if constexpr (QUANT) x *= kss[key];
         x *= a.scale_log2;
-        if (k0 + key >= n) x = -INFINITY;
+        if (PART ? !own[key] : k0 + key >= n) x = -INFINITY;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -415,7 +456,9 @@ decode_kernel(const Args a) {
   // ... then the cluster's: block r writes outputs r * 128 + tid, ...,
   // merging every block's state through distributed shared memory (all
   // of an output's remote loads issued before any is used; a rank past
-  // the cluster reads as the empty state, which adds exact zeros)
+  // the cluster reads as the empty state, which adds exact zeros).  A
+  // partial writes the state itself: m back in the natural-log domain, or
+  // exactly -1e30 where no key was read
   cluster.sync();
   bf16* og = a.out + bh * a.G * HD;
   for (int i = split * THREADS + tid; i < a.G * HD; i += splits * THREADS) {
@@ -441,22 +484,31 @@ decode_kernel(const Args a) {
       L += lr[r] * c;
       A += ar[r] * c;
     }
-    og[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    if constexpr (PART) {
+      a.acc[bh * a.G * HD + i] = A;
+      if (i % HD == 0) {
+        a.m[bh * a.G + g] = L > 0.f ? M * 0.6931471805599453f : NEG_INF;
+        a.l[bh * a.G + g] = L;
+      }
+    } else {
+      og[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    }
   }
   cluster.sync();                       // no block leaves while read
 }
 
 // Launch one decode: grid (splits, Hkv, B) in clusters of `splits` blocks.
 // `a` holds the rest; its scale is set here.
-template <int HD, bool QUANT>
+template <int HD, bool QUANT, bool PART>
 int launch(Args a, int B, int splits, float scale, cudaStream_t stream) {
-  using C = Cfg<HD, QUANT>;
+  using C = Cfg<HD, QUANT, PART>;
   if (a.G < 1 || a.G > MAXG || a.Hkv < 1 || a.Hkv > 65535 || B < 1 ||
-      B > 65535 || a.page < 1 || a.cap < 1 ||
+      B > 65535 || a.page < 1 || a.cap < 1 || (PART && a.L < 1) ||
       (splits != 1 && splits != 2 && splits != 4 && splits != MAX_SPLITS))
     return (int)cudaErrorInvalidValue;
   a.scale_log2 = scale * 1.4426950408889634f;
-  cudaError_t rc = hopper::allow_smem<decode_kernel<HD, QUANT>>(C::SMEM);
+  cudaError_t rc =
+      hopper::allow_smem<decode_kernel<HD, QUANT, PART>>(C::SMEM);
   if (rc != cudaSuccess) return (int)rc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, a.Hkv, B);
@@ -470,20 +522,20 @@ int launch(Args a, int B, int splits, float scale, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  rc = cudaLaunchKernelEx(&cfg, decode_kernel<HD, QUANT>, a);
+  rc = cudaLaunchKernelEx(&cfg, decode_kernel<HD, QUANT, PART>, a);
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 
-// launch<HD, QUANT> for head width hd (32, 64, 128 or 256)
-template <bool QUANT>
+// launch<HD, QUANT, PART> for head width hd (32, 64, 128 or 256)
+template <bool QUANT, bool PART = false>
 int dispatch(int hd, const Args& a, int B, int splits, float scale,
              cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<32, QUANT>(a, B, splits, scale, stream);
-    case 64: return launch<64, QUANT>(a, B, splits, scale, stream);
-    case 128: return launch<128, QUANT>(a, B, splits, scale, stream);
-    case 256: return launch<256, QUANT>(a, B, splits, scale, stream);
+    case 32: return launch<32, QUANT, PART>(a, B, splits, scale, stream);
+    case 64: return launch<64, QUANT, PART>(a, B, splits, scale, stream);
+    case 128: return launch<128, QUANT, PART>(a, B, splits, scale, stream);
+    case 256: return launch<256, QUANT, PART>(a, B, splits, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

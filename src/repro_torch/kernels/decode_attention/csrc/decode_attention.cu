@@ -16,7 +16,8 @@
 // decode_tc.cuh, shared with the paged decode.  The G query heads of a kv
 // head share every K/V byte (the M rows of mma.sync); a row's keys are
 // split by key index over a cluster of up to 8 blocks (grid (splits, Hkv,
-// B)), so a small batch still fills the SMs, and the blocks merge their
+// B), as many as the cache length gives each two tiles or more), so a
+// small batch still fills the SMs, and the blocks merge their
 // flash states through distributed shared memory in the same launch; K/V
 // tiles of 64 keys stream through a 3-4 stage cp.async ring; keys past
 // the row's position are never loaded (the per-row skip of the TPU
@@ -24,7 +25,7 @@
 // cache is read as a store whose page b holds row b's S slots, so the
 // paged decode over the same keys gives this output bit for bit.
 // Instantiated for head widths 32/64/128/256, any group up to 16 (the
-// wrapper pads other widths and groups with zeros).
+// wrapper pads other widths with zeros and slices wider groups).
 #include "decode_tc.cuh"
 
 // q (B, Hkv, G, hd), k/v (B, Hkv, S, hd) bf16, pos (B,) int32,

@@ -3,8 +3,9 @@
 A CPU tensor runs the plain version (``ref.decode_reference``); a CUDA
 tensor launches ``csrc/decode_attention.cu`` or raises.  One launch a call
 (a slice of 16 query heads a launch past 16): a cluster of
-``kernels.decode_splits`` blocks a (row, kv head), chosen from shapes
-alone, so a call reads nothing back from the card.
+``kernels.decode_splits`` blocks a (row, kv head), chosen from the cache
+length alone, so a call reads nothing back from the card and a row's
+output does not depend on its batch.
 
 The ring route (a sliding-window cache of S == window slots) runs the same
 kernel body and plain version: the JAX ring mask ``(idx <= pos % S) |
@@ -12,9 +13,9 @@ kernel body and plain version: the JAX ring mask ``(idx <= pos % S) |
 read for any pos.  ``ring`` only selects the launch count:
 ``decode_attention.launches_ring`` instead of ``.launches``.
 
-The kernel is instantiated for head widths 32/64/128/256 and groups
-1/2/4/8/16; any other width up to 256 and any group run zero-padded
-(``kernels.decode_padded``), which is exact.
+The kernel is instantiated for head widths 32/64/128/256 and takes any
+group up to 16; any other width up to 256 runs zero-padded and a wider
+group in slices of 16 heads (``kernels.decode_padded``), which is exact.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def decode_attention(q, k, v, pos, *, ring: bool = False,
         if _fn is None:
             _fn = K.c_function("decode_attention", "decode_attention_bf16",
                                [K.P] * 5 + [K.I] * 6 + [K.F, K.P])
-        splits = K.decode_splits(B, Hkv, S, K.sm_count(qp))
+        splits = K.decode_splits(S)
         rc = _fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), pos.data_ptr(),
                  out.data_ptr(), B, Hkv, G, S, width, splits, float(scale),
                  K.stream_ptr(qp))

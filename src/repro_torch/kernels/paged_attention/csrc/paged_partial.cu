@@ -10,59 +10,45 @@
 // key of a row is read once by its owning shard, at about 2 * G flops per
 // byte (int8 halves the bytes).
 //
-// What the design does: the decode fold of attn_common.cuh over one
-// shard's slice of L pages, one block per (row, kv head).  The table holds
-// GLOBAL page ids; the block reads page table[b, j] - base only when the
-// shard owns it (0 <= id - base < L) and stops at pos like decode, so a
-// page the shard does not own, or one starting past pos, is never read (a
-// whole 32-key tile of it is skipped).  It writes the unnormalized state
-// acc (G, hd), m, l (G) in f32 for the caller's cross-shard pmax/psum
-// merge; a row that owns no valid page ends at exactly (0, -1e30, 0).
-// Instantiated for head widths 32/64/128/256 and groups 1/2/4/8/16 (the
-// wrapper pads any other width or group with zeros).
-#include "attn_common.cuh"
+// What the design does: the tensor-core decode body of decode_tc.cuh in
+// its partial mode, the same body, runs and arithmetic as the global
+// paged decode (paged_attention.cu): a row's keys split by key index over
+// a cluster of up to 8 blocks, 64-key tiles through a cp.async ring,
+// Q K^T and P V as mma.sync.  The table holds GLOBAL page ids; a key on a
+// page the shard does not own (0 <= id - base < L fails), or past pos, is
+// zero-filled and scored -inf, so it is never read.  The cluster's merged
+// state leaves unnormalized in f32, acc (G, hd), m, l (G), for the
+// caller's cross-shard pmax/psum merge; a row that owns no valid key ends
+// at exactly (0, -1e30, 0).  A row whose pages all lie on one shard thus
+// comes out of that merge as the global decode's output, bit for bit.
+// Instantiated for head widths 32/64/128/256, any group up to 16 (the
+// wrapper pads other widths with zeros and slices wider groups).
+#include "decode_tc.cuh"
 
 namespace {
 
-using repro::bf16;
-
-// Slot t % page of the LOCAL page table[t / page] - base of one shard's
-// slice of L pages; a page the shard does not own maps to its local park
-// page 0 (LocalOwner keeps such keys out of the fold, so it is never read).
-struct LocalPagedMap {
-  const int* table;               // (P,) GLOBAL page ids of this row
-  int base, L, page, Hkv, h;
-  __device__ __forceinline__ size_t operator()(int t) const {
-    int lp = table[t / page] - base;
-    lp = (lp >= 0 && lp < L) ? lp : 0;
-    return ((size_t)lp * Hkv + h) * page + (t % page);
-  }
-};
-
-struct LocalOwner {               // key t lies on a page this shard owns
-  const int* table;
-  int base, L, page;
-  __device__ __forceinline__ bool operator()(int t) const {
-    const int lp = table[t / page] - base;
-    return lp >= 0 && lp < L;
-  }
-};
-
-template <int HD, int G, int NW, class KV>
-__global__ void __launch_bounds__(NW * 32)
-paged_partial_kernel(const bf16* __restrict__ q, KV kv,
-                     const int* __restrict__ table,
-                     const int* __restrict__ pos, float* __restrict__ acc,
-                     float* __restrict__ m, float* __restrict__ l, int Hkv,
-                     int P, int page, int base, int L, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t bh = (size_t)b * Hkv + h;
-  const int* tb = table + (size_t)b * P;
-  repro::Rows<KV, LocalPagedMap> rows{kv, {tb, base, L, page, Hkv, h}};
-  const int n = min(pos[b], P * page - 1) + 1;
-  repro::decode_fold<HD, G, NW>(
-      q + bh * G * HD, rows, n, LocalOwner{tb, base, L, page}, scale,
-      repro::PartialOut{acc + bh * G * HD, m + bh * G, l + bh * G});
+int partial(const void* q, const void* table, const void* pos, void* acc,
+            void* m, void* l, int B, int Hkv, int G, int P, int page, int hd,
+            int base, int L, int splits, float scale, repro::dtc::Args a,
+            bool quant, void* stream) {
+  if (P < 1 || page < 1) return (int)cudaErrorInvalidValue;
+  a.q = (const repro::bf16*)q;
+  a.table = (const int*)table;
+  a.pos = (const int*)pos;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.P = P;
+  a.page = page;
+  a.cap = P * page;
+  a.base = base;
+  a.L = L;
+  a.acc = (float*)acc;
+  a.m = (float*)m;
+  a.l = (float*)l;
+  return quant ? repro::dtc::dispatch<true, true>(hd, a, B, splits, scale,
+                                                  (cudaStream_t)stream)
+               : repro::dtc::dispatch<false, true>(hd, a, B, splits, scale,
+                                                   (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -70,25 +56,22 @@ paged_partial_kernel(const bf16* __restrict__ q, KV kv,
 // One shard's decode partial: q (B, Hkv, G, hd) bf16, k/v the shard's
 // LOCAL slice (L, Hkv, page, hd) bf16, table (B, P) int32 GLOBAL page ids,
 // pos (B,) int32, base the shard's first global page id; acc (B, Hkv, G,
-// hd), m and l (B, Hkv, G) f32 out; all contiguous.  Returns a cudaError_t.
+// hd), m and l (B, Hkv, G) f32 out; all contiguous.  `splits` (1, 2, 4 or
+// 8) is the blocks a row's keys are split over (kernels.decode_splits of
+// the table's P * page keys, as the global decode).  Returns a
+// cudaError_t.
 extern "C" int paged_decode_partial_bf16(const void* q, const void* kp,
                                          const void* vp, const void* table,
                                          const void* pos, void* acc, void* m,
                                          void* l, int B, int Hkv, int G,
                                          int P, int page, int hd, int base,
-                                         int L, float scale, void* stream) {
-  const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                  \
-  paged_partial_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>         \
-      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                   \
-         (cudaStream_t)stream>>>(                                        \
-          (const bf16*)q,                                                \
-          repro::Bf16KV<HD_>{(const bf16*)kp, (const bf16*)vp},          \
-          (const int*)table, (const int*)pos, (float*)acc, (float*)m,    \
-          (float*)l, Hkv, P, page, base, L, scale)
-  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+                                         int L, int splits, float scale,
+                                         void* stream) {
+  repro::dtc::Args a{};
+  a.k = kp;
+  a.v = vp;
+  return partial(q, table, pos, acc, m, l, B, Hkv, G, P, page, hd, base, L,
+                 splits, scale, a, false, stream);
 }
 
 // As paged_decode_partial_bf16 over an int8 slice: k/v codes (L, Hkv,
@@ -99,18 +82,13 @@ extern "C" int paged_decode_partial_int8(const void* q, const void* kp,
                                          const void* pos, void* acc, void* m,
                                          void* l, int B, int Hkv, int G,
                                          int P, int page, int hd, int base,
-                                         int L, float scale, void* stream) {
-  const dim3 grid(Hkv, B);
-#define LAUNCH(HD_, G_)                                                  \
-  paged_partial_kernel<HD_, G_, repro::decode_warps<HD_, G_>()>         \
-      <<<grid, repro::decode_warps<HD_, G_>() * 32, 0,                   \
-         (cudaStream_t)stream>>>(                                        \
-          (const bf16*)q,                                                \
-          repro::Int8KV<HD_>{(const int8_t*)kp, (const int8_t*)vp,       \
-                             (const float*)ks, (const float*)vs},        \
-          (const int*)table, (const int*)pos, (float*)acc, (float*)m,    \
-          (float*)l, Hkv, P, page, base, L, scale)
-  REPRO_DECODE_DISPATCH(hd, G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+                                         int L, int splits, float scale,
+                                         void* stream) {
+  repro::dtc::Args a{};
+  a.k = kp;
+  a.v = vp;
+  a.ks = (const float*)ks;
+  a.vs = (const float*)vs;
+  return partial(q, table, pos, acc, m, l, B, Hkv, G, P, page, hd, base, L,
+                 splits, scale, a, true, stream);
 }

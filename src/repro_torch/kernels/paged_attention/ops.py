@@ -9,20 +9,26 @@ A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``<wrapper>.launches_int8``, the full-precision body's in
 ``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
 ``paged_verify_attention.launches_tree`` instead, whatever the pool.
-``paged_decode_partial`` takes one shard's local slice of a sharded bank
-and the shard's first global page id.  The decode splits each (row, kv
-head)'s keys over a cluster of ``kernels.decode_splits`` blocks, by key
-index as the row-cache decode does, so a pool holding a row cache's keys
-gives that decode's output bit for bit.
+The decode also counts by shape, (B, Hkv, G, P, page, hd) of each
+launch, in ``.launches_by_shape``.  ``paged_decode_partial``
+takes one shard's local slice of a sharded bank and the shard's first
+global page id.  The decode and the partial split each (row, kv head)'s
+keys over a cluster of ``kernels.decode_splits`` blocks, by key index as
+the row-cache decode does, so a pool holding a row cache's keys gives
+that decode's output bit for bit, and a row whose pages all lie on one
+shard comes out of the shards' merged partials as the global decode's.
 
-The decode and partial kernels are instantiated for head widths
-32/64/128/256 and groups 1/2/4/8/16, the verify kernel for the same
-widths and any group; any other width up to 256 and any group run
-zero-padded (``kernels.decode_padded``, ``kernels.verify_padded``), which
-is exact.  The verify kernel reads q (B, Kb, H, hd) and the block's keys
-and values in place and writes its (B, Kb, H, hd) output itself.
+The decode, partial and verify kernels are instantiated for head widths
+32/64/128/256 and take any group (the decode family up to 16 heads a
+launch); any other width up to 256 runs zero-padded and a wider decode
+group in slices of 16 heads (``kernels.decode_padded``,
+``kernels.verify_padded``), which is exact.  The verify kernel reads q
+(B, Kb, H, hd) and the block's keys and values in place and writes its
+(B, Kb, H, hd) output itself.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -99,16 +105,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
         out = torch.empty_like(qp)
         sym = ("paged_decode_attention_int8" if quant
                else "paged_decode_attention_bf16")
-        splits = K.decode_splits(B, Hkv, P * page, K.sm_count(qp))
         rc = _c(sym, 4 + len(pool), 7)(
             qp.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, Hkv, G, P, page, width, splits, float(scale),
-            K.stream_ptr(qp))
+            out.data_ptr(), B, Hkv, G, P, page, width,
+            K.decode_splits(P * page), float(scale), K.stream_ptr(qp))
         K.check_launch(sym, rc)
         if quant:
             paged_decode_attention.launches_int8 += 1
         else:
             paged_decode_attention.launches += 1
+        paged_decode_attention.launches_by_shape[
+            (B, Hkv, G, P, page, width)] += 1
         return (out.view(B, Hkv, G, width),)
 
     (out,) = K.decode_padded(q, Hkv, (k_pages, v_pages), body)
@@ -117,6 +124,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
+# (B, Hkv, G, P, page, hd) -> launches at that shape, either pool
+paged_decode_attention.launches_by_shape = collections.Counter()
 
 
 def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
@@ -209,10 +218,11 @@ def paged_decode_partial(q, k_pages, v_pages, page_table, pos, base: int,
         l = torch.empty_like(m)
         sym = ("paged_decode_partial_int8" if quant
                else "paged_decode_partial_bf16")
-        rc = _c(sym, 6 + len(pool), 8, "paged_partial")(
+        rc = _c(sym, 6 + len(pool), 9, "paged_partial")(
             qp.data_ptr(), *pool, page_table.data_ptr(), pos.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, G, P, page,
-            width, int(base), L, float(scale), K.stream_ptr(qp))
+            width, int(base), L, K.decode_splits(P * page), float(scale),
+            K.stream_ptr(qp))
         K.check_launch(sym, rc)
         if quant:
             paged_decode_partial.launches_int8 += 1

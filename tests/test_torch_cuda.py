@@ -42,6 +42,7 @@ from repro_torch.kernels.ssm_scan.ops import (  # noqa: E402
     selective_scan_reference, ssm_scan)
 from repro_torch.kernels.verify_attention.ops import (  # noqa: E402
     verify_attention, verify_reference)
+from repro_torch.models.layers import _psum_partials  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -441,13 +442,12 @@ def test_paged_decode_kernels_take_any_group_and_width(gen, G, hd):
             paged_decode_attention.launches_int8) == (n, n)
 
 
-def _rows_for_splits(splits, Hkv, cap):
-    """Rows of a batch for which the wrappers split each (row, kv head)'s
-    keys over ``splits`` blocks on this card (``kernels.decode_splits``)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    B = max(1, (2 * sms // splits) // Hkv)
-    assert kernels.decode_splits(B, Hkv, cap, sms) == splits
-    return B
+# (splits, page, P): a capacity of P * page keys for which the wrappers
+# split each (row, kv head)'s keys over ``splits`` blocks
+# (``kernels.decode_splits``); 176, 352, 592 and 1120 keys are not tile
+# multiples
+SPLIT_CASES = [(1, 16, 11), (2, 16, 22), (4, 16, 37), (8, 16, 70),
+               (2, 256, 1), (4, 256, 3), (8, 256, 5)]
 
 
 def _boundary_positions(B, cap, splits):
@@ -460,20 +460,18 @@ def _boundary_positions(B, cap, splits):
     return torch.tensor((pos * B)[:B], dtype=torch.int32, device="cuda")
 
 
-@pytest.mark.parametrize("splits", [1, 2, 4, 8])
-@pytest.mark.parametrize("page", [16, 256])
+@pytest.mark.parametrize("splits,page,P", SPLIT_CASES)
 @pytest.mark.parametrize("hd,G", [(64, 8), (128, 4)])
-def test_decode_split_over_a_cluster_matches_plain(gen, splits, page, hd,
+def test_decode_split_over_a_cluster_matches_plain(gen, splits, page, P, hd,
                                                    G):
     """Row (full and ring), paged bf16 and paged int8 decode at each split
-    the wrappers can choose, pos at 0, at cap - 1 and at each split
-    boundary +- 1; S = 592 slots (pages of 16: not a tile multiple) or 768
-    (pages of 256).  Slots past pos and the park page hold NaN: never
-    read.  One launch a call, and no call syncs with the host."""
-    Hkv = 2
-    P = 37 if page == 16 else 3
+    the wrappers can choose (``SPLIT_CASES``), pos at 0, at cap - 1 and at
+    each split boundary +- 1, over 24 rows.  Slots past pos and the park
+    page hold NaN: never read.  One launch a call, and no call syncs with
+    the host."""
+    B, Hkv = 24, 2
     cap = P * page
-    B = _rows_for_splits(splits, Hkv, cap)
+    assert kernels.decode_splits(cap) == splits
     pos = _boundary_positions(B, cap, splits)
     q = _rn(gen, B, G * Hkv, hd)
     k, v = _rn(gen, B, Hkv, cap, hd), _rn(gen, B, Hkv, cap, hd)
@@ -547,6 +545,28 @@ def test_paged_decode_equals_row_decode_bitwise(gen, page, hd, G):
     torch.cuda.synchronize()
     assert torch.equal(row, paged)
     _close(row, decode_reference(q, k, v, pos))
+
+
+@pytest.mark.parametrize("S", [176, 768, 4096])
+def test_decode_row_does_not_depend_on_its_batch(gen, S):
+    """Each row of a batch of 8, decoded alone (a batch of one) and in a
+    batch of 3, row and paged, gives the batch of 8's output bit for bit:
+    the split follows the capacity, never B."""
+    B, Hkv, G, hd, page = 8, 4, 8, 64, 16
+    P = S // page
+    pos = torch.tensor([0, 5, S // 3, S // 2, S - 2, S - 1, 63, 64],
+                       dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, G * Hkv, hd)
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    table = _tables(gen, B, P, page, pos)
+    kp, vp = (_rn(gen, B * P + 1, Hkv, page, hd) for _ in range(2))
+    row = decode_attention(q, k, v, pos)
+    paged = paged_decode_attention(q, kp, vp, table, pos)
+    for sl in [slice(b, b + 1) for b in range(B)] + [slice(2, 5)]:
+        assert torch.equal(decode_attention(q[sl], k[sl], v[sl], pos[sl]),
+                           row[sl])
+        assert torch.equal(paged_decode_attention(q[sl], kp, vp, table[sl],
+                                                  pos[sl]), paged[sl])
 
 
 @pytest.mark.parametrize("G,hd", WIDE_HEADS)
@@ -793,6 +813,54 @@ def test_paged_decode_partial_kernel_matches_plain(gen, hd, G, quantized):
     assert n == nsh
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("page,P", [(16, 37), (256, 5)])
+@pytest.mark.parametrize("hd,G", [(64, 8), (128, 4), (32, 3)])
+def test_shard_partials_merge_to_the_paged_decode_bitwise(gen, quantized,
+                                                          page, P, hd, G):
+    """A bank of 4 shards of 2P + 1 pages (local page 0 parks); rows 0-2
+    live on shards 0-2, page order shuffled, row 3 spans all four.  Merged
+    over the shards as the sharded decode merges them (pmax/psum, then
+    the division), the partials give the global paged decode's output bit
+    for bit in the rows on one shard: the same body over the same runs of
+    keys, the other shards adding exact zeros.  The spanning row is held
+    to the plain version."""
+    B, Hkv, nsh, Lp = 4, 2, 4, 2 * P + 1
+    cap, NP = P * page, nsh * Lp
+    pos = torch.tensor([cap - 1, 0, cap // 2 + 1, cap - 2],
+                       dtype=torch.int32, device="cuda")
+    q = _rn(gen, B, G * Hkv, hd)
+    if quantized:
+        (kp, ks), (vp, vs) = (_int8_pool(gen, NP, Hkv, page, hd)
+                              for _ in range(2))
+    else:
+        kp, vp = _rn(gen, NP, Hkv, page, hd), _rn(gen, NP, Hkv, page, hd)
+    rows = [r * Lp + 1 + torch.randperm(P, generator=gen, device="cuda")
+            for r in range(3)]
+    rows.append(torch.tensor([(j % nsh) * Lp + P + 1 + j // nsh
+                              for j in range(P)], device="cuda"))
+    table = torch.stack(rows).to(torch.int32)
+    first = torch.arange(P, device="cuda")[None, :] * page
+    table = torch.where(first > pos[:, None], torch.zeros_like(table),
+                        table).contiguous()
+    sc = {} if not quantized else dict(k_scale=ks, v_scale=vs)
+    whole = paged_decode_attention(q, kp, vp, table, pos, **sc)
+    parts = []
+    for shard in range(nsh):
+        sl = slice(shard * Lp, (shard + 1) * Lp)
+        loc = {n: t[sl].contiguous() for n, t in sc.items()}
+        parts.append(paged_decode_partial(q, kp[sl].contiguous(),
+                                          vp[sl].contiguous(), table, pos,
+                                          shard * Lp, **loc))
+    acc, _, l = _psum_partials(*zip(*parts))
+    merged = (acc / torch.clamp(l, min=1e-30)[..., None])
+    merged = merged.reshape(B, G * Hkv, hd).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(merged[:3], whole[:3])
+    _close(merged[3:], paged_decode_reference(q, kp, vp, table, pos,
+                                              **sc)[3:])
+
+
 @pytest.mark.parametrize("E,C,D,F", [
     (2, 320, 256, 512), (3, 20, 64, 136), (1, 1, 32, 64), (2, 130, 136, 130),
     (1, 7, 13, 9), (2, 320, 14336, 4096), (2, 320, 4096, 1000),
@@ -847,7 +915,7 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16"):
         paged_decode_partial(torch.zeros(2, 4, 64, device="cuda"), pool,
                              pool, table, 5, 0)
-    # a group of 6 is no longer refused: it runs padded to 8
+    # a group of 6 is no longer refused: it runs as one launch of 6 heads
     qp = torch.randn(2, 6, 64, device="cuda").to(torch.bfloat16)
     pool = torch.randn(4, 1, 16, 64, device="cuda").to(torch.bfloat16)
     table = torch.tensor([[1, 2, 0], [3, 0, 0]], dtype=torch.int32,

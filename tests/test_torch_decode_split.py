@@ -1,10 +1,11 @@
 """The one-token decode kernels' split of a row's keys over a block cluster
 (``kernels/csrc/decode_tc.cuh``), held on the CPU.
 
-The wrappers choose the split from shapes alone (``kernels.decode_splits``:
-a power of two up to 8 from B, Hkv, the key capacity and the SM count) and
-cut the capacity's 64-key tiles into one run a block
-(``kernels.decode_runs``), the same for a row cache and a page pool.  The
+The wrappers choose the split from the key capacity alone
+(``kernels.decode_splits``: a power of two up to 8, at least two 64-key
+tiles a block), so a row's output does not depend on its batch, and cut
+the capacity's tiles into one run a block (``kernels.decode_runs``), the
+same for a row cache, a page pool and one shard's partial.  The
 kernel's arithmetic is written out here in plain torch: each block's
 unnormalized flash state (acc, m, l) over its run clipped to the row's
 keys, in the log2 domain with the scale on the f32 scores, an empty run as
@@ -30,7 +31,9 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_reference)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    gather_pages, gather_scales, paged_decode_reference)
+    gather_pages, gather_scales, paged_decode_partial_reference,
+    paged_decode_reference)
+from repro_torch.models.layers import _psum_partials  # noqa: E402
 
 ATOL = 1e-6
 NEG_INF = -1e30
@@ -39,21 +42,18 @@ SPLITS = (1, 2, 4, 8)
 
 @pytest.mark.parametrize("seed", range(8))
 def test_split_choice_is_a_power_of_two_whose_runs_cover_every_key(seed):
-    """For random B, Hkv, pages and SM counts: 1, 2, 4 or 8 blocks, the
-    most that keep B * Hkv * splits within two an SM and one tile a block;
-    runs of whole tiles that cover each key of [0, cap) exactly once."""
+    """For random pages and capacities: 1, 2, 4 or 8 blocks, the most
+    that give every block at least ``DECODE_RUN`` tiles; runs of whole
+    tiles that cover each key of [0, cap) exactly once."""
     rng = np.random.default_rng(seed)
     for _ in range(50):
-        B, Hkv = int(rng.integers(1, 65)), int(rng.integers(1, 17))
         page = int(rng.choice([1, 5, 12, 16, 64, 100, 256]))
         cap = page * int(rng.integers(1, 40))
-        sms = int(rng.choice([1, 8, 66, 114, 132]))
-        s = K.decode_splits(B, Hkv, cap, sms)
+        s = K.decode_splits(cap)
         tiles = math.ceil(cap / K.DECODE_TILE)
-        assert s in SPLITS and s <= tiles
-        assert s == 1 or B * Hkv * s <= 2 * sms
-        assert (2 * s > K.MAX_DECODE_SPLITS or 2 * s > tiles
-                or B * Hkv * 2 * s > 2 * sms)          # the most that fit
+        assert s in SPLITS and (s == 1 or s * K.DECODE_RUN <= tiles)
+        assert (2 * s > K.MAX_DECODE_SPLITS
+                or 2 * s * K.DECODE_RUN > tiles)       # the most that fit
         runs = K.decode_runs(cap, s)
         assert len(runs) == s
         seen = np.zeros(cap, np.int64)
@@ -65,21 +65,25 @@ def test_split_choice_is_a_power_of_two_whose_runs_cover_every_key(seed):
 
 
 def test_split_choice_at_the_served_shapes():
-    """tinyllama-1.1b (Hkv 4) and mixtral-8x7b (Hkv 8) at 8 rows on 132
-    SMs; a batch that fills the card alone stays one block a row; a cache
-    of one tile cannot split."""
-    assert K.decode_splits(8, 4, 768, 132) == 8
-    assert K.decode_splits(8, 8, 4096, 132) == 4
-    assert K.decode_splits(34, 4, 768, 132) == 1
-    assert K.decode_splits(1, 1, 64, 132) == 1
-    assert K.decode_runs(4096, 4) == [(0, 1024), (1024, 2048), (2048, 3072),
-                                      (3072, 4096)]
+    """tinyllama-1.1b's 768-key rows, mixtral-8x7b's 4096-slot ring and
+    the long paged rows (16 pages of 256); a cache of up to three tiles
+    cannot split."""
+    assert K.decode_splits(768) == 4
+    assert K.decode_splits(4096) == 8
+    assert [K.decode_splits(c) for c in (64, 191, 192, 256, 448, 449)] == \
+        [1, 1, 1, 2, 2, 4]
+    assert K.decode_runs(768, 4) == [(0, 192), (192, 384), (384, 576),
+                                     (576, 768)]
+    assert K.decode_runs(4096, 8)[1] == (512, 1024)
 
 
-def split_merge(q, k, v, pos, splits, ks=None, vs=None):
+def split_merge(q, k, v, pos, splits, ks=None, vs=None, own=None):
     """The cluster's arithmetic: q (B, H, hd); keys k/v (B, Hkv, T, hd)
     float32 (int8 codes with ks/vs (B, Hkv, T) scales); pos (B,) ->
-    (B, H, hd) float32."""
+    (B, H, hd) float32.  With ``own`` ((B, T) bool, the keys on one
+    shard's pages) the partial's: only owned keys are read, and the
+    merged state comes back unnormalized, (acc (B, Hkv, G, hd), m in the
+    natural-log domain or -1e30 where nothing was read, l (B, Hkv, G))."""
     B, H, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -90,6 +94,8 @@ def split_merge(q, k, v, pos, splits, ks=None, vs=None):
     states = []
     for lo, hi in K.decode_runs(T, splits):
         valid = (idx >= lo) & (idx < hi) & (idx < n[:, None])   # (B, T)
+        if own is not None:
+            valid = valid & own
         valid = valid[:, None, None, :]
         s = torch.einsum("bngd,bntd->bngt", qg, k)
         if ks is not None:
@@ -105,6 +111,8 @@ def split_merge(q, k, v, pos, splits, ks=None, vs=None):
     M = torch.stack([m for _, m, _ in states]).amax(0)
     L = sum(l * torch.exp2(m - M) for _, m, l in states)
     A = sum(a * torch.exp2(m - M)[..., None] for a, m, _ in states)
+    if own is not None:
+        return A, torch.where(L > 0, M * math.log(2), NEG_INF), L
     return (A / L.clamp_min(1e-30)[..., None]).reshape(B, H, hd)
 
 
@@ -170,3 +178,49 @@ def test_split_merge_equals_int8_paged_decode(splits):
                               jnp.asarray(vc), jnp.asarray(table),
                               jnp.asarray(pos), k_scale=jnp.asarray(ks),
                               v_scale=jnp.asarray(vs)))
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_split_merge_of_shard_partials_equals_paged_decode(splits):
+    """A bf16 bank of 16-slot pages in four shards of 10 pages; rows
+    whose pages all lie on one shard, rows across shards and a row at pos
+    0.  Each shard's split-and-merge over the keys it owns equals its
+    plain partial (acc, m, l), a shard that owns none of a row exactly
+    (0, -1e30, 0); merged over the shards (pmax/psum) it equals the paged
+    decode, and for a row on one shard the merge adds exact zeros only."""
+    rng = np.random.default_rng(200 + splits)
+    B, H, Hkv, page, hd, shards, Lp = 6, 4, 2, 16, 32, 4, 10
+    P = 6
+    cap = P * page
+    pos = np.asarray([0, cap - 1, 40, 70, cap - 1, 50], np.int32)
+    ids = rng.permutation(np.arange(1, shards * Lp))
+    table = np.asarray([ids[:P], [11, 12, 13, 14, 15, 16],
+                        [21, 22, 23, 0, 0, 0], ids[P:2 * P],
+                        [31, 32, 33, 34, 35, 36], [8, 9, 17, 18, 0, 0]],
+                       np.int32)
+    q = _randn(rng, B, H, hd)
+    kp, vp = (_randn(rng, shards * Lp, Hkv, page, hd) for _ in range(2))
+    tq, tkp, tvp, tt, tp = (torch.from_numpy(x) for x in
+                            (q, kp, vp, table, pos))
+    kg, vg = gather_pages(tkp, tt), gather_pages(tvp, tt)
+    parts = []
+    for sh in range(shards):
+        sl = slice(sh * Lp, (sh + 1) * Lp)
+        owned = (tt >= sh * Lp) & (tt < (sh + 1) * Lp)
+        own = owned.repeat_interleave(page, dim=1)
+        got = split_merge(tq, kg, vg, tp, splits, own=own)
+        want = paged_decode_partial_reference(tq, tkp[sl], tvp[sl], tt, tp,
+                                              sh * Lp)
+        for g, w in zip(got, want):
+            _close(g / max(1.0, float(w.abs().max())),
+                   w / max(1.0, float(w.abs().max())))
+        empty = ~(own & (torch.arange(cap) <= tp[:, None])).any(-1)
+        assert torch.equal(got[1][empty],
+                           torch.full_like(got[1][empty], NEG_INF))
+        parts.append([t[:, :, None] for t in got])
+    acc, _, l = _psum_partials(*zip(*parts))
+    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(B, H, hd)
+    _close(out, paged_decode_reference(tq, tkp, tvp, tt, tp))
+    one = [1, 4]                              # rows on one shard
+    whole = split_merge(tq, kg, vg, tp, splits)
+    assert torch.equal(out[one], whole[one])

@@ -1,12 +1,12 @@
 """The kernel wrappers' zero padding, on the CPU.
 
 On the card the attention kernels are instantiated for head widths
-32/64/128/256 (the decode bodies also for groups 1/2/4/8/16), the
+32/64/128/256 (the decode body takes any group up to 16), the
 selective scan for state sizes 8/16/32/64 and the chunkwise mLSTM for
 widths that are multiples of 64.  The wrappers run every other size
 padded with zeros: ``kernels.decode_padded`` (decode, paged decode and
-one shard's partial: zero query heads and zero columns; a group past 16
-in slices of 16 heads), ``kernels.verify_padded`` (both verify kernels:
+one shard's partial: zero columns; a group past 16 in slices of 16
+heads), ``kernels.verify_padded`` (both verify kernels:
 zero columns, any group), ``ssm_scan.with_state_padding`` (zero state
 columns) and ``mlstm_chunk.with_dh_padding`` (zero columns, the true
 width's scale).  Here each helper runs the plain version on the padded
@@ -41,8 +41,8 @@ from repro_torch.kernels.verify_attention.ref import (  # noqa: E402
 
 ATOL = 2e-5
 
-# (G, hd): groups padded (3, 9), instantiated (16), sliced (20 = 16 + 4),
-# widths padded (48, 96) alone and with a padded group
+# (G, hd): groups of one launch (3, 9, 16), sliced (20 = 16 + 4), widths
+# padded (48, 96) alone and with an odd group
 DECODE_CASES = [(3, 64), (9, 64), (16, 32), (20, 64), (4, 48), (1, 96),
                 (9, 96)]
 
@@ -59,8 +59,8 @@ def _close(got, want):
 
 def _launches(G, hd):
     """The (group, width) of each kernel launch ``decode_padded`` makes."""
-    return [(K.kernel_group(min(16, G - g0)), K.kernel_head_dim(hd))
-            for g0 in range(0, G, 16)]
+    return [(min(K.MAX_DECODE_GROUP, G - g0), K.kernel_head_dim(hd))
+            for g0 in range(0, G, K.MAX_DECODE_GROUP)]
 
 
 def _pool(rng, NP, Hkv, page, hd, quantized):
@@ -75,8 +75,16 @@ def _pool(rng, NP, Hkv, page, hd, quantized):
 
 
 def test_instantiated_sizes_are_not_padded():
-    assert [K.kernel_group(g) for g in range(1, 17)] == \
-        [1, 2, 4, 4, 8, 8, 8, 8] + [16] * 8
+    seen = []
+
+    def body(qp, kv, Gs):
+        seen.append((Gs, qp.shape[-1]))
+        return (qp.view(1, 1, Gs, -1),)
+
+    for g in range(1, 17):
+        (out,) = K.decode_padded(torch.ones(1, g, 64), 1, (), body)
+        assert torch.equal(out, torch.ones(1, 1, g, 64))
+    assert seen == [(g, 64) for g in range(1, 17)]
     assert [kernel_state_size(n) for n in (1, 8, 9, 16, 17, 32, 33, 64)] \
         == [8, 8, 16, 16, 32, 32, 64, 64]
     with pytest.raises(ValueError, match="N up to 64"):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times of the port's one-token decode kernels on one card, at the shapes
-of ``chip_smoke.py``'s decode records, for the port tree given, so that two
-trees can be held side by side in one run on one card:
+of ``chip_smoke.py``'s decode records (its ``decode_cases``, the same
+inputs and calls), for the port tree given, so that two trees can be held
+side by side in one run on one card:
 
     python3 tools/decode_times.py [--src DIR] [--label NAME]
 
@@ -10,12 +11,7 @@ this checkout's).  Prints one JSON line: the card's name and power limit,
 the label, and for each record its profiler kernel time (``kernel_ms``),
 its CUDA-event time (``events_ms``) and SDPA's kernel time over the same
 keys and mask (``sdpa_kernel_ms``), each a mean over launches that start
-from a flushed L2.  Records: tinyllama-1.1b heads (H 32, Hkv 4, hd 64) for
-``decode_attention`` (8 rows at 5-640 of 768 slots), the bf16 and int8
-``paged_decode_attention`` (the same rows through page-256 tables) and
-``paged_decode_attention_long`` (8 rows at 1000-4000 of 16 pages);
-mixtral-8x7b heads (H 32, Hkv 8, hd 128) for ``decode_attention_ring``
-(8 rows at 100-9000 of a 4096-slot ring).  Needs a CUDA card.
+from a flushed L2.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -35,18 +31,13 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
-    import torch.nn.functional as F
 
-    import chip_smoke as cs          # timing helpers; puts ROOT/src on the path
+    import chip_smoke as cs          # the cases and timing helpers
     sys.path.insert(0, str(Path(args.src).resolve()))
     if not torch.cuda.is_available():
         print("decode_times: no CUDA device is visible", file=sys.stderr)
         return 2
     from repro_torch import kernels
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_decode_attention)
-    from repro_torch.models.layers import PagedKV, _gather_dequant
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -58,71 +49,15 @@ def main() -> int:
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def pool_case(B, pos, P, page=256):
-        """Shuffled page tables over a fresh bf16 and int8 pool; dead
-        entries on the park page 0."""
-        NP = B * P + 1
-        ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
-        table = ids.reshape(B, P).to(torch.int32)
-        dead = torch.arange(P, device=dev)[None, :] * page > pos[:, None]
-        table = torch.where(dead, torch.zeros_like(table), table)
-        kp, vp = rn(NP, cs.HKV, page, cs.HD), rn(NP, cs.HKV, page, cs.HD)
-        codes = [torch.randint(-127, 128, (NP, cs.HKV, page, cs.HD),
-                               generator=gen, device=dev, dtype=torch.int8)
-                 for _ in range(2)]
-        scales = [torch.rand((NP, cs.HKV, page), generator=gen,
-                             device=dev) / 64 for _ in range(2)]
-        return table.contiguous(), kp, vp, codes, scales
-
-    def mask_of(pos, T):
-        return (torch.arange(T, device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
-
-    def sdpa(q, k, v, mask):
-        return lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
-
-    cases = {}
-    B = 8
-    pos = torch.tensor([5, 77, 130, 255, 256, 400, 511, 640],
-                       dtype=torch.int32, device=dev)
-    q = rn(B, cs.H, cs.HD)
-    k, v = rn(B, cs.HKV, 768, cs.HD), rn(B, cs.HKV, 768, cs.HD)
-    cases["decode_attention"] = (lambda: decode_attention(q, k, v, pos),
-                                 sdpa(q, k, v, mask_of(pos, 768)))
-    table, kp, vp, (kq, vq), (ks, vs) = pool_case(B, pos, 3)
-    kg, vg = gather_pages(kp, table), gather_pages(vp, table)
-    cases["paged_decode_attention"] = (
-        lambda: paged_decode_attention(q, kp, vp, table, pos),
-        sdpa(q, kg, vg, mask_of(pos, 768)))
-    kd, vd = _gather_dequant(PagedKV(kq, vq, ks, vs), table, torch.bfloat16)
-    cases["paged_decode_attention_int8"] = (
-        lambda: paged_decode_attention(q, kq, vq, table, pos, k_scale=ks,
-                                       v_scale=vs),
-        sdpa(q, kd, vd, mask_of(pos, 768)))
-    lpos = torch.linspace(1000, 4000, B, device=dev).to(torch.int32)
-    ltable, lkp, lvp, _, _ = pool_case(B, lpos, 16)
-    lkg, lvg = gather_pages(lkp, ltable), gather_pages(lvp, ltable)
-    cases["paged_decode_attention_long"] = (
-        lambda: paged_decode_attention(q, lkp, lvp, ltable, lpos),
-        sdpa(q, lkg, lvg, mask_of(lpos, 16 * 256)))
-    rpos = torch.tensor([100, 1000, 2047, 4095, 4096, 5000, 8191, 9000],
-                        dtype=torch.int32, device=dev)
-    rq = rn(B, cs.MH, cs.MHD)
-    rk, rv = rn(B, cs.MHKV, cs.RING, cs.MHD), rn(B, cs.MHKV, cs.RING, cs.MHD)
-    rmask = mask_of(torch.clamp(rpos, max=cs.RING - 1), cs.RING)
-    cases["decode_attention_ring"] = (
-        lambda: decode_attention(rq, rk, rv, rpos, ring=True),
-        sdpa(rq, rk, rv, rmask))
-
     kernels.build_all()
     out = {}
-    for name, (fn, lib) in cases.items():
-        fn()
+    for name, c in cs.decode_cases(dev, gen, rn).items():
+        c["fn"]()
         torch.cuda.synchronize()
-        out[name] = {"kernel_ms": cs.device_ms(fn, iters=20, flush=flush),
-                     "events_ms": cs.time_ms(fn, flush=flush),
-                     "sdpa_kernel_ms": cs.device_ms(lib, iters=20,
+        out[name] = {"kernel_ms": cs.device_ms(c["fn"], iters=20,
+                                               flush=flush),
+                     "events_ms": cs.time_ms(c["fn"], flush=flush),
+                     "sdpa_kernel_ms": cs.device_ms(c["sdpa"], iters=20,
                                                     flush=flush)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
