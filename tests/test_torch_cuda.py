@@ -563,10 +563,10 @@ def test_decode_row_does_not_depend_on_its_batch(gen, S):
     row = decode_attention(q, k, v, pos)
     paged = paged_decode_attention(q, kp, vp, table, pos)
     for sl in [slice(b, b + 1) for b in range(B)] + [slice(2, 5)]:
-        assert torch.equal(decode_attention(q[sl], k[sl], v[sl], pos[sl]),
-                           row[sl])
-        assert torch.equal(paged_decode_attention(q[sl], kp, vp, table[sl],
-                                                  pos[sl]), paged[sl])
+        qs, ks, vs, ts, ps = (t[sl].clone() for t in (q, k, v, table, pos))
+        assert torch.equal(decode_attention(qs, ks, vs, ps), row[sl])
+        assert torch.equal(paged_decode_attention(qs, kp, vp, ts, ps),
+                           paged[sl])
 
 
 @pytest.mark.parametrize("G,hd", WIDE_HEADS)
