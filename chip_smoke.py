@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
                 in the SASS of the flash, gmm, paged and verify libraries,
                 of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
-                paged and partial libraries (nonzero).
+                paged, partial and mLSTM libraries, and of cp.async in the
+                scan library (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -39,11 +40,19 @@ Phases, in order; any failure exits non-zero before the result lines:
                 limit that a one-slot mask fault is shown to leave (ring
                 verify also each score row within 2**-7).  The
                 selective scan at jamba-v0.1-52b's (d_in=8192, N=16, f32,
-                L=512, and L=8 from a carried state) within 1e-4 of the
-                plain version's largest value.  The chunkwise mLSTM at
-                xlstm-125m's (H=4, dh=384, chunk 256, f32, B=2, L=512):
+                B=2, L=512, and L=8 from a carried state; and as
+                ``ssm_scan_serving`` at B=1 and jamba's first prompt of
+                the hybrid pass) within 1e-4 of the plain version's
+                largest value, a limit shown to catch one lane group's
+                state or one time tile's carry dropped.  The chunkwise
+                mLSTM at xlstm-125m's (H=4, dh=384, chunk 256, f32, B=2,
+                L=512; and as ``mlstm_chunk_serving`` at B=1, L=768):
                 h, C and n within 5e-4, m within 1e-5, each times
-                max(1, the plain version's largest value).  One shard's
+                max(1, the plain version's largest value), limits shown
+                to catch one chunk's carried state dropped or read one
+                chunk late.  The scan and mLSTM records log their kernel
+                time and their bound at their route's rate (the
+                exponentials' rate; 3xTF32 on the tensor cores).  One shard's
                 decode partial (B5) at tinyllama-1.1b's attention over a
                 bank split into 4 slices, every base, rows that own no
                 page, bf16 and int8: acc, m and l each within 1e-4 times
@@ -132,7 +141,11 @@ SCAN_RTOL = 1e-4             # f32 scan: max abs error / max |plain|
 MLSTM_TOL, MLSTM_M_TOL = 5e-4, 1e-5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12          # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS = 67e12            # H100 SXM f32 peak outside the tensor cores
+# exponentials: 16 a clock on each of the H100 SXM's 132 SMs' special
+# function units, at its 1980 MHz boost clock
+EXP_PER_S = 132 * 16 * 1.98e9
 H, HKV, HD = 32, 4, 64       # tinyllama-1.1b attention
 MH, MHKV, MHD = 32, 8, 128   # mixtral-8x7b / jamba-v0.1-52b attention
 RING = 4096                  # mixtral-8x7b's window: ring slots
@@ -814,95 +827,214 @@ def ring_verify_record(dev, rn, flush, record) -> None:
                         qt, kall, vall, attn_mask=vmask, enable_gqa=True))
 
 
+SCAN_D_IN, SCAN_N = 8192, 16        # jamba-v0.1-52b's Mamba scan
+SCAN_TILE = 32                       # time steps of a scan kernel tile
+MLSTM_H, MLSTM_DH, MLSTM_C = 4, 384, 256   # xlstm-125m's mLSTM
+
+
+def scan_cases(dev, gen) -> dict:
+    """The scan records' inputs at jamba-v0.1-52b's d_in and N, f32:
+    ``ssm_scan`` a 512-token prefill of 2 rows from a zero state (timed)
+    and an 8-token verify block from a carried state (checked too);
+    ``ssm_scan_serving`` the hybrid pass's first jamba prompt, one row
+    from a zero state.  -> name -> list of argument tuples, the first
+    timed."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    A = -torch.exp(rn(SCAN_D_IN, SCAN_N) * 0.5)
+    D = rn(SCAN_D_IN)
+
+    def case(B, L, init):
+        u, Bm, Cm = rn(B, L, SCAN_D_IN), rn(B, L, SCAN_N), rn(B, L, SCAN_N)
+        dt = torch.nn.functional.softplus(rn(B, L, SCAN_D_IN) - 2.0)
+        return (u, dt, Bm, Cm, A, D,
+                rn(B, SCAN_D_IN, SCAN_N) if init else None)
+
+    return {"ssm_scan": [case(2, 512, False), case(2, 8, True)],
+            "ssm_scan_serving": [case(*scan_serving_shape()[:2], False)]}
+
+
+def mlstm_cases(dev, gen) -> dict:
+    """The mLSTM records' inputs at xlstm-125m's heads (H = 4, dh = 384,
+    chunk 256), f32, drawn as ``tests/test_kernels.py`` draws them:
+    ``mlstm_chunk`` a 512-token prefill of 2 rows, ``mlstm_chunk_serving``
+    the xlstm pass's 768-token prompt, one row.  -> name -> (q, k, v,
+    li, lf)."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def case(B, L):
+        q, k, v = (rn(B, MLSTM_H, L, MLSTM_DH) for _ in range(3))
+        li = rn(B, MLSTM_H, L) * 0.5
+        lf = torch.nn.functional.logsigmoid(rn(B, MLSTM_H, L) + 1.0)
+        return (q, k, v, li, lf)
+
+    return {"mlstm_chunk": case(2, 512),
+            "mlstm_chunk_serving": case(*MLSTM_SERVING_SHAPE[0:3:2])}
+
+
+def scan_warps(B: int, d_in: int, N: int) -> tuple[int, int]:
+    """Warps a scan launch runs: this kernel's (32-channel blocks of N/4
+    lanes a channel) and those of a kernel with one thread a channel in
+    128-thread blocks, the scan's earlier design."""
+    return (B * -(-d_in // 32) * (N // 4), B * -(-d_in // 128) * 4)
+
+
 def scan_record(dev, gen, flush, record) -> None:
-    """The selective scan at jamba-v0.1-52b's shapes (d_in = 8192, N = 16)
-    in f32: a 512-token prefill of 2 rows from a zero state (timed), and
-    an 8-token verify block from a carried state (checked too).  No
-    single library call computes the scan.  The bound counts 7 operations
-    per (row, step, channel, state) and 3 per (row, step, channel) at
-    the f32 rate outside the tensor cores."""
+    """The selective scan at jamba-v0.1-52b's shapes (``scan_cases``), f32,
+    within ``SCAN_RTOL`` of the plain version's largest value.  No single
+    library call computes the scan.  The bound counts 7 operations per
+    (row, step, channel, state) and 3 per (row, step, channel) at the f32
+    rate outside the tensor cores; the log adds the exponentials' bound
+    (one a (row, step, channel, state) at ``EXP_PER_S``) and shows that
+    the limit catches one lane group's state and one time tile's carry
+    dropped at a tile boundary (``scan_faults``)."""
     import torch
     from repro_torch.kernels.ssm_scan.ops import (selective_scan_reference,
                                                   ssm_scan)
 
-    B, d_in, N = 2, 8192, 16
+    for name, cases in scan_cases(dev, gen).items():
+        got, ref = [], []
+        for args in cases:
+            got += ssm_scan(*args)
+            torch.cuda.synchronize()
+            ref += selective_scan_reference(*args)
+        tol = SCAN_RTOL * max(float(r.abs().max()) for r in ref)
+        timed = cases[0]
+        B, L, d_in = timed[0].shape
+        N = timed[2].shape[-1]
+        nbytes = 4 * (3 * B * L * d_in + 2 * B * L * N + d_in * N + d_in
+                      + B * d_in * N)
+        ops = B * L * d_in * (7 * N + 3)
+        rec = record(
+            name, "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:64", tuple(got),
+            tuple(ref), time_ms(lambda: ssm_scan(*timed), flush=flush),
+            time_ms(lambda: selective_scan_reference(*timed), iters=5,
+                    flush=flush),
+            None, nbytes, ops, peak=F32_FLOPS, tol=tol)
+        warps, old = scan_warps(B, d_in, N)
+        exp_ms = 1e3 * B * L * d_in * N / EXP_PER_S
+        log(f"kernel {name}: exp bound ms={exp_ms:.4f} beside bound_ms="
+            f"{rec['bound_ms']:.4f} ({rec['bound_by']}); warps {warps} "
+            f"(one thread a channel: {old}, x{warps / old:.1f})")
+        log_kernel_time(name, lambda: ssm_scan(*timed), flush)
+        if name == "ssm_scan":
+            scan_faults(timed, ref[0], tol)
 
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
 
-    A = -torch.exp(rn(d_in, N) * 0.5)
-    D = rn(d_in)
+def scan_faults(args, want, tol) -> None:
+    """The plain scan with one planted fault at the tile boundary t = 256
+    (of ``args``, from a zero state): the states of one lane group (the
+    second 4 of each channel's N) dropped, and the whole carry dropped
+    (the tile restarts from zero).  Each must leave the record's limit
+    ``tol``: logs its largest error over the limit, fails at or under 1."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import selective_scan_reference
 
-    def case(L, init):
-        u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
-        dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
-        return (u, dt, Bm, Cm, A, D, rn(B, d_in, N) if init else None)
-
-    long, short = case(512, False), case(8, True)
-    got, ref = [], []
-    for args in (long, short):
-        got += ssm_scan(*args)
-        torch.cuda.synchronize()
-        ref += selective_scan_reference(*args)
-    tol = SCAN_RTOL * max(float(r.abs().max()) for r in ref)
-    L = 512
-    nbytes = 4 * (3 * B * L * d_in + 2 * B * L * N + d_in * N + d_in
-                  + B * d_in * N)
-    ops = B * L * d_in * (7 * N + 3)
-    record("ssm_scan", "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
-           "src/repro/kernels/ssm_scan/kernel.py:64", tuple(got), tuple(ref),
-           time_ms(lambda: ssm_scan(*long), flush=flush),
-           time_ms(lambda: selective_scan_reference(*long), iters=5,
-                   flush=flush),
-           None, nbytes, ops, peak=F32_FLOPS, tol=tol)
+    u, dt, Bm, Cm, A, D, s0 = args
+    T = 8 * SCAN_TILE
+    head = [t[:, :T] for t in (u, dt, Bm, Cm)]
+    tail = [t[:, T:] for t in (u, dt, Bm, Cm)]
+    y1, s = selective_scan_reference(*head, A, D, s0)
+    lane = s.clone()
+    lane[..., 4:8] = 0.0
+    for fault, s_in in (("one lane group's state dropped", lane),
+                        ("one time tile's carry dropped",
+                         torch.zeros_like(s))):
+        y2, _ = selective_scan_reference(*tail, A, D, s_in)
+        ratio = float((torch.cat([y1, y2], dim=1) - want).abs().max()) / tol
+        log(f"kernel ssm_scan: planted fault '{fault}' at step {T}: "
+            f"error/limit {ratio:.1f}")
+        if not ratio > 1.0:
+            raise AssertionError(f"ssm_scan: the limit does not catch "
+                                 f"{fault}")
 
 
 def mlstm_record(dev, gen, flush, record) -> None:
-    """The chunkwise mLSTM at xlstm-125m's shapes (H = 4, dh = 384, chunk
-    256) in f32: a 512-token prefill of 2 rows from no history, inputs
-    drawn as ``tests/test_kernels.py`` draws them.  No single library call
-    computes it.  The bound counts, per chunk and (row, head), the
-    scores and the intra-chunk product over the causal pairs s <= l only,
-    2 c(c+1) dh, the state update 2c dh^2, and the inter-chunk product 2c
-    dh^2 for every chunk but the first (which has no carried state), at
-    the f32 rate outside the tensor cores; the bytes are q, k, v, li, lf
-    read and h, C, n, m written.  The log also gives the largest |g| (the
-    within-chunk cumulative log forget gate), on whose rounding m's
-    error rests."""
+    """The chunkwise mLSTM at xlstm-125m's shapes (``mlstm_cases``), f32,
+    from no history.  No single library call computes it.  The bound
+    counts, per chunk and (row, head), the scores and the intra-chunk
+    product over the causal pairs s <= l only, 2 c(c+1) dh, the state
+    update 2c dh^2, and the inter-chunk product 2c dh^2 for every chunk
+    but the first (which has no carried state), at the f32 rate outside
+    the tensor cores; the bytes are q, k, v, li, lf read and h, C, n, m
+    written.  The log adds the bound at the 3xTF32 route's rate (3 x the
+    operations at ``TF32_FLOPS``), the largest |g| (the within-chunk
+    cumulative log forget gate, on whose rounding m's error rests) and
+    the planted faults of ``mlstm_faults``."""
     import torch
     from repro_torch.kernels.mlstm_chunk.ops import (mlstm_chunk,
                                                      mlstm_chunk_reference)
 
-    B, Hx, L, dh, c = 2, 4, 512, 384, 256
+    c = MLSTM_C
+    for name, args in mlstm_cases(dev, gen).items():
+        q, lf = args[0], args[4]
+        B, Hx, L, dh = q.shape
+        h, fin = mlstm_chunk(*args, chunk=c)
+        torch.cuda.synchronize()
+        wh, wfin = mlstm_chunk_reference(*args, c)
+        got, ref = (h, *fin), (wh, *wfin)
+        tols = tuple(t * max(1.0, float(r.abs().max()))
+                     for t, r in zip((MLSTM_TOL,) * 3 + (MLSTM_M_TOL,), ref))
+        nbytes = 4 * (4 * B * Hx * L * dh + 2 * B * Hx * L
+                      + B * Hx * dh * dh + B * Hx * dh + B * Hx)
+        nc = L // c
+        ops = B * Hx * (nc * (2 * c * (c + 1) * dh + 2 * c * dh * dh)
+                        + (nc - 1) * 2 * c * dh * dh)
+        g_max = float(lf.reshape(B, Hx, nc, c).cumsum(-1).abs().max())
+        log(f"{name}: largest |g| {g_max:.3f}, largest |m| "
+            f"{float(ref[3].abs().max()):.3f}, m bitwise the plain "
+            f"version's: {bool(torch.equal(got[3], ref[3]))}")
+        record(name,
+               "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+               "src/repro/kernels/mlstm_chunk/kernel.py:95", got, ref,
+               time_ms(lambda: mlstm_chunk(*args, chunk=c), flush=flush),
+               time_ms(lambda: mlstm_chunk_reference(*args, c), flush=flush),
+               None, nbytes, ops, peak=F32_FLOPS, tol=tols,
+               outputs=("h", "C", "n", "m"))
+        log(f"kernel {name}: bound at the 3xTF32 route's rate ms="
+            f"{1e3 * 3 * ops / TF32_FLOPS:.4f}")
+        log_kernel_time(name, lambda: mlstm_chunk(*args, chunk=c), flush)
+        mlstm_faults(name, args, c, ref, tols)
 
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
 
-    q, k, v = rn(B, Hx, L, dh), rn(B, Hx, L, dh), rn(B, Hx, L, dh)
-    li = rn(B, Hx, L) * 0.5
-    lf = torch.nn.functional.logsigmoid(rn(B, Hx, L) + 1.0)
-    args = (q, k, v, li, lf)
-    h, fin = mlstm_chunk(*args, chunk=c)
-    torch.cuda.synchronize()
-    wh, wfin = mlstm_chunk_reference(*args, c)
-    got, ref = (h, *fin), (wh, *wfin)
-    tols = tuple(t * max(1.0, float(r.abs().max()))
-                 for t, r in zip((MLSTM_TOL,) * 3 + (MLSTM_M_TOL,), ref))
-    nbytes = 4 * (4 * B * Hx * L * dh + 2 * B * Hx * L + B * Hx * dh * dh
-                  + B * Hx * dh + B * Hx)
+def mlstm_faults(name, args, c, want, tols) -> None:
+    """The plain chunkwise mLSTM run chunk by chunk with one planted fault
+    in the carried state: chunk 1 starting from no history (its carried
+    state dropped) and, with three or more chunks, chunk 2 starting from
+    the state after chunk 0 (read one chunk late).  Each must leave the
+    record's limits ``tols`` (h, C, n, m): logs its largest error over the
+    limit per output, fails where none passes 1."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_reference
+
+    L = args[0].shape[2]
     nc = L // c
-    ops = B * Hx * (nc * (2 * c * (c + 1) * dh + 2 * c * dh * dh)
-                    + (nc - 1) * 2 * c * dh * dh)
-    g_max = float(lf.reshape(B, Hx, nc, c).cumsum(-1).abs().max())
-    log(f"mlstm_chunk: largest |g| {g_max:.3f}, largest |m| "
-        f"{float(ref[3].abs().max()):.3f}")
-    record("mlstm_chunk",
-           "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
-           "src/repro/kernels/mlstm_chunk/kernel.py:95", got, ref,
-           time_ms(lambda: mlstm_chunk(*args, chunk=c), flush=flush),
-           time_ms(lambda: mlstm_chunk_reference(*args, c), flush=flush),
-           None, nbytes, ops, peak=F32_FLOPS, tol=tols,
-           outputs=("h", "C", "n", "m"))
+    faults = {"carried state dropped": lambda j, st: None if j == 1 else st[j]}
+    if nc >= 3:
+        faults["carried state read one chunk late"] = (
+            lambda j, st: st[j - 1] if j == 2 else st[j])
+    for fault, carry in faults.items():
+        states, hs = [None], []
+        for j in range(nc):
+            part = [t[:, :, j * c:(j + 1) * c] for t in args]
+            h, st = mlstm_chunk_reference(*part, c, state=carry(j, states))
+            hs.append(h)
+            states.append(st)
+        got = (torch.cat(hs, dim=2), *states[-1])
+        ratios = [float((g - w).abs().max()) / t
+                  for g, w, t in zip(got, want, tols)]
+        log(f"kernel {name}: planted fault '{fault}': error/limit h "
+            f"{ratios[0]:.1f}, C {ratios[1]:.1f}, n {ratios[2]:.1f}, m "
+            f"{ratios[3]:.1f}")
+        if not max(ratios) > 1.0:
+            raise AssertionError(f"{name}: the limits do not catch {fault}")
 
 
 SHARDS = 4                   # logical shards of the sharded passes
@@ -1084,13 +1216,15 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 # the instructions each library's SASS must hold: wgmma (HGMMA) and TMA
 # loads (UTMALDG) in the flash, gmm and verify bodies; mma.sync (HMMA) and
 # cp.async (LDGSTS) in the decode body (the row and paged decode and the
-# shard partial)
+# shard partial) and the mLSTM's 3xTF32 products; cp.async in the scan
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "gmm": ("HGMMA", "UTMALDG"),
             "paged_attention": ("HGMMA", "UTMALDG", "HMMA", "LDGSTS"),
             "verify_attention": ("HGMMA", "UTMALDG"),
             "decode_attention": ("HMMA", "LDGSTS"),
-            "paged_partial": ("HMMA", "LDGSTS")}
+            "paged_partial": ("HMMA", "LDGSTS"),
+            "mlstm_chunk": ("HMMA", "LDGSTS"),
+            "ssm_scan": ("LDGSTS",)}
 
 
 def sass_counts() -> None:
@@ -1369,8 +1503,9 @@ def _tree(fn, tree):
 
 def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
-    ring routes count apart), and the launches of flash, gmm and the
-    paged decode at the shapes of their second records."""
+    ring routes count apart), and the launches of flash, gmm, the paged
+    decode, the scan and the mLSTM at the shapes of their second
+    records."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1398,7 +1533,11 @@ def _launch_counters() -> dict:
             "paged_verify_attention_tree":
                 lambda: paged_verify_attention.launches_tree,
             "ssm_scan": lambda: ssm_scan.launches,
+            "ssm_scan_serving":
+                lambda: ssm_scan.launches_by_shape[scan_serving_shape()],
             "mlstm_chunk": lambda: mlstm_chunk.launches,
+            "mlstm_chunk_serving":
+                lambda: mlstm_chunk.launches_by_shape[MLSTM_SERVING_SHAPE],
             "paged_decode_partial": lambda: paged_decode_partial.launches,
             "paged_decode_partial_int8":
                 lambda: paged_decode_partial.launches_int8,
@@ -1542,13 +1681,15 @@ def serving_phase(dev) -> dict:
 # records whose launches are a route's or a shape's of a kernel body also
 # carry the body's launches: no engine verifies a tree or a ring yet, so
 # those routes launch no time on the main path; the windowed flash, the
-# down product and the long paged decode count the launches at their
-# record's shape
+# down product, the long paged decode and the scan's and mLSTM's serving
+# records count the launches at their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
               "verify_attention_ring": "verify_attention",
               "flash_attention_window": "flash_attention",
               "gmm_down": "gmm",
-              "paged_decode_attention_long": "paged_decode_attention"}
+              "paged_decode_attention_long": "paged_decode_attention",
+              "ssm_scan_serving": "ssm_scan",
+              "mlstm_chunk_serving": "mlstm_chunk"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -1562,6 +1703,35 @@ GMM_DOWN_SHAPE = (2, 320, 14336, 4096)
 PAGED_LONG_SHAPE = (8, HKV, H // HKV, 16, 256, HD)
 
 
+def hybrid_prompts() -> list:
+    """The requests of ``continuous_row_moe_hybrid``: (name, (1, S)
+    prompt) pairs alternating mixtral-8x7b and jamba-v0.1-52b, prompts of
+    128-512 tokens from a seed, except the third (mixtral's), of
+    ``LONG_PROMPT``."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+
+    names = list(MOE_DEPTH)
+    rng = np.random.default_rng(1)
+    reqs = []
+    for r in range(N_REQUESTS):
+        name = names[r % 2]
+        S = LONG_PROMPT if r == 2 else int(
+            rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        reqs.append((name, rng.integers(0, get_arch(name).vocab_size,
+                                        (1, S))))
+    return reqs
+
+
+def scan_serving_shape() -> tuple:
+    """(B, L, d_in, N) of ``ssm_scan_serving``: the hybrid pass admits
+    each jamba prompt alone (its prompts differ in length), so its scans
+    run at B = 1, 7 layers a prompt; the first jamba prompt's."""
+    S = next(p.shape[1] for n, p in hybrid_prompts()
+             if n == "jamba-v0.1-52b")
+    return (1, S, SCAN_D_IN, SCAN_N)
+
+
 def moe_hybrid_pass(dev) -> dict:
     """``continuous_row_moe_hybrid``: ContinuousScheduler, row cache, 2
     batch slots and 2 weight slots, 8 requests alternating mixtral-8x7b
@@ -1572,10 +1742,10 @@ def moe_hybrid_pass(dev) -> dict:
     tokens each, max_len 4224.  Flash (also at the windowed record's
     shape, the 4160-token prefill), decode (jamba's attention layer), ring
     decode (mixtral) and the selective scan (jamba's prefills) must each
-    launch.  -> launch counts."""
+    launch, the scan also at its serving record's shape.  -> launch
+    counts."""
     import gc
 
-    import numpy as np
     import torch
     from repro_torch.configs import get_arch, override
     from repro_torch.launch.serve import _to_host
@@ -1601,18 +1771,12 @@ def moe_hybrid_pass(dev) -> dict:
                                     max_len=max_len))
     log(f"serving continuous_row_moe_hybrid: weights made and pinned in "
         f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(1)
-    reqs = []
-    for r in range(N_REQUESTS):
-        name = names[r % 2]
-        S = LONG_PROMPT if r == 2 else int(
-            rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
-        reqs.append((name, rng.integers(0, cfgs[name].vocab_size, (1, S))))
+    reqs = hybrid_prompts()
     counts, _ = run_pass(
         dev, "continuous_row_moe_hybrid", server, cfgs, reqs,
         lambda s: ContinuousScheduler(s, batch_size=2),
         {"flash_attention", "flash_attention_window", "decode_attention",
-         "decode_attention_ring", "ssm_scan"})
+         "decode_attention_ring", "ssm_scan", "ssm_scan_serving"})
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1620,6 +1784,9 @@ def moe_hybrid_pass(dev) -> dict:
 
 
 XLSTM_PROMPTS = (300, 512, 768)   # 512 and 768: chunkwise; 300: parallel
+# (B, H, L, dh, chunk) of mlstm_chunk_serving: the xlstm pass's 768-token
+# prompt, admitted alone, through each of its 9 mLSTM layers
+MLSTM_SERVING_SHAPE = (1, MLSTM_H, max(XLSTM_PROMPTS), MLSTM_DH, MLSTM_C)
 
 
 def xlstm_pass(dev) -> dict:
@@ -1651,7 +1818,8 @@ def xlstm_pass(dev) -> dict:
     counts, _ = run_pass(
         dev, "continuous_row_xlstm", server, cfgs, reqs,
         lambda s: ContinuousScheduler(s, batch_size=2),
-        {"mlstm_chunk", "flash_attention", "decode_attention"})
+        {"mlstm_chunk", "mlstm_chunk_serving", "flash_attention",
+         "decode_attention"})
     del server
     gc.collect()
     torch.cuda.empty_cache()

@@ -221,8 +221,9 @@ def reset_launch_counts() -> None:
     """Zero every kernel body's launch count (the int8 bodies of the
     paged wrappers count apart, in ``launches_int8``, the paged verify's
     tree route in ``launches_tree``, and the ring routes of the row
-    decode and verify wrappers in ``launches_ring``; flash, gmm and the
-    paged decode also count by shape, in ``launches_by_shape``)."""
+    decode and verify wrappers in ``launches_ring``; flash, gmm, the
+    paged decode, the scan and the mLSTM also count by shape, in
+    ``launches_by_shape``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -233,7 +234,8 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.verify_attention.ops import verify_attention
     for fn in (flash_attention, ssm_scan, mlstm_chunk, gmm):
         fn.launches = 0
-    for fn in (flash_attention, gmm, paged_decode_attention):
+    for fn in (flash_attention, gmm, paged_decode_attention, ssm_scan,
+               mlstm_chunk):
         fn.launches_by_shape.clear()
     for fn in (decode_attention, verify_attention):
         fn.launches = 0

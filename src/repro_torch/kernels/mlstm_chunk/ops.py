@@ -5,6 +5,7 @@ CUDA tensor launches ``csrc/mlstm_chunk.cu`` or raises.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -14,8 +15,9 @@ from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_reference,
                                                  mlstm_recurrent_reference)
 
 DEFAULT_CHUNK = 128
-MAX_CHUNK = 256          # the kernel stages a chunk's gates in shared memory
-MAX_DH = 512             # a block keeps a (dh, 64) column slice of C
+MAX_CHUNK = 256          # the kernel scans a chunk's gates in one block
+MAX_DH = 512             # a cluster of dh / 64 blocks: at most 8
+STATE_BUDGET = 256 << 20  # bytes of the chunks' states, at most, a span
 
 _fn = None
 
@@ -39,6 +41,24 @@ def with_dh_padding(body, q, k, v, li, lf, chunk: int):
     return h[..., :dh], (C[..., :dh, :dh], n[..., :dh], m)
 
 
+def cumsum_width(rows: int, c: int) -> int:
+    """The block width of ``torch.cumsum``'s CUDA scan over ``rows`` rows
+    of ``c`` (ATen's ``get_log_num_threads_x_inner_scan``, in its
+    unsigned arithmetic): the kernel sums the gates' cumulative forget
+    gate in the same order, so that m rounds as the plain version's."""
+    lx, ly = (c - 1).bit_length(), (rows - 1).bit_length()
+    log_x = ((9 + (lx - ly) % 2 ** 32) % 2 ** 32) // 2
+    return 2 << min(max(4, log_x), 9)
+
+
+def chunk_span(B: int, H: int, nc: int, dh: int) -> int:
+    """Chunks whose states the kernel holds at once: all ``nc`` where
+    their ``B H (dh^2 + dh)`` floats a chunk fit ``STATE_BUDGET``, else
+    as many as fit, at least one."""
+    per = 4 * B * H * (dh * dh + dh)
+    return max(1, min(nc, STATE_BUDGET // per))
+
+
 def _launch(q, k, v, li, lf, c, scale):
     global _fn
     B, H, L, dh = q.shape
@@ -46,18 +66,27 @@ def _launch(q, k, v, li, lf, c, scale):
                            ("v", v, (B, H, L, dh)), ("li", li, (B, H, L)),
                            ("lf", lf, (B, H, L))):
         K.check_cuda_input(name, t, torch.float32, shape)
-    h = torch.empty((B, H, L, dh), dtype=torch.float32, device=q.device)
-    C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=q.device)
-    n = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    nc = L // c
+    span = chunk_span(B, H, nc, dh)
+    dev = q.device
+    h = torch.empty((B, H, L, dh), dtype=torch.float32, device=dev)
+    C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
+    n = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    gates = torch.empty(4 * B * H * L + B * H * nc, dtype=torch.float32,
+                        device=dev)
+    states = torch.empty(span * B * H * (dh * dh + dh), dtype=torch.float32,
+                         device=dev)
     if _fn is None:
         _fn = K.c_function("mlstm_chunk", "mlstm_chunk_f32",
-                           [K.P] * 9 + [K.I] * 5 + [K.F, K.P])
+                           [K.P] * 11 + [K.I] * 7 + [K.F, K.P])
     rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
              lf.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-             m.data_ptr(), B, H, L, dh, c, float(scale), K.stream_ptr(q))
+             m.data_ptr(), gates.data_ptr(), states.data_ptr(), B, H, L, dh,
+             c, span, cumsum_width(B * H, c), float(scale), K.stream_ptr(q))
     K.check_launch("mlstm_chunk", rc)
     mlstm_chunk.launches += 1
+    mlstm_chunk.launches_by_shape[(B, H, L, dh, c)] += 1
     return h, (C, n, m)
 
 
@@ -81,6 +110,9 @@ def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
 
 
 mlstm_chunk.launches = 0
+# (B, H, L, dh, chunk) -> launches at that shape (dh as launched, padded)
+mlstm_chunk.launches_by_shape = collections.Counter()
 
-__all__ = ["mlstm_chunk", "mlstm_chunk_reference",
+__all__ = ["chunk_span", "cumsum_width", "mlstm_chunk",
+           "mlstm_chunk_reference",
            "mlstm_recurrent_reference", "with_dh_padding"]

@@ -5,6 +5,8 @@ CUDA tensor launches ``csrc/ssm_scan.cu`` or raises.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch import kernels as K
@@ -65,6 +67,7 @@ def _launch(u, dt, Bm, Cm, A, D, init_state):
              y.data_ptr(), s.data_ptr(), B, L, d_in, N, K.stream_ptr(u))
     K.check_launch("ssm_scan", rc)
     ssm_scan.launches += 1
+    ssm_scan.launches_by_shape[(B, L, d_in, N)] += 1
     return y, s
 
 
@@ -82,6 +85,8 @@ def ssm_scan(u, dt, Bm, Cm, A, D, init_state=None):
 
 
 ssm_scan.launches = 0
+# (B, L, d_in, N) -> launches at that shape (N as launched, padded)
+ssm_scan.launches_by_shape = collections.Counter()
 
 __all__ = ["kernel_state_size", "selective_scan_reference", "ssm_scan",
            "with_state_padding"]

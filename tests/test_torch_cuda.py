@@ -15,7 +15,9 @@ size up to 64, the mLSTM over any width up to 512, the grouped matmul
 over any C, D and F; paged verify equals row verify, and paged decode
 row decode, bit for bit over the same keys.  The decode kernels are held
 at every split of a row's keys over a block cluster (1, 2, 4, 8 blocks),
-at each split boundary, with no host sync in a call.  Every test here is
+at each split boundary, with no host sync in a call; the scan and the
+mLSTM with no host sync, replayed bit for bit from a CUDA graph, the
+mLSTM also in spans of one chunk.  Every test here is
 marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -641,14 +643,16 @@ def test_ring_decode_and_verify_kernels_match_plain(gen, Kb, G, hd):
 
 @pytest.mark.parametrize("d_in", [200, 256, 8192])
 @pytest.mark.parametrize("N", [8, 16])
-@pytest.mark.parametrize("L", [1, 7, 512])
+@pytest.mark.parametrize("L", [1, 7, 32, 33, 96, 512])
 @pytest.mark.parametrize("init", [False, True])
-def test_ssm_scan_kernel_matches_plain(gen, d_in, N, L, init):
+@pytest.mark.parametrize("B", [1, 2])
+def test_ssm_scan_kernel_matches_plain(gen, d_in, N, L, init, B):
     """The f32 selective scan against its plain sequential version on
     the same CUDA tensors: y and the final state, from a zero or a
-    carried state, d_in a multiple of the block or not."""
+    carried state, d_in a multiple of the block or not, one or two rows,
+    one time tile (ragged or whole), two (the second of one step) and
+    three or more."""
     kernels.reset_launch_counts()
-    B = 2
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -701,14 +705,19 @@ def test_ssm_scan_kernel_takes_any_state_size(gen, N, init):
 
 @pytest.mark.parametrize("dh", [64, 384])
 @pytest.mark.parametrize("L,chunk", [(64, 16), (256, 128), (512, 256),
-                                     (384, 256), (200, 256)])
-def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk):
+                                     (384, 256), (200, 256), (256, 256),
+                                     (768, 256), (1280, 256), (100, 64)])
+@pytest.mark.parametrize("B", [1, 2])
+def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk, B):
     """The f32 chunkwise mLSTM against its plain version on the same CUDA
-    tensors (f32 products, no TF32): h and the final (C, n, m).  L = 384
-    shrinks a 256 chunk to 128, L = 200 makes one ragged chunk of 200."""
+    tensors (f32 products, no TF32): h and the final (C, n, m), one or
+    two rows.  One chunk (L = 256), two, three (L = 768, and L = 384,
+    which shrinks a 256 chunk to 128), five and 25 (L = 100 shrinks a 64
+    chunk to 4); L = 200 makes one ragged chunk of 200, whose last query
+    and key tile hold 8 rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.reset_launch_counts()
-    B, H = 2, 2
+    H = 2
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -731,6 +740,100 @@ def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk):
     with pytest.raises(ValueError, match="dh up to 512"):
         mlstm_chunk(*(torch.zeros(1, 1, 8, 520, device="cuda")
                       for _ in range(3)), li[:1, :1, :8], lf[:1, :1, :8])
+
+
+def test_mlstm_chunk_kernel_in_spans(gen, monkeypatch):
+    """With a state budget of one chunk, the kernel runs the chunks one
+    span at a time, each span's first carried state the last one's
+    final: h and the final (C, n, m) as the plain version's, as in one
+    span."""
+    from repro_torch.kernels.mlstm_chunk import ops as mops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, L, dh, c = 2, 2, 768, 128, 256
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = rn(B, H, L, dh), rn(B, H, L, dh), rn(B, H, L, dh)
+    li = rn(B, H, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, H, L) + 1.0)
+    whole = mlstm_chunk(q, k, v, li, lf, chunk=c)
+    monkeypatch.setattr(mops, "STATE_BUDGET", 1)
+    assert mops.chunk_span(B, H, L // c, dh) == 1
+    h, fin = mlstm_chunk(q, k, v, li, lf, chunk=c)
+    wh, wfin = mlstm_chunk_reference(q, k, v, li, lf, c)
+    torch.cuda.synchronize()
+    pairs = [(h, wh, 5e-4)] + list(zip(fin, wfin, (5e-4, 5e-4, 1e-5)))
+    for got, want, tol in pairs:
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=tol * max(1.0, float(want.abs().max())))
+    for got, one in zip((h, *fin), (whole[0], *whole[1])):
+        torch.testing.assert_close(got, one, rtol=0, atol=0)
+
+
+def _scan_args(gen, B, L, d_in, N):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+    dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+    return (u, dt, Bm, Cm, -torch.exp(rn(d_in, N) * 0.5), rn(d_in),
+            rn(B, d_in, N))
+
+
+def _mlstm_args(gen, B, H, L, dh):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    li = rn(B, H, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, H, L) + 1.0)
+    return (rn(B, H, L, dh), rn(B, H, L, dh), rn(B, H, L, dh), li, lf)
+
+
+@pytest.mark.parametrize("kernel", ["ssm_scan", "mlstm_chunk"])
+def test_scan_kernels_sync_free_and_replay_in_a_graph(gen, kernel):
+    """The scan (jamba's d_in and N, 2 rows of 100 steps from a carried
+    state) and the mLSTM (xlstm-125m's heads, 1 row of 768 tokens, three
+    chunks) launch with no host sync (``set_sync_debug_mode("error")``),
+    and a CUDA graph that captures the call replays it bit for bit, twice:
+    a graph of a whole step can capture them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kernel == "ssm_scan":
+        args = _scan_args(gen, 2, 100, 8192, 16)
+
+        def call():
+            return ssm_scan(*args)
+    else:
+        args = _mlstm_args(gen, 1, 4, 768, 384)
+
+        def call():
+            return mlstm_chunk(*args, chunk=256)
+    want = call()                               # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+
+    def flat(out):
+        return [out[0], *out[1]] if kernel == "mlstm_chunk" else list(out)
+
+    for _ in range(2):
+        for t in flat(captured):
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, e, w in zip(flat(captured), flat(eager), flat(want)):
+            assert torch.equal(got, e) and torch.equal(e, w)
 
 
 @pytest.mark.parametrize("dh", [48, 96, 200])

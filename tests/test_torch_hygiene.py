@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor
-  anything of the JAX package ``repro`` (checked on the AST, so an
-  import inside a function counts too).
+* ``src/repro_torch``, ``chip_smoke.py`` and the card timing tools
+  (``tools/*_times.py``) import neither JAX nor anything of the JAX
+  package ``repro`` (checked on the AST, so an import inside a function
+  counts too).
 * An entry point called without ``device=`` means the CUDA card: with no
   card visible it raises instead of running on the CPU.
 """
@@ -15,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*_times.py"))
 
 
 def _imports(path: Path):
