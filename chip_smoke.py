@@ -143,6 +143,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
 TF32_FLOPS = 495e12          # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS = 67e12            # H100 SXM f32 peak outside the tensor cores
+# f32 products taken in 3xTF32 (three TF32 products each) on the tensor
+# cores: the mLSTM kernel's route
+TF32X3_FLOPS = TF32_FLOPS / 3
 # exponentials: 16 a clock on each of the H100 SXM's 132 SMs' special
 # function units, at its 1980 MHz boost clock
 EXP_PER_S = 132 * 16 * 1.98e9
@@ -636,7 +639,7 @@ def decode_cases(dev, gen, rn) -> dict:
     order), ``mask`` and ``pos`` serve the row checks, ``nbytes`` and
     ``flops`` the bound; the ring case also carries its planted
     ``fault`` and its one-ulp ``tol``.  The wrappers are imported here,
-    so ``tools/decode_times.py`` times any tree's through the same
+    so ``tools/kernel_times.py`` times any tree's through the same
     cases."""
     import torch
     import torch.nn.functional as F
@@ -878,13 +881,6 @@ def mlstm_cases(dev, gen) -> dict:
             "mlstm_chunk_serving": case(*MLSTM_SERVING_SHAPE[0:3:2])}
 
 
-def scan_warps(B: int, d_in: int, N: int) -> tuple[int, int]:
-    """Warps a scan launch runs: this kernel's (32-channel blocks of N/4
-    lanes a channel) and those of a kernel with one thread a channel in
-    128-thread blocks, the scan's earlier design."""
-    return (B * -(-d_in // 32) * (N // 4), B * -(-d_in // 128) * 4)
-
-
 def scan_record(dev, gen, flush, record) -> None:
     """The selective scan at jamba-v0.1-52b's shapes (``scan_cases``), f32,
     within ``SCAN_RTOL`` of the plain version's largest value.  No single
@@ -918,11 +914,9 @@ def scan_record(dev, gen, flush, record) -> None:
             time_ms(lambda: selective_scan_reference(*timed), iters=5,
                     flush=flush),
             None, nbytes, ops, peak=F32_FLOPS, tol=tol)
-        warps, old = scan_warps(B, d_in, N)
         exp_ms = 1e3 * B * L * d_in * N / EXP_PER_S
         log(f"kernel {name}: exp bound ms={exp_ms:.4f} beside bound_ms="
-            f"{rec['bound_ms']:.4f} ({rec['bound_by']}); warps {warps} "
-            f"(one thread a channel: {old}, x{warps / old:.1f})")
+            f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
         log_kernel_time(name, lambda: ssm_scan(*timed), flush)
         if name == "ssm_scan":
             scan_faults(timed, ref[0], tol)
@@ -962,15 +956,18 @@ def mlstm_record(dev, gen, flush, record) -> None:
     counts, per chunk and (row, head), the scores and the intra-chunk
     product over the causal pairs s <= l only, 2 c(c+1) dh, the state
     update 2c dh^2, and the inter-chunk product 2c dh^2 for every chunk
-    but the first (which has no carried state), at the f32 rate outside
-    the tensor cores; the bytes are q, k, v, li, lf read and h, C, n, m
-    written.  The log adds the bound at the 3xTF32 route's rate (3 x the
-    operations at ``TF32_FLOPS``), the largest |g| (the within-chunk
-    cumulative log forget gate, on whose rounding m's error rests) and
-    the planted faults of ``mlstm_faults``."""
+    but the first (which has no carried state), at the rate of the
+    kernel's route, 3xTF32 on the tensor cores (``TF32X3_FLOPS``); the
+    bytes are q, k, v, li, lf read and h, C, n, m written.  The log adds
+    the bound at the f32 rate outside the tensor cores, the largest |g|
+    (the within-chunk cumulative log forget gate, on whose rounding m's
+    error rests), m's distance from the float64 recurrent form (the
+    ground truth, which m must also hold within ``MLSTM_M_TOL``) beside
+    that of ``torch.cumsum``'s order, and the planted faults of
+    ``mlstm_faults``."""
     import torch
-    from repro_torch.kernels.mlstm_chunk.ops import (mlstm_chunk,
-                                                     mlstm_chunk_reference)
+    from repro_torch.kernels.mlstm_chunk.ops import (
+        mlstm_chunk, mlstm_chunk_reference, mlstm_recurrent_reference)
 
     c = MLSTM_C
     for name, args in mlstm_cases(dev, gen).items():
@@ -988,20 +985,47 @@ def mlstm_record(dev, gen, flush, record) -> None:
         ops = B * Hx * (nc * (2 * c * (c + 1) * dh + 2 * c * dh * dh)
                         + (nc - 1) * 2 * c * dh * dh)
         g_max = float(lf.reshape(B, Hx, nc, c).cumsum(-1).abs().max())
+        m64 = mlstm_recurrent_reference(*(t.double() for t in args))[1][2]
+        m_truth = float((got[3].double() - m64).abs().max()) / MLSTM_M_TOL
         log(f"{name}: largest |g| {g_max:.3f}, largest |m| "
             f"{float(ref[3].abs().max()):.3f}, m bitwise the plain "
-            f"version's: {bool(torch.equal(got[3], ref[3]))}")
+            f"version's: {bool(torch.equal(got[3], ref[3]))}; |m - m of "
+            f"the float64 recurrent form| / MLSTM_M_TOL: kernel "
+            f"{m_truth:.3f}, torch.cumsum's order "
+            f"{m_cumsum_error(args, c, m64) / MLSTM_M_TOL:.3f}")
+        if not m_truth <= 1.0:
+            raise AssertionError(f"{name}: m is {m_truth:.3f} x MLSTM_M_TOL "
+                                 f"from the float64 recurrent form")
         record(name,
                "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
                "src/repro/kernels/mlstm_chunk/kernel.py:95", got, ref,
                time_ms(lambda: mlstm_chunk(*args, chunk=c), flush=flush),
                time_ms(lambda: mlstm_chunk_reference(*args, c), flush=flush),
-               None, nbytes, ops, peak=F32_FLOPS, tol=tols,
+               None, nbytes, ops, peak=TF32X3_FLOPS, tol=tols,
                outputs=("h", "C", "n", "m"))
-        log(f"kernel {name}: bound at the 3xTF32 route's rate ms="
-            f"{1e3 * 3 * ops / TF32_FLOPS:.4f}")
+        log(f"kernel {name}: bound at the f32 rate outside the tensor "
+            f"cores ms={bound_ms(nbytes, ops, F32_FLOPS)[0]:.4f}")
         log_kernel_time(name, lambda: mlstm_chunk(*args, chunk=c), flush)
         mlstm_faults(name, args, c, ref, tols)
+
+
+def m_cumsum_error(args, c, m64) -> float:
+    """Largest |m - m64| of the stabilizer chain m' = max(gT + m_p,
+    max_s(gT - g_s + li_s)) over ``args``' chunks of ``c``, in f32 with g
+    summed by ``torch.cumsum`` (whose order on the card follows the
+    tensor's shape): the yardstick beside the kernel's fixed order."""
+    import torch
+    from repro_torch.models.xlstm import NEG_INF
+
+    li, lf = args[3], args[4]
+    m = torch.full(li.shape[:2], NEG_INF, dtype=torch.float32,
+                   device=li.device)
+    for t0 in range(0, li.shape[2], c):
+        g = torch.cumsum(lf[..., t0:t0 + c], dim=-1)
+        gT = g[..., -1:]
+        m = torch.maximum(gT[..., 0] + m,
+                          (gT - g + li[..., t0:t0 + c]).amax(dim=-1))
+    return float((m.double() - m64).abs().max())
 
 
 def mlstm_faults(name, args, c, want, tols) -> None:

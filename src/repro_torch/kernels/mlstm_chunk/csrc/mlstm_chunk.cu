@@ -30,14 +30,14 @@
 // VMEM; a Hopper block has 227 KB.  Here nothing walks the chunks
 // except the scalar gate chain:
 //   1. gates, one block per (b, h), four chunks at once: per chunk, g by
-//      a tree scan in the order of torch.cumsum's CUDA kernel (Sklansky
-//      levels over blocks of `scan_width`, carried from block to block),
-//      so that m, held to 1e-5 where |g| reaches ~100, rounds as the
-//      plain version does; the row maxima m_t by a max-scan of li - g,
-//      the chunk's max by a block reduction; then the chain m' = max(gT +
-//      m_p, ...) over the chunks (one value each), with wk, w and the
-//      chunk's decay exp(gT + m_p - m').  Written to a scratch of (g,
-//      m_t, w, wk) a token.
+//      one tree scan in Sklansky levels over the chunk padded to a power
+//      of two, the fixed order of the plain version's `chunk_cumsum`
+//      (models/xlstm.py), so that m, held to 1e-5 where |g| reaches
+//      ~100, rounds as the plain version does; the row maxima m_t by a
+//      max-scan of li - g, the chunk's max by a block reduction; then the
+//      chain m' = max(gT + m_p, ...) over the chunks (one value each),
+//      with wk, w and the chunk's decay exp(gT + m_p - m').  Written to a
+//      scratch of (g, m_t, w, wk) a token.
 //   2. state, grid (dh/64 x chunks x B x H, dh/64): every chunk's own
 //      update U = sum_s (k_s scale)^T (wk_s v_s) and its n counterpart at
 //      once: a chunk's contribution does not depend on the carried state.
@@ -164,8 +164,8 @@ __device__ __forceinline__ void stage(float* dst, int stride,
 // In-place inclusive scan of buf[0, w) (w a power of two; threads x <
 // w / 2 of the group at work) under op, in Sklansky levels: level s adds
 // the last value of each block's lower half (blocks of 2 s) to every
-// value of its upper half, the order of torch.cumsum's CUDA kernel.
-// Every thread of the block calls it.
+// value of its upper half, the order of the plain version's
+// `chunk_cumsum`.  Every thread of the block calls it.
 template <class Op>
 __device__ void sklansky(float* buf, int w, int x, Op op) {
   for (int s = 1; s < w; s <<= 1) {
@@ -187,7 +187,7 @@ constexpr int GATE_THREADS = GATE_CHUNKS * MAX_C;
 __global__ void __launch_bounds__(GATE_THREADS)
 mlstm_gates(const float* __restrict__ li, const float* __restrict__ lf,
             float* __restrict__ gates, float* __restrict__ decay,
-            float* __restrict__ m_out, int BH, int L, int c, int width) {
+            float* __restrict__ m_out, int BH, int L, int c) {
   __shared__ float gs[GATE_CHUNKS][MAX_C], buf[GATE_CHUNKS][MAX_C];
   __shared__ float red[GATE_CHUNKS][MAX_C / 32];
   __shared__ float top[GATE_CHUNKS][2], mpre[GATE_CHUNKS + 1];
@@ -197,7 +197,6 @@ mlstm_gates(const float* __restrict__ li, const float* __restrict__ lf,
   const int nc = L / c;
   int p2 = 1;
   while (p2 < c) p2 <<= 1;
-  const int w = min(width, p2);       // one block of width >= c is p2's
   const size_t plane = (size_t)BH * L;
   const float* lib = li + (size_t)bh * L;
   const float* lfb = lf + (size_t)bh * L;
@@ -212,16 +211,11 @@ mlstm_gates(const float* __restrict__ li, const float* __restrict__ lf,
     const int j = jb + grp;
     const bool on = j < nc;                     // this group's chunk
     const int t0 = on ? j * c : 0;
-    float carry = 0.f;
-    for (int b0 = 0; b0 < c; b0 += w) {
-      if (tid < w) bf[tid] = on && b0 + tid < c ? lfb[t0 + b0 + tid] : 0.f;
-      if (tid == 0) bf[0] = bf[0] + carry;
-      __syncthreads();
-      sklansky(bf, w, tid, add);
-      if (tid < w && b0 + tid < c) gg[b0 + tid] = bf[tid];
-      carry = bf[w - 1];
-      __syncthreads();
-    }
+    if (tid < p2) bf[tid] = on && tid < c ? lfb[t0 + tid] : 0.f;
+    __syncthreads();
+    sklansky(bf, p2, tid, add);
+    if (tid < c) gg[tid] = bf[tid];
+    __syncthreads();
     const float gT = gg[c - 1];
     const bool in = on && tid < c;
     const float lv = in ? lib[t0 + tid] : 0.f;
@@ -671,19 +665,17 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
 // zero columns and passes the true width's scale, 1/sqrt(dh)); the chunk
 // c divides L and is at most 256.  Scratch: `gates` 4 B H L + B H (L/c)
 // floats, `states` span B H (dh^2 + dh) floats; the chunks run in spans
-// of `span`.  `scan_width`: the block width of torch.cumsum's CUDA scan
-// over B H rows of c (a power of two).  Returns a cudaError_t.
+// of `span`.  Returns a cudaError_t.
 extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
                                const void* li, const void* lf, void* h,
                                void* C, void* n, void* m, void* gates,
                                void* states, int B, int H, int L, int dh,
-                               int c, int span, int scan_width, float scale,
+                               int c, int span, float scale,
                                void* stream) {
   const long long BH = (long long)B * H;
   if (B < 1 || H < 1 || L < 1 || dh < TILE || dh % TILE || dh > MAX_DH ||
       c < 1 || c > MAX_C || L % c || span < 1 ||
-      (long long)span * BH * (dh / TILE) > 0x7fffffffLL ||
-      scan_width < 2 || (scan_width & (scan_width - 1)))
+      (long long)span * BH * (dh / TILE) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nc = L / c;
@@ -694,8 +686,8 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
   cudaError_t rc = hopper::allow_smem<mlstm_out>(OutSmem::BYTES);
   if (rc != cudaSuccess) return (int)rc;
   mlstm_gates<<<(unsigned)BH, GATE_THREADS, 0, st>>>(
-      (const float*)li, (const float*)lf, gt, decay, (float*)m, (int)BH, L, c,
-      scan_width);
+      (const float*)li, (const float*)lf, gt, decay, (float*)m, (int)BH, L,
+      c);
   if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
   const unsigned parts =
       (unsigned)((dh * dh / 4 + CB_THREADS - 1) / CB_THREADS);

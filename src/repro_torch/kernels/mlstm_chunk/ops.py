@@ -41,16 +41,6 @@ def with_dh_padding(body, q, k, v, li, lf, chunk: int):
     return h[..., :dh], (C[..., :dh, :dh], n[..., :dh], m)
 
 
-def cumsum_width(rows: int, c: int) -> int:
-    """The block width of ``torch.cumsum``'s CUDA scan over ``rows`` rows
-    of ``c`` (ATen's ``get_log_num_threads_x_inner_scan``, in its
-    unsigned arithmetic): the kernel sums the gates' cumulative forget
-    gate in the same order, so that m rounds as the plain version's."""
-    lx, ly = (c - 1).bit_length(), (rows - 1).bit_length()
-    log_x = ((9 + (lx - ly) % 2 ** 32) % 2 ** 32) // 2
-    return 2 << min(max(4, log_x), 9)
-
-
 def chunk_span(B: int, H: int, nc: int, dh: int) -> int:
     """Chunks whose states the kernel holds at once: all ``nc`` where
     their ``B H (dh^2 + dh)`` floats a chunk fit ``STATE_BUDGET``, else
@@ -79,11 +69,11 @@ def _launch(q, k, v, li, lf, c, scale):
                          device=dev)
     if _fn is None:
         _fn = K.c_function("mlstm_chunk", "mlstm_chunk_f32",
-                           [K.P] * 11 + [K.I] * 7 + [K.F, K.P])
+                           [K.P] * 11 + [K.I] * 6 + [K.F, K.P])
     rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
              lf.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
              m.data_ptr(), gates.data_ptr(), states.data_ptr(), B, H, L, dh,
-             c, span, cumsum_width(B * H, c), float(scale), K.stream_ptr(q))
+             c, span, float(scale), K.stream_ptr(q))
     K.check_launch("mlstm_chunk", rc)
     mlstm_chunk.launches += 1
     mlstm_chunk.launches_by_shape[(B, H, L, dh, c)] += 1
@@ -113,6 +103,5 @@ mlstm_chunk.launches = 0
 # (B, H, L, dh, chunk) -> launches at that shape (dh as launched, padded)
 mlstm_chunk.launches_by_shape = collections.Counter()
 
-__all__ = ["chunk_span", "cumsum_width", "mlstm_chunk",
-           "mlstm_chunk_reference",
+__all__ = ["chunk_span", "mlstm_chunk", "mlstm_chunk_reference",
            "mlstm_recurrent_reference", "with_dh_padding"]

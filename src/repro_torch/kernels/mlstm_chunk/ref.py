@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.models.xlstm import NEG_INF
+from repro_torch.models.xlstm import NEG_INF, chunk_cumsum
 from repro_torch.models.xlstm import (
     mlstm_chunkwise as mlstm_chunk_reference,
     mlstm_recurrent as mlstm_recurrent_reference)
@@ -60,7 +60,7 @@ def mlstm_chunk_split(q, k, v, li, lf, chunk: int, scale=None,
     nc, c = L // chunk, chunk
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     qc, kc, vc = (t.reshape(B, H, nc, c, dh) for t in (q, k, v))
-    lic, g = li.reshape(B, H, nc, c), lf.reshape(B, H, nc, c).cumsum(-1)
+    lic, g = li.reshape(B, H, nc, c), chunk_cumsum(lf.reshape(B, H, nc, c))
     gT = g[..., -1]                                         # (B, H, nc)
     a = gT[..., None] - g + lic                             # gT - g_s + li_s
     mloc = a.amax(-1)
@@ -103,5 +103,6 @@ def mlstm_chunk_split(q, k, v, li, lf, chunk: int, scale=None,
     return h, (C, n, m_after[..., -1])
 
 
-__all__ = ["matmul_3xtf32", "mlstm_chunk_reference", "mlstm_chunk_split",
+__all__ = ["chunk_cumsum", "matmul_3xtf32", "mlstm_chunk_reference",
+           "mlstm_chunk_split",
            "mlstm_recurrent_reference", "tf32_truncate"]

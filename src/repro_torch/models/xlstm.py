@@ -94,6 +94,27 @@ def _fresh(q, dv):
             torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device))
 
 
+def chunk_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum along the last axis in one fixed order on every
+    device, the ``mlstm_chunk`` kernel's: Sklansky levels over the axis
+    zero-padded to a power of two, level s adding the last value of each
+    block's lower half (blocks of 2 s) to every value of its upper half.
+    Every output is a tree sum of at most log2(c) + 1 levels, whatever
+    the batch; ``torch.cumsum`` on a CUDA tensor picks its order from
+    the tensor's shape."""
+    c = x.shape[-1]
+    p2 = 1 << max(c - 1, 0).bit_length()
+    y = F.pad(x, (0, p2 - c))
+    lead = y.shape[:-1]
+    s = 1
+    while s < p2:
+        y = y.reshape(*lead, p2 // (2 * s), 2, s)
+        lo, hi = y[..., 0, :], y[..., 1, :] + y[..., 0, -1:]
+        y = torch.stack((lo, hi), dim=-2).reshape(*lead, p2)
+        s *= 2
+    return y[..., :c]
+
+
 def mlstm_parallel(q, k, v, li, lf):
     """Quadratic stabilized form from no history.  -> h (B, H, L, dv) and
     the final state (C, n, m)."""
@@ -162,7 +183,7 @@ def mlstm_chunkwise(q, k, v, li, lf, chunk: int, state=None, scale=None):
     for t0 in range(0, L, chunk):
         qc, kc, vc = (a[:, :, t0:t0 + chunk] for a in (q, k, v))
         lic, lfc = li[:, :, t0:t0 + chunk], lf[:, :, t0:t0 + chunk]
-        g = torch.cumsum(lfc, dim=-1)                        # (B, H, c)
+        g = chunk_cumsum(lfc)                                # (B, H, c)
         dmat = g[..., :, None] - g[..., None, :] + lic[..., None, :]
         dmat = dmat.masked_fill(~mask, NEG_INF)
         m_intra = dmat.amax(dim=-1)                          # (B, H, c)

@@ -742,6 +742,30 @@ def test_mlstm_chunk_kernel_matches_plain(gen, dh, L, chunk, B):
                       for _ in range(3)), li[:1, :1, :8], lf[:1, :1, :8])
 
 
+@pytest.mark.parametrize("B,H,L,chunk", [(1, 1, 256, 256), (1, 4, 768, 256),
+                                         (2, 4, 512, 256), (8, 8, 512, 256),
+                                         (4, 16, 400, 200), (3, 5, 960, 64)])
+def test_mlstm_chunk_m_is_the_plain_versions_bit_for_bit(gen, B, H, L,
+                                                          chunk):
+    """The stabilizer m, held to 1e-5 where |g| passes 100 (a few ulp of
+    g), is the plain version's bit for bit at every count of rows, on
+    the card and on the CPU alike: the kernel sums g in the fixed order
+    of ``chunk_cumsum``, which does not follow the tensor's shape or
+    device as ``torch.cumsum``'s does.  L = 400 makes chunks of 200."""
+    kernels.reset_launch_counts()
+    q, k, v, li, lf = _mlstm_args(gen, B, H, L, 64)
+    _, (_, _, m) = mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+    c = min(chunk, L)
+    while L % c:
+        c //= 2
+    _, (_, _, want) = mlstm_chunk_reference(q, k, v, li, lf, c)
+    _, (_, _, cpu) = mlstm_chunk_reference(
+        *(t.cpu() for t in (q, k, v, li, lf)), c)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.launches == 1
+    assert torch.equal(m, want) and torch.equal(m.cpu(), cpu)
+
+
 def test_mlstm_chunk_kernel_in_spans(gen, monkeypatch):
     """With a state budget of one chunk, the kernel runs the chunks one
     span at a time, each span's first carried state the last one's

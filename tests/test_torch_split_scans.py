@@ -4,7 +4,9 @@ plain torch on the CPU, against the JAX package on the same numpy inputs.
 The mLSTM kernel computes every chunk's own state update at once, then
 combines the chunks' states in order, then each chunk's outputs from the
 state it carries (``mlstm_chunk_split``): held to JAX's chunkwise and
-recurrent forms for h and the final (C, n, m).  Its products run on the
+recurrent forms for h and the final (C, n, m).  Both it and the model's
+chunkwise form sum the forget gates in one fixed tree order
+(``chunk_cumsum``): held to a float64 sum.  Its products run on the
 tensor cores in 3xTF32 (``matmul_3xtf32``, the TF32 operands emulated by
 masking the low mantissa bits): held to an f32 product, and the whole
 mLSTM at xlstm-125m's depth of 384 in 3xTF32 to JAX within the card's
@@ -24,7 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro.models import xlstm as JX  # noqa: E402
 from repro_torch.kernels.mlstm_chunk.ref import (  # noqa: E402
-    matmul_3xtf32, mlstm_chunk_split, tf32_truncate)
+    chunk_cumsum, matmul_3xtf32, mlstm_chunk_reference, mlstm_chunk_split,
+    tf32_truncate)
 from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
     selective_scan_lanes)
 
@@ -68,6 +71,28 @@ def test_chunk_parallel_state_matches_jax(B, H, L, dh, chunk):
         for got, want, rel in zip(state, jstate,
                                   (MLSTM_TOL, MLSTM_TOL, MLSTM_M_TOL)):
             assert _within(got, want, rel) <= 1.0
+
+
+@pytest.mark.parametrize("c", [1, 3, 64, 200, 256])
+def test_chunk_cumsum_fixed_order(c):
+    """The kernel's sum of the forget gates, ``chunk_cumsum`` (Sklansky
+    levels over c padded to a power of two): within one rounding a level
+    of the float64 sum, the same bits for a row alone as within any
+    batch, and the final m of the split decomposition bit for bit that
+    of the model's chunkwise form (both sum g so)."""
+    rng = np.random.default_rng(c)
+    q, k, v, li, lf = (torch.from_numpy(a)
+                       for a in _mlstm_inputs(rng, 3, 5, 2 * c, 8))
+    x = lf[..., :c]
+    g = chunk_cumsum(x)
+    exact = x.double().cumsum(-1)
+    levels = max(c - 1, 0).bit_length()
+    bound = levels * 2.0 ** -24 * float(exact.abs().max())
+    assert float((g.double() - exact).abs().max()) <= bound
+    assert torch.equal(chunk_cumsum(x[1:2, 3:4]), g[1:2, 3:4])
+    _, (_, _, m_split) = mlstm_chunk_split(q, k, v, li, lf, c)
+    _, (_, _, m_model) = mlstm_chunk_reference(q, k, v, li, lf, c)
+    assert torch.equal(m_split, m_model)
 
 
 def test_tf32_split_recovers_f32():
