@@ -83,7 +83,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 alternating contexts, through ContinuousScheduler(paged),
                 ContinuousScheduler(row), SwitchScheduler, and
                 ContinuousScheduler with chunked prefill (C=128) on the
-                row cache, on a page pool and on an int8 page pool; then
+                row cache, on a page pool and on an int8 page pool, and
+                ContinuousScheduler(paged) and (row) again with fused
+                decode (``multi_step=8``: each tick one CUDA graph replay
+                of 8 steps), whose streams must be bitwise those of their
+                single-step twins; then
                 ``continuous_row_moe_hybrid``: mixtral-8x7b (4 layers)
                 and jamba-v0.1-52b (8 layers) at published widths through
                 ContinuousScheduler(row), one mixtral prompt past the
@@ -91,7 +95,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 12 layers) and tinyllama-1.1b at published widths through
                 ContinuousScheduler(row), prompts of 300, 512 and 768
                 tokens (the two longer ones prefill through the chunkwise
-                mLSTM kernel); ``continuous_paged_sharded``, the paged
+                mLSTM kernel); each of these two served again on the
+                same weights with fused decode (``multi_step=8``),
+                bitwise the single-step streams;
+                ``continuous_paged_sharded``, the paged
                 pass again with shards=4 (logical), whose streams must
                 be bitwise those of ``continuous_paged``;
                 ``sharded_local_read``: a full tinyllama-1.1b StepEngine
@@ -107,7 +114,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
                 (row and paged, 8 rows): step wall time, device kernel
-                time and busy share, top kernels (torch.profiler).
+                time and busy share, top kernels (torch.profiler); the
+                same engines fused (``multi_step=8``), per committed
+                step, with their graph captures and capture seconds,
+                which must take less wall time a step than the single
+                steps; ``generate_fused`` bitwise ``generate``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -156,6 +167,7 @@ PROMPT_LENS = (128, 512)     # serving prompt range
 NEW_TOKENS = 32
 N_REQUESTS = 8
 CHUNK = 128                  # chunked-prefill width of the serving passes
+MULTI_STEP = 8               # fused decode steps a tick (multi_step passes)
 
 
 def log(msg: str) -> None:
@@ -1571,12 +1583,14 @@ def _launch_counters() -> dict:
             "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE]}
 
 
-def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
+def run_pass(dev, label, server, cfgs, reqs, make_sched, used,
+             keep_server: bool = False) -> tuple:
     """Serve ``reqs`` ((name, (1, S) prompt) pairs) through one scheduler
     on ``server``, with every launch count zeroed just before.  Each
     request must resolve to NEW_TOKENS in-vocabulary tokens and every
     kernel in ``used`` must have launched.  Logs the pass's report;
-    returns (launch counts, outputs).  Shuts the server down."""
+    returns (launch counts, outputs).  Shuts the server down unless
+    ``keep_server`` (a twin pass follows on the same weights)."""
     import torch
     from repro_torch import kernels
 
@@ -1609,10 +1623,32 @@ def run_pass(dev, label, server, cfgs, reqs, make_sched, used) -> tuple:
                / max(st["switches"], 1),
                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
                "launches": counts}
+        fused = [e for k, e in server._step_engines.items()
+                 if k.multi_step > 1]
+        if fused:                       # the pass's CUDA graphs of a tick
+            rep["graph_captures"] = sum(e.graph_captures for e in fused)
+            rep["graph_capture_s"] = sum(e.graph_capture_s for e in fused)
+            rep["steps_per_tick"] = sum(
+                e.stats["device_steps"] for e in fused) / max(1, sum(
+                    e.stats["host_ticks"] for e in fused))
         log("serving " + json.dumps(rep))
         return counts, outs
     finally:
-        server.shutdown()
+        if not keep_server:
+            server.shutdown()
+
+
+def require_bitwise(label, got, want) -> None:
+    """A fused pass's streams against its single-step twin's: the same
+    tokens, every one, or the pass fails."""
+    import numpy as np
+    if len(got) != len(want) or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        same = sum(int((a == b).sum()) for a, b in zip(got, want))
+        raise AssertionError(
+            f"{label}: streams differ from the single-step twin's "
+            f"({same} of {sum(b.size for b in want)} tokens agree)")
+    log(f"serving {label}: streams bitwise equal to the single-step twin's")
 
 
 def serving_phase(dev) -> dict:
@@ -1654,6 +1690,13 @@ def serving_phase(dev) -> dict:
             s, batch_size=8, paged=True, page_size=page,
             prefill_chunk=CHUNK, quantize_kv="int8"),
          {"paged_verify_attention_int8", "paged_decode_attention_int8"}),
+        ("continuous_paged_multistep", lambda s: ContinuousScheduler(
+            s, batch_size=8, paged=True, page_size=page,
+            multi_step=MULTI_STEP),
+         {"flash_attention", "paged_decode_attention"}),
+        ("continuous_row_multistep", lambda s: ContinuousScheduler(
+            s, batch_size=8, multi_step=MULTI_STEP),
+         {"flash_attention", "decode_attention"}),
     ]
     totals = {n: 0 for n in _launch_counters()}
     outputs = {}
@@ -1679,6 +1722,10 @@ def serving_phase(dev) -> dict:
             f"(agreement {agree(sharded, unsharded)})")
     log("serving continuous_paged_sharded: streams bitwise equal to "
         "continuous_paged")
+    for layout in ("paged", "row"):
+        require_bitwise(f"continuous_{layout}_multistep",
+                        outputs[f"continuous_{layout}_multistep"],
+                        outputs[f"continuous_{layout}"])
 
     # logged only: bf16 rounding differs between the paths, and int8 is
     # tolerance-close by design
@@ -1766,8 +1813,10 @@ def moe_hybrid_pass(dev) -> dict:
     tokens each, max_len 4224.  Flash (also at the windowed record's
     shape, the 4160-token prefill), decode (jamba's attention layer), ring
     decode (mixtral) and the selective scan (jamba's prefills) must each
-    launch, the scan also at its serving record's shape.  -> launch
-    counts."""
+    launch, the scan also at its serving record's shape.  Then the same
+    requests on the same server and weights with fused decode
+    (``multi_step=MULTI_STEP``), whose streams must be bitwise the
+    first's.  -> launch counts of both."""
     import gc
 
     import torch
@@ -1796,11 +1845,18 @@ def moe_hybrid_pass(dev) -> dict:
     log(f"serving continuous_row_moe_hybrid: weights made and pinned in "
         f"{time.perf_counter() - t0:.2f} s")
     reqs = hybrid_prompts()
-    counts, _ = run_pass(
+    used = {"flash_attention", "flash_attention_window", "decode_attention",
+            "decode_attention_ring", "ssm_scan", "ssm_scan_serving"}
+    counts, want = run_pass(
         dev, "continuous_row_moe_hybrid", server, cfgs, reqs,
-        lambda s: ContinuousScheduler(s, batch_size=2),
-        {"flash_attention", "flash_attention_window", "decode_attention",
-         "decode_attention_ring", "ssm_scan", "ssm_scan_serving"})
+        lambda s: ContinuousScheduler(s, batch_size=2), used,
+        keep_server=True)
+    fused, got = run_pass(
+        dev, "continuous_row_moe_hybrid_multistep", server, cfgs, reqs,
+        lambda s: ContinuousScheduler(s, batch_size=2,
+                                      multi_step=MULTI_STEP), used)
+    require_bitwise("continuous_row_moe_hybrid_multistep", got, want)
+    counts = {n: counts[n] + fused[n] for n in counts}
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1822,7 +1878,9 @@ def xlstm_pass(dev) -> dict:
     whole number of two or more 256-token chunks prefill through the
     chunkwise mLSTM kernel in each of the 9 mLSTM layers; 32 new tokens
     each.  The mLSTM kernel, flash and decode (tinyllama) must each
-    launch.  -> launch counts."""
+    launch.  Then the same requests on the same server with fused decode
+    (``multi_step=MULTI_STEP``), bitwise the first streams.  -> launch
+    counts of both."""
     import gc
 
     import numpy as np
@@ -1839,11 +1897,18 @@ def xlstm_pass(dev) -> dict:
         0, cfgs[names[r % 2]].vocab_size,
         (1, XLSTM_PROMPTS[r % len(XLSTM_PROMPTS)])))
         for r in range(N_REQUESTS)]
-    counts, _ = run_pass(
+    used = {"mlstm_chunk", "mlstm_chunk_serving", "flash_attention",
+            "decode_attention"}
+    counts, want = run_pass(
         dev, "continuous_row_xlstm", server, cfgs, reqs,
-        lambda s: ContinuousScheduler(s, batch_size=2),
-        {"mlstm_chunk", "mlstm_chunk_serving", "flash_attention",
-         "decode_attention"})
+        lambda s: ContinuousScheduler(s, batch_size=2), used,
+        keep_server=True)
+    fused, got = run_pass(
+        dev, "continuous_row_xlstm_multistep", server, cfgs, reqs,
+        lambda s: ContinuousScheduler(s, batch_size=2,
+                                      multi_step=MULTI_STEP), used)
+    require_bitwise("continuous_row_xlstm_multistep", got, want)
+    counts = {n: counts[n] + fused[n] for n in counts}
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -2197,20 +2262,77 @@ def moe_ep_mesh_pass(dev) -> dict:
 # phase 5: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
+def _profile_window(eng, params, ticks: int) -> tuple:
+    """``ticks`` engine ticks under ``torch.profiler`` -> (device kernel
+    ms summed by kernel name, decode steps committed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    d0 = eng.stats["device_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            eng.step(params)
+        torch.cuda.synchronize()
+    return ({k: us / 1e3 for k, us in kernel_us(prof).items()},
+            eng.stats["device_steps"] - d0)
+
+
+def _timed_ticks(eng, params, ticks: int) -> tuple:
+    """Wall ms of ``ticks`` engine ticks (host clock, ending in a
+    synchronize) -> (ms, decode steps committed)."""
+    import torch
+    torch.cuda.synchronize()
+    d0 = eng.stats["device_steps"]
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step(params)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), eng.stats["device_steps"] - d0
+
+
+def _replay_ms(eng, iters: int = 5) -> float:
+    """The device span of one replay of ``eng``'s tick graph (CUDA events
+    around the replay alone, its kernels and the gaps between them; the
+    tick's host work left out), mean of ``iters``.  The replays repeat
+    the engine's last tick on its static inputs, which rewrites the same
+    tokens' k/v at the same positions: a dense model's caches and the
+    engine's host state stay as they were."""
+    import torch
+    (g,) = eng._graphs.values()
+    total = 0.0
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
 def profile_phase(dev, steps: int = 8) -> None:
     """A full tinyllama-1.1b ``StepEngine`` (8 rows admitted with 256- to
     512-token prompts), row and paged: the wall time of ``steps`` steady
     decode steps (host clock, ending in a synchronize), then, from
     ``torch.profiler`` over ``steps`` more, the device's kernel time
     per step, its busy share of the unprofiled wall time and the five
-    kernels that take the most of it.  Runs after the serving passes, so none of its launches
-    enters the kernels' counts."""
+    kernels that take the most of it.  Then the same engines fused
+    (``multi_step=MULTI_STEP``): per committed step, over 4 steady ticks
+    and 2 profiled ones, the same numbers, with the graph captures and
+    their seconds and the device span of a replay alone (its kernels and
+    the gaps between them, without the tick's host work); the fused
+    engine must take less wall time per committed step than the
+    single-step one.  Then ``generate_fused``
+    (prefill, then 15 decode steps as one graph replay) against
+    ``generate`` on two 256-token prompts: the same tokens.  Runs after
+    the serving passes, so none of its launches enters the kernels'
+    counts."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch, override
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import StepEngine
+    from repro_torch.serve.engine import ServingEngine, StepEngine
 
     cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16")
     model = build_model(cfg, device=dev)
@@ -2218,35 +2340,72 @@ def profile_phase(dev, steps: int = 8) -> None:
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, (1, int(S)))
                for S in rng.integers(256, 513, 8)]
+
+    def report(engine, wall_ms, per, nsteps, extra):
+        per = {k: ms / nsteps for k, ms in per.items()}
+        dev_ms = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        log("profile " + json.dumps({
+            "engine": engine, "rows": 8, "step_wall_ms": wall_ms, **extra,
+            "device_kernel_ms_per_step":
+                dev_ms if per else "not measured",
+            "device_busy_share": dev_ms / wall_ms if per else "not measured",
+            "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}))
+
+    single = {}
     for paged in (False, True):
+        name = "paged" if paged else "row"
         eng = StepEngine(model, batch_size=8, max_len=768, paged=paged,
                          page_size=256)
         for p in prompts:
             eng.admit(params, p, max_new=2 * steps + 8)
         for _ in range(4):                                  # warm-up
             eng.step(params)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step(params)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                eng.step(params)
-            torch.cuda.synchronize()
-        per = {k: us / 1e3 / steps for k, us in kernel_us(prof).items()}
-        dev_ms = sum(per.values())
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-        log("profile " + json.dumps({
-            "engine": "paged" if paged else "row", "rows": 8,
-            "step_wall_ms": wall_ms,
-            "device_kernel_ms_per_step":
-                dev_ms if per else "not measured",
-            "device_busy_share": dev_ms / wall_ms if per else "not measured",
-            "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}))
+        ms, n = _timed_ticks(eng, params, steps)
+        single[name] = ms / n
+        per, n_prof = _profile_window(eng, params, steps)
+        report(name, single[name], per, n_prof, {})
         del eng
+    for paged in (False, True):
+        name = "paged" if paged else "row"
+        eng = StepEngine(model, batch_size=8, max_len=768, paged=paged,
+                         page_size=256, multi_step=MULTI_STEP)
+        for p in prompts:                   # 2 + 4 + 2 ticks of 8 steps
+            eng.admit(params, p, max_new=8 * MULTI_STEP + 1)
+        t0 = time.perf_counter()
+        eng.step(params)                    # capture, then the first replay
+        first_tick_s = time.perf_counter() - t0
+        eng.step(params)
+        ms, n = _timed_ticks(eng, params, 4)
+        per, n_prof = _profile_window(eng, params, 2)
+        report(f"{name}_multistep", ms / n, per, n_prof, {
+            "multi_step": MULTI_STEP, "tick_wall_ms": ms / 4,
+            "single_step_wall_ms": single[name],
+            "graph_replay_ms_per_step": _replay_ms(eng) / MULTI_STEP,
+            "graph_captures": eng.graph_captures,
+            "graph_capture_s": eng.graph_capture_s,
+            "first_tick_s": first_tick_s})
+        if eng.graph_captures != 1 or ms / n >= single[name]:
+            raise AssertionError(
+                f"profile {name}_multistep: {eng.graph_captures} captures, "
+                f"{ms / n:.3f} ms a committed step against "
+                f"{single[name]:.3f} single-step")
+        del eng
+
+    se = ServingEngine(model, params, max_len=768)
+    toks = rng.integers(0, cfg.vocab_size, (2, 256))
+    want = se.generate(toks, 16)
+    t0 = time.perf_counter()
+    got = se.generate_fused(toks, 16)
+    fused_s = time.perf_counter() - t0
+    if got.shape != (2, 16) or not np.array_equal(got, want):
+        raise AssertionError("generate_fused: tokens differ from generate's")
+    eng = se.step_engine(2, multi_step=15)
+    log("profile generate_fused " + json.dumps({
+        "equal_to_generate": True, "steps": 16, "wall_s": fused_s,
+        "host_ticks": eng.stats["host_ticks"],
+        "graph_captures": eng.graph_captures,
+        "graph_capture_s": eng.graph_capture_s}))
 
 
 def main() -> int:

@@ -17,6 +17,7 @@ Sources compile on first use (``_build``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -217,13 +218,8 @@ def check_verify_operands(q, blk_k, blk_v, tree) -> None:
         check_cuda_input("tree", tree, torch.int32, (B, Kb))
 
 
-def reset_launch_counts() -> None:
-    """Zero every kernel body's launch count (the int8 bodies of the
-    paged wrappers count apart, in ``launches_int8``, the paged verify's
-    tree route in ``launches_tree``, and the ring routes of the row
-    decode and verify wrappers in ``launches_ring``; flash, gmm, the
-    paged decode, the scan and the mLSTM also count by shape, in
-    ``launches_by_shape``)."""
+def _counted() -> tuple:
+    """Every wrapper that counts its launches."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -232,19 +228,60 @@ def reset_launch_counts() -> None:
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    for fn in (flash_attention, ssm_scan, mlstm_chunk, gmm):
-        fn.launches = 0
-    for fn in (flash_attention, gmm, paged_decode_attention, ssm_scan,
-               mlstm_chunk):
-        fn.launches_by_shape.clear()
-    for fn in (decode_attention, verify_attention):
-        fn.launches = 0
-        fn.launches_ring = 0
-    for fn in (paged_decode_attention, paged_verify_attention,
-               paged_decode_partial):
-        fn.launches = 0
-        fn.launches_int8 = 0
-    paged_verify_attention.launches_tree = 0
+    return (flash_attention, decode_attention, verify_attention,
+            paged_decode_attention, paged_verify_attention,
+            paged_decode_partial, ssm_scan, mlstm_chunk, gmm)
+
+
+def launch_counts() -> dict:
+    """A copy of every launch count: ``(wrapper, attribute) -> count``,
+    an int, or a ``Counter`` for ``launches_by_shape``."""
+    out = {}
+    for fn in _counted():
+        for attr, v in vars(fn).items():
+            if attr.startswith("launches"):
+                out[(fn, attr)] = (collections.Counter(v)
+                                   if isinstance(v, collections.Counter)
+                                   else v)
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """What every launch count gained since ``before``
+    (``launch_counts()``), in the same form."""
+    return {k: (v - before[k] if isinstance(v, int)
+                else collections.Counter({s: c - before[k][s]
+                                          for s, c in v.items()
+                                          if c != before[k][s]}))
+            for k, v in launch_counts().items()}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (``launches_since``) to the counts.  A
+    CUDA graph's replay launches what its capture recorded without
+    calling the wrappers: it adds the capture's delta once per replay
+    (and the capture, which launches nothing, takes it back once)."""
+    for (fn, attr), d in delta.items():
+        if isinstance(d, int):
+            setattr(fn, attr, getattr(fn, attr) + times * d)
+        else:
+            counter = getattr(fn, attr)
+            for shape, c in d.items():
+                counter[shape] += times * c
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel body's launch count (the int8 bodies of the
+    paged wrappers count apart, in ``launches_int8``, the paged verify's
+    tree route in ``launches_tree``, and the ring routes of the row
+    decode and verify wrappers in ``launches_ring``; flash, gmm, the
+    paged decode, the scan and the mLSTM also count by shape, in
+    ``launches_by_shape``)."""
+    for (fn, attr), v in launch_counts().items():
+        if isinstance(v, int):
+            setattr(fn, attr, 0)
+        else:
+            getattr(fn, attr).clear()
 
 
 build_all = _build.build_all

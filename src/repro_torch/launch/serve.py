@@ -15,7 +15,8 @@ Three modes:
     decode step (``--pool`` sets the slot-pool width); ``--paged
     --page-size N`` gives each context a paged slot pool;
     ``--prefill-chunk C`` admits prompts in C-token chunks, one per step;
-    ``--quantize-kv int8`` (with ``--paged``) stores the page pools in
+    ``--multi-step T`` fuses up to T decode steps into each tick (one
+    CUDA graph replay on the card); ``--quantize-kv int8`` (with ``--paged``) stores the page pools in
     int8 with per-token-per-head scales; ``--shards N`` (with
     ``--paged``) splits each page bank into N per-shard free-lists, over
     a mesh of N devices only when every shard lies on the model's device
@@ -114,8 +115,7 @@ def request_stream(names, cfgs, n_requests, batch, seq, seed):
 # JAX launcher flags whose features the port does not have yet, with the
 # value that means "off"
 _NOT_PORTED = {"draft": None, "spec_k": 4, "spec_tree": 1,
-               "spec_adaptive": False, "multi_step": 1, "x64": False,
-               "prefix_cache": False}
+               "spec_adaptive": False, "x64": False, "prefix_cache": False}
 
 
 def visible_devices(platform: str | None, host_devices: int | None):
@@ -164,6 +164,13 @@ def main(argv=None) -> int:
                          "chunks of this many tokens, one chunk per step "
                          "(admission latency for live rows bounded by one "
                          "chunk)")
+    ap.add_argument("--multi-step", type=int, default=1, metavar="T",
+                    help="continuous mode: fuse up to T decode steps into "
+                         "one device program per scheduler tick (one CUDA "
+                         "graph replay on the card; the host's "
+                         "rank/drain/admit bookkeeping amortizes over up "
+                         "to T tokens; streams stay bitwise those of T "
+                         "single steps)")
     ap.add_argument("--quantize-kv", choices=("none", "int8"),
                     default="none",
                     help="paged mode: store the shared KV page pool in "
@@ -209,8 +216,6 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--spec-adaptive", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--multi-step", type=int, default=1,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--prefix-cache", action="store_true",
                     help=argparse.SUPPRESS)
@@ -221,6 +226,8 @@ def main(argv=None) -> int:
         asked.insert(0, "--mode speculative")
     if asked:
         ap.error(f"{', '.join(asked)}: not yet ported to repro_torch")
+    if args.multi_step < 1:
+        ap.error("--multi-step must be >= 1")
     if args.shards is not None and (args.shards < 1 or not args.paged):
         ap.error("--shards needs --paged and a positive shard count")
     if args.host_devices is not None and args.host_devices < 1:
@@ -267,7 +274,8 @@ def main(argv=None) -> int:
                          paged=args.paged, page_size=args.page_size,
                          quantize_kv=(None if args.quantize_kv == "none"
                                       else args.quantize_kv),
-                         shards=args.shards, mesh=mesh))
+                         shards=args.shards, mesh=mesh,
+                         multi_step=args.multi_step))
         with sched_cls(server) as sched:
             futs = [(sched.submit(n, t, steps=args.steps),
                      time.perf_counter()) for n, t in reqs]

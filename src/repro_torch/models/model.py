@@ -28,6 +28,8 @@ Execution modes:
   * ``prefill``           — builds the row cache, returns last-position logits
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
+  * ``decode_multi_step`` / ``decode_multi_step_pages`` — T decode steps
+                            in one device program, no host sync inside
   * ``verify_step``       — K tokens per row against the row cache (a
                             recurrent layer scans them from its carried
                             state)
@@ -174,10 +176,15 @@ class LM:
         c = self.cfg.xlstm.chunk_size
         return "chunkwise" if (L % c == 0 and L > c) else "parallel"
 
-    def _recurrent(self, mixer, p, h, mode, cache):
+    def _recurrent(self, mixer, p, h, mode, cache, commit=None):
         """A Mamba, mLSTM or sLSTM mixer.  Forward and prefill start from
         no history and return the final state; decode and verify run the
-        L tokens recurrently from ``cache`` and write it in place."""
+        L tokens recurrently from ``cache`` and write it in place --
+        unless ``commit`` (a () bool tensor) is False: then every state
+        leaf is written back as it was (a fused step that does not
+        commit must leave the states alone; attention writes need no
+        gate, since a frozen step rewrites the same k/v at the same
+        position)."""
         cfg = self.cfg
         if mode not in ("decode", "verify"):
             if mixer == "mamba":
@@ -194,23 +201,25 @@ class LM:
         else:
             a, st = xl.slstm_block(p["slstm"], h, cfg, state=cache)
         for dst, src in zip(cache, st):
-            dst.copy_(src)
+            dst.copy_(src if commit is None
+                      else torch.where(commit, src, dst))
         return a, cache
 
     def _mixer(self, i, p, h, mode, cache, pos=None, positions=None,
                max_len=None, wmask=None, tables=None, offsets=None,
-               tree=None, shard=None):
+               tree=None, shard=None, commit=None):
         """Layer ``i``'s mixer on the normed input ``h`` under ``mode``
         (forward | prefill | decode | verify) -> (out, cache).  Prefill
         returns the layer's fresh cache; decode and verify write
         ``cache`` in place.  A recurrent layer runs the same call for
         decode and verify (L == K block tokens after the carried state);
         ``tables`` switches attention to the page pool and ``shard``
-        (``(mesh, axis)``) to per-shard local reads of it."""
+        (``(mesh, axis)``) to per-shard local reads of it; ``commit``
+        gates a recurrent layer's state write (``_recurrent``)."""
         cfg = self.cfg
         mixer = self.kind(i)[0]
         if mixer != "attn":
-            return self._recurrent(mixer, p, h, mode, cache)
+            return self._recurrent(mixer, p, h, mode, cache, commit)
         ap = p["attn"]
         if mode == "forward":
             return layers.attention(ap, h, positions, cfg), None
@@ -280,12 +289,14 @@ class LM:
                               max_len=max_len)
         return self._head(params, x[:, -1:]), caches
 
-    def decode_step(self, params, caches, tokens, pos):
+    def decode_step(self, params, caches, tokens, pos, commit=None):
         """One decode step.  tokens: (B, 1) int; pos: scalar (whole batch
-        at one position) or (B,) int32.  Writes the caches in place;
-        returns (logits (B, 1, V), caches)."""
+        at one position) or (B,) int32.  Writes the caches in place
+        (recurrent states only where ``commit``, a () bool tensor, is
+        True, when given); returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "decode", caches, pos=pos)
+        x, _ = self._run(params, x, "decode", caches, pos=pos,
+                         commit=commit)
         return self._head(params, x), caches
 
     def verify_step(self, params, caches, tokens, pos, wmask=None,
@@ -403,17 +414,18 @@ class LM:
         return caches
 
     def decode_step_pages(self, params, caches, tokens, pos, tables,
-                          live=None, shard=None):
+                          live=None, shard=None, commit=None):
         """One decode step against the shared page pool.  tokens: (B, 1)
         int; pos: (B,) int32; tables: (B, P) int32; ``live`` ((B,) bool,
         optional) routes non-live rows' cache writes to the park page.
         ``shard`` (``(mesh, axis)``) makes each mesh shard read and write
         only its slice of the pool, merging the shards' partial softmaxes
-        (``layers.attention_decode_pages_sharded``).  Returns (logits
-        (B, 1, V), caches)."""
+        (``layers.attention_decode_pages_sharded``).  ``commit`` as in
+        ``decode_step``.  Returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
         x, _ = self._run(params, x, "decode", caches, pos=pos,
-                         tables=tables, wmask=live, shard=shard)
+                         tables=tables, wmask=live, shard=shard,
+                         commit=commit)
         return self._head(params, x), caches
 
     def verify_step_pages(self, params, caches, tokens, pos, tables,
@@ -439,6 +451,82 @@ class LM:
 
     # chunked admission is the verify pass pointed at the page pool
     prefill_chunk_pages = verify_step_pages
+
+    # ------------------------------------------------------ multi-step decode
+    def _decode_multi(self, params, caches, tokens, pos, steps, sample_fn,
+                      stop_fn, live=None, pos_cap=None, tables=None,
+                      shard=None, commit=None):
+        """``steps`` decode steps in ONE device program, with no host sync
+        (``StepEngine(multi_step=T)`` captures it as one CUDA graph).
+
+        Each step runs the SAME ``decode_step`` / ``decode_step_pages``
+        body a single-step engine runs, then ``nxt = sample_fn(last
+        logits, pos, i)`` (the engine's own sampling rule) and ``stop =
+        stop_fn(nxt, advanced pos, i)``, a () bool that is True the
+        moment ANY slot would change occupancy.  JAX's loop exits there;
+        a graph cannot leave its loop, so every step runs and a device
+        flag ``active`` decides which commit: step i commits while no
+        earlier step raised ``stop`` (step 0 always, unless ``commit``,
+        a () bool, is False: then none does).  A step that does not
+        commit leaves every state as it was: tok and pos stay frozen, so
+        its attention writes rewrite the same k/v at the same position
+        (row, ring, bf16 and int8 pages alike), and the recurrent states
+        are gated by ``active``.
+
+        ``pos_cap`` clamps the advanced positions (the single-step
+        engine's run-off guard); ``stop_fn`` sees them unclamped.
+        Returns ``(out (B, steps) int32, n () int32, caches, tok (B, 1),
+        pos (B,))``, all on the device: only ``out[:, :n]`` is
+        meaningful, and tok and pos are those after the n committed
+        steps."""
+        dev = self.device
+        active = (torch.ones((), dtype=torch.bool, device=dev)
+                  if commit is None else commit)
+        tok = torch.as_tensor(tokens, device=dev).to(torch.int32)
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+        n = torch.zeros((), dtype=torch.int32, device=dev)
+        outs = []
+        for i in range(steps):
+            if tables is None:
+                logits, caches = self.decode_step(params, caches, tok, pos,
+                                                  commit=active)
+            else:
+                logits, caches = self.decode_step_pages(
+                    params, caches, tok, pos, tables, live=live,
+                    shard=shard, commit=active)
+            nxt = sample_fn(logits[:, -1], pos, i)
+            posr = pos + 1 if live is None else torch.where(live, pos + 1,
+                                                            pos)
+            stop = stop_fn(nxt, posr, i)
+            if pos_cap is not None:
+                posr = torch.clamp(posr, max=pos_cap)
+            outs.append(nxt)
+            tok = torch.where(active, nxt, tok[:, 0])[:, None]
+            pos = torch.where(active, posr, pos)
+            n = n + active.to(torch.int32)
+            active = active & ~stop
+        return torch.stack(outs, dim=1), n, caches, tok, pos
+
+    def decode_multi_step(self, params, caches, tokens, pos, steps,
+                          sample_fn, stop_fn, live=None, pos_cap=None,
+                          commit=None):
+        """Row-cache multi-step decode; see ``_decode_multi``."""
+        return self._decode_multi(params, caches, tokens, pos, steps,
+                                  sample_fn, stop_fn, live=live,
+                                  pos_cap=pos_cap, commit=commit)
+
+    def decode_multi_step_pages(self, params, caches, tokens, pos, tables,
+                                steps, sample_fn, stop_fn, live=None,
+                                pos_cap=None, shard=None, commit=None):
+        """Paged multi-step decode; see ``_decode_multi``.  ``tables``
+        stays as it is over the steps: occupancy changes only at a
+        ``stop``, after which nothing commits."""
+        return self._decode_multi(params, caches, tokens, pos, steps,
+                                  sample_fn, stop_fn, live=live,
+                                  pos_cap=pos_cap,
+                                  tables=torch.as_tensor(tables,
+                                                         device=self.device),
+                                  shard=shard, commit=commit)
 
 
 def build_model(cfg: ArchConfig, cache_dtype=torch.bfloat16,

@@ -13,7 +13,8 @@ batch advanced one token at a time:
                        prompt in (b, C) chunks, one per tick, behind decode
   * ``step``         — one decode step for every live slot; per-request
                        positions go down to the attention kernel as a
-                       ``(B,)`` vector
+                       ``(B,)`` vector; with ``multi_step=T`` up to T
+                       fused steps, one CUDA graph replay on a card
   * retirement       — EOS / step-limit frees the slot back to the pool
 
 Requests join, leave, and (one level up, in ``serve/scheduler.py``) switch
@@ -28,6 +29,8 @@ may replace to inject another framework's draws.
 """
 from __future__ import annotations
 
+import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
@@ -35,6 +38,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.env import synchronize
 from repro_torch.distributed.mesh import shard_count
 from repro_torch.models.model import LM
@@ -104,6 +108,12 @@ class GumbelDraws:
     def salt(self):
         self.key = _mix(self.key, (1 << 30) | self.t)
 
+    def snapshot(self):
+        return self.key, self.t
+
+    def restore(self, snap):
+        self.key, self.t = snap
+
     def field(self, key, shape) -> torch.Tensor:
         gen = torch.Generator(device=self.device).manual_seed(int(key))
         u = torch.rand(shape, generator=gen, device=self.device)
@@ -135,6 +145,7 @@ class EngineKey(NamedTuple):
     page_size: Optional[int] = None     # None == row layout (paged off)
     quantize_kv: Optional[str] = None
     shards: int = 1                     # page-bank shards (1 == unsharded)
+    multi_step: int = 1                 # fused decode steps per tick
 
 
 class ServeStats:
@@ -206,7 +217,53 @@ class _PendingPrefill:
     #                                       (admit-to-first-chunk latency)
 
 
-_NOT_PORTED = ("multi_step", "prefix_cache", "bank")
+def _tensors(tree):
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class _TickGraph:
+    """One CUDA graph of the fused tick (``StepEngine._fused_tick``),
+    captured over static device buffers -- ``inp``, the tick's packed
+    host columns (staged through pinned ``inp_host``), and ``gumbel``,
+    the steps' fields -- for one set of weight, cache and table buffers.
+    It holds those by weak reference only: a graph keeps the addresses
+    it was captured on, so once any of them is gone (a weight slot
+    evicted and reloaded) ``alive`` turns False and the engine drops the
+    graph, never keeping the buffers alive itself.  ``launches`` is what
+    the capture recorded of every kernel wrapper's count
+    (``kernels.launches_since``): a replay calls no wrapper, so the
+    engine adds it once per replay."""
+
+    def __init__(self, bufs, n_inp: int, gumbel, device):
+        self._refs = [weakref.ref(t) for t in bufs]
+        self.inp_host = torch.empty((n_inp,), dtype=torch.int32,
+                                    pin_memory=True)
+        self.inp = torch.empty((n_inp,), dtype=torch.int32, device=device)
+        self.gumbel = None if gumbel is None else torch.empty_like(gumbel)
+        self.graph = torch.cuda.CUDAGraph()
+        self.res = None
+        self.launches = {}
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self._refs)
+
+    def load(self, inp, gumbel) -> None:
+        """Copy one tick's inputs into the static buffers."""
+        self.inp_host.numpy()[:] = inp
+        self.inp.copy_(self.inp_host, non_blocking=True)
+        if gumbel is not None:
+            self.gumbel.copy_(gumbel)
+
+
+_NOT_PORTED = ("prefix_cache", "bank")
 
 
 class StepEngine(SlotPool):
@@ -267,8 +324,19 @@ class StepEngine(SlotPool):
     the row layout's capacity in pages, plus each shard's reserved local
     page 0).
 
-    The JAX engine's other options — ``multi_step``, ``prefix_cache``,
-    ``bank`` — are not ported yet and raise ``NotImplementedError``.
+    ``multi_step=T`` commits up to T decode steps per tick
+    (``LM.decode_multi_step[_pages]``), bitwise the tokens of T single
+    steps: the tick stops committing at the step where any slot would
+    change occupancy (EOS, token budget, page end), so retirements and
+    the draw schedule stay exactly those of the single-step engine.  On
+    a CUDA card a tick is one replay of a CUDA graph of the T steps
+    (captured once per set of weight, cache and table buffers) and one
+    readback; on the CPU the same body runs eagerly.  While a chunked
+    prompt is pending the engine single-steps, so the prompt keeps its
+    one chunk per tick.
+
+    The JAX engine's other options — ``prefix_cache``, ``bank`` — are not
+    ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(self, model: LM, batch_size: int, max_len: int,
@@ -284,14 +352,19 @@ class StepEngine(SlotPool):
                  prefix_cache: bool = False, bank=None,
                  shards: Optional[int] = None, mesh=None,
                  local_read: bool = False):
-        unported = dict(multi_step=multi_step != 1,
-                        prefix_cache=bool(prefix_cache),
+        unported = dict(prefix_cache=bool(prefix_cache),
                         bank=bank is not None)
         asked = [k for k in _NOT_PORTED if unported[k]]
         if asked:
             raise NotImplementedError(
                 f"StepEngine option(s) {asked} are not yet ported to "
                 "repro_torch")
+        if multi_step < 1:
+            raise ValueError(f"multi_step must be >= 1, got {multi_step}")
+        self.multi_step = multi_step
+        self._graphs: dict[tuple, _TickGraph] = {}
+        self.graph_captures = 0          # CUDA graphs captured, and the
+        self.graph_capture_s = 0.0       # seconds their captures took
         self.model = model
         self.device = model.device
         telemetry = telemetry if telemetry is not None else Telemetry()
@@ -420,15 +493,23 @@ class StepEngine(SlotPool):
                       if self.paged else
                       self.model.init_cache(B, self.max_len))
         table = np.zeros((B, self.pages_per_row), np.int32)
+        table_dev = None
+        if self.paged:
+            # zeroed in place once it exists: a captured tick graph keeps
+            # reading the table at the address it was captured on
+            table_dev = (self.state.table_dev if self.state is not None
+                         else None)
+            if table_dev is None:
+                table_dev = torch.from_numpy(table).to(self.device)
+            else:
+                table_dev.zero_()
         self.state = DecodeState(
             caches=caches, tok=np.zeros((B,), np.int32),
             pos=np.zeros((B,), np.int32), rseed=np.zeros((B,), np.int64),
             seeded=np.zeros((B,), bool),
             # every table entry must be a valid pool index; park (0) is
             # the safe default — empty slots read/write garbage space
-            table=table,
-            table_dev=(torch.from_numpy(table).to(self.device)
-                       if self.paged else None))
+            table=table, table_dev=table_dev)
         self.sampler.reset(self.seed if seed is None else seed)
         self._pool_reset()
         self._pending.clear()
@@ -636,6 +717,131 @@ class StepEngine(SlotPool):
                             self.max_len - 1).astype(np.int32)
         return nxt
 
+    def _fused_tick(self, params, inp, gumbel):
+        """The fused tick's device program: up to ``multi_step`` decode
+        steps (``LM.decode_multi_step[_pages]``) on device buffers alone,
+        with no host sync, so that one CUDA graph captures it.  ``inp``
+        ((5B + 1,) int32) packs the tick's host columns: tok, pos, live,
+        rem (each row's remaining tokens), budget (its position cap: the
+        end of its pages, or max_len), then go (0: no step commits, the
+        capture's warm-up).  ``gumbel`` ((T, B, V) f32, None when greedy)
+        holds the steps' fields.  A live row stops the tick after the
+        step that spends its budget, reaches its cap or samples EOS: the
+        single-step engine's retirement.  Returns (B*T + 1,) int32, the
+        steps' tokens row by row, then n, the steps committed."""
+        st, model, B = self.state, self.model, self.batch_size
+        T, eos = self.temperature, self.eos_id
+        tok, pos, live, rem, budget = inp[:5 * B].view(5, B)
+        live = live != 0
+
+        def sample_fn(last, pos, i):
+            return _sample(last, T, None if gumbel is None else gumbel[i])
+
+        def stop_fn(nxt, posr, i):
+            done = (rem <= i + 1) | (posr >= budget)
+            if eos is not None:
+                done = done | (nxt == eos)
+            return (live & done).any()
+
+        kw = dict(live=live, pos_cap=self.max_len - 1,
+                  commit=inp[5 * B] != 0)
+        if self.paged:
+            out, n, *_ = model.decode_multi_step_pages(
+                params, st.caches, tok[:, None], pos, st.table_dev,
+                self.multi_step, sample_fn, stop_fn,
+                shard=self._shard_arg(), **kw)
+        else:
+            out, n, *_ = model.decode_multi_step(
+                params, st.caches, tok[:, None], pos, self.multi_step,
+                sample_fn, stop_fn, **kw)
+        return torch.cat([out.reshape(-1), n.view(1)])
+
+    def _fused_fields(self, live):
+        """The gumbel fields of the tick's ``multi_step`` steps, (T, B, V)
+        (None when greedy): step i draws what the i-th single step would,
+        the pool field of the draw chain's next key, seeded live rows
+        their own field at the position they produce (pos + 1 + i).  The
+        chain runs on by T keys here; ``_mstep_fn`` leaves it n on."""
+        if self.temperature <= 0.0:
+            return None
+        st, B, V = self.state, self.batch_size, self.model.cfg.vocab_size
+        idx = np.nonzero(st.seeded & live)[0]
+        fields = []
+        for i in range(self.multi_step):
+            g = self.sampler.field(self.sampler.advance(), (B, V))
+            if idx.size:
+                g[torch.as_tensor(idx, device=g.device)] = self.sampler.rows(
+                    st.rseed[idx], st.pos[idx] + 1 + i, V)
+            fields.append(g)
+        return torch.stack(fields)
+
+    def _tick_graph(self, params, inp, gumbel) -> _TickGraph:
+        """The tick graph over the current weight, cache and table
+        buffers, captured on first use.  Graphs whose buffers are gone
+        are dropped first.  The capture follows ``torch.cuda.graphs``: a
+        warm-up on a side stream (with go = 0, so it commits nothing and
+        leaves every state as it was), then the capture, thread-local so
+        that the context engine's loader may copy weights meanwhile."""
+        bufs = [*_tensors(params), *_tensors(self.state.caches)]
+        if self.paged:
+            bufs.append(self.state.table_dev)
+        self._graphs = {k: g for k, g in self._graphs.items() if g.alive()}
+        key = tuple(map(id, bufs))
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        t0 = time.perf_counter()
+        g = _TickGraph(bufs, inp.size, gumbel, self.device)
+        warm = inp.copy()
+        warm[-1] = 0
+        g.load(warm, gumbel)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._fused_tick(params, g.inp, g.gumbel)
+        cur.wait_stream(side)
+        before = kernels.launch_counts()
+        with torch.cuda.graph(g.graph, capture_error_mode="thread_local"):
+            g.res = self._fused_tick(params, g.inp, g.gumbel)
+        g.launches = kernels.launches_since(before)
+        kernels.add_launches(g.launches, times=-1)   # captured, not run
+        self._graphs[key] = g
+        self.graph_captures += 1
+        self.graph_capture_s += time.perf_counter() - t0
+        return g
+
+    def _mstep_fn(self, params, live, rem, budget):
+        """One fused tick: up to ``multi_step`` decode steps, then ONE
+        readback of (tokens, n).  On a CUDA card the tick replays its
+        graph (and adds the graph's launches to the kernels' counts); on
+        the CPU ``_fused_tick`` runs eagerly.  Leaves the draw chain n
+        keys on and tok and pos where n single steps would.  -> (out (B,
+        n) int32, n)."""
+        st, B = self.state, self.batch_size
+        inp = np.concatenate([st.tok, st.pos, live, rem, budget,
+                              [1]]).astype(np.int32)
+        snap = self.sampler.snapshot()
+        gumbel = self._fused_fields(live)
+        if self.device.type == "cuda":
+            g = self._tick_graph(params, inp, gumbel)
+            g.load(inp, gumbel)
+            g.graph.replay()
+            kernels.add_launches(g.launches)
+            res = g.res
+        else:
+            res = self._fused_tick(params, torch.from_numpy(inp), gumbel)
+        res = res.cpu().numpy()                  # the tick's one readback
+        n = int(res[-1])
+        out = res[:-1].reshape(B, self.multi_step)[:, :n]
+        self.sampler.restore(snap)
+        for _ in range(n):
+            self.sampler.advance()
+        st.tok = out[:, -1].copy()
+        st.pos = np.minimum(np.where(live, st.pos + n, st.pos),
+                            self.max_len - 1).astype(np.int32)
+        return out, n
+
     # ------------------------------------------------------------- admission
     def admit(self, params, tokens, max_new: int,
               metas: Optional[list] = None,
@@ -819,27 +1025,47 @@ class StepEngine(SlotPool):
     # ---------------------------------------------------------------- step
     def step(self, params) -> list[Generation]:
         """One engine tick: at most one prefill chunk (chunked admission),
-        then one decode step for every live slot.  Returns the generations
-        that finished (EOS or step limit) at this boundary; their slots
-        are already back on the free-list."""
+        then one decode step for every live slot -- or, with
+        ``multi_step=T`` and no prompt pending, up to T fused steps.
+        Returns the generations that finished (EOS or step limit) at this
+        boundary; their slots are already back on the free-list."""
         finished = self.prefill_tick(params) if self._pending else []
         if not self._live.any():
             return finished
+        live = self._live.copy()
         t0 = self.telemetry.clock()
-        nxt = self._call(self._step_fn, params, self._live.copy())
+        if self.multi_step > 1 and not self._pending:
+            out, n = self._call(self._mstep_fn, params, live,
+                                *self._budgets())
+        else:
+            out, n = self._call(self._step_fn, params, live)[:, None], 1
         now = self.telemetry.clock()
         self.stats["host_ticks"] += 1
-        self.stats["device_steps"] += 1
+        self.stats["device_steps"] += n
         stepped = []
         for s in range(self.batch_size):
             g = self.slots[s]
+            if g is None or not live[s]:
+                continue                  # empty, or reserved mid-prefill
+            g.tokens.extend(int(t) for t in out[s])
+            stepped.append(g)
+        self.stats["tokens_out"] += n * len(stepped)
+        self._note_tick(t0, now, n, len(stepped))
+        return finished + self._retire_done(stepped)
+
+    def _budgets(self):
+        """The fused tick's per-row limits: each live row's remaining
+        tokens and its position cap (the end of its pages, or max_len);
+        0 for the other rows.  -> (rem, budget), (B,) int32 each."""
+        rem = np.zeros((self.batch_size,), np.int32)
+        budget = np.zeros((self.batch_size,), np.int32)
+        for s, g in enumerate(self.slots):
             if g is None or not self._live[s]:
                 continue
-            g.tokens.append(int(nxt[s]))
-            stepped.append(g)
-        self.stats["tokens_out"] += len(stepped)
-        self._note_tick(t0, now, 1, len(stepped))
-        return finished + self._retire_done(stepped)
+            rem[s] = g.remaining
+            budget[s] = (len(g.pages) * self.page_size
+                         if self.paged and g.pages else self.max_len)
+        return rem, budget
 
 
 # ---------------------------------------------------------------------------
@@ -866,18 +1092,21 @@ class ServingEngine:
             OrderedDict())
 
     def step_engine(self, batch_size: int, paged: bool = False,
-                    page_size: int = 256) -> StepEngine:
+                    page_size: int = 256, multi_step: int = 1) -> StepEngine:
         """The continuous-batching engine behind ``generate`` /
-        ``generate_paged`` (cached per (batch shape, page layout); least
-        recently used idle keys beyond ``max_cached_pools`` are dropped to
-        free their KV pools)."""
+        ``generate_paged`` / ``generate_fused`` (cached per (batch shape,
+        page layout, fused steps); least recently used idle keys beyond
+        ``max_cached_pools`` are dropped to free their KV pools, and their
+        tick graphs with them)."""
         key = EngineKey(batch_size=batch_size,
-                        page_size=page_size if paged else None)
+                        page_size=page_size if paged else None,
+                        multi_step=multi_step)
         eng = self._step_engines.get(key)
         if eng is None:
             eng = StepEngine(self.model, batch_size, self.max_len,
                              temperature=self.temperature, seed=self.seed,
                              paged=paged, page_size=page_size,
+                             multi_step=multi_step,
                              telemetry=self.telemetry.scoped(
                                  f"eng.{self._eng_seq}."))
             self._eng_seq += 1
@@ -928,4 +1157,16 @@ class ServingEngine:
         tokens = np.asarray(tokens)
         eng = self.step_engine(tokens.shape[0], paged=True,
                                page_size=min(page, self.max_len))
+        return self._run(eng, tokens, steps, seed)
+
+    def generate_fused(self, tokens, steps: int,
+                       seed: Optional[int] = None) -> np.ndarray:
+        """The whole decode as one device program: prefill and the first
+        token, then the other ``steps - 1`` decode steps as ONE fused tick
+        of a ``StepEngine(multi_step=steps - 1)`` -- one CUDA graph replay
+        on a card, a plain loop on the CPU.  Returns (B, steps) ids,
+        identical to ``generate``'s."""
+        tokens = np.asarray(tokens)
+        eng = self.step_engine(tokens.shape[0],
+                               multi_step=max(steps - 1, 1))
         return self._run(eng, tokens, steps, seed)

@@ -374,10 +374,14 @@ class ContinuousScheduler:
     ``quantize_kv="int8"`` (paged) stores the page pools as int8 codes
     with per-token scales; ``shards=N`` (paged) splits every engine's page
     bank into N per-shard free-lists (over ``mesh``'s first axis when
-    given), with admission routed to the least-loaded shard.  The JAX
-    scheduler's speculative contexts (``draft``), multi-step decode and
-    prefix-cached banks are not ported yet: a non-empty ``draft``
-    raises.
+    given), with admission routed to the least-loaded shard;
+    ``multi_step=T`` fuses up to T decode steps into each engine tick
+    (one CUDA graph replay on a card), so the rank/drain/admit
+    bookkeeping amortizes over up to T tokens, with streams bitwise those
+    of single steps (``snapshot()["steps_per_tick"]`` reports the
+    realized ratio).  The JAX scheduler's speculative contexts
+    (``draft``) and prefix-cached banks are not ported yet: a non-empty
+    ``draft`` raises.
 
     Per-request seeds ARE honored: a seeded row draws from its own
     generator state (folded with the row's token position), so a seeded
@@ -392,7 +396,8 @@ class ContinuousScheduler:
                  prefill_chunk: Optional[int] = None,
                  paged: bool = False, page_size: int = 256,
                  quantize_kv: Optional[str] = None,
-                 shards: Optional[int] = None, mesh=None):
+                 shards: Optional[int] = None, mesh=None,
+                 multi_step: int = 1):
         if draft:
             raise NotImplementedError(
                 "speculative contexts (draft=) are not yet ported to "
@@ -417,6 +422,9 @@ class ContinuousScheduler:
         self.prefill_chunk = prefill_chunk
         # int8 page pool (paged mode): about half the bytes per page
         self.quantize_kv = quantize_kv
+        # fused decode: each engine tick commits up to ``multi_step``
+        # steps in one device program
+        self.multi_step = multi_step
         self.age_weight = age_weight
         self.cost_weight = cost_weight
         self.switch_margin = switch_margin
@@ -536,7 +544,8 @@ class ContinuousScheduler:
                                       paged=self.paged,
                                       page_size=self.page_size,
                                       quantize_kv=self.quantize_kv,
-                                      shards=self.shards, mesh=self.mesh)
+                                      shards=self.shards, mesh=self.mesh,
+                                      multi_step=self.multi_step)
         if eng.runner is None:
             cse = self.server.engine
             # every device program (prefill + step) routes through the
@@ -558,7 +567,8 @@ class ContinuousScheduler:
         return EngineKey(name=name, batch_size=self.batch_size,
                          prefill_chunk=self.prefill_chunk, page_size=ps,
                          quantize_kv=self.quantize_kv,
-                         shards=shard_count(self.shards, self.mesh))
+                         shards=shard_count(self.shards, self.mesh),
+                         multi_step=self.multi_step)
 
     def _live_engines(self):
         out = {}

@@ -116,7 +116,7 @@ class SwitchableServer:
                     paged: bool = False, page_size: int = 256,
                     quantize_kv: Optional[str] = None,
                     shards: Optional[int] = None,
-                    mesh=None) -> StepEngine:
+                    mesh=None, multi_step: int = 1) -> StepEngine:
         """Per-context continuous-batching engine (one per configuration).
         Its decode state — slot-pooled KV rows or pages, positions,
         free-list — persists across context switches, so a paused context
@@ -125,14 +125,16 @@ class SwitchableServer:
         buffers via the scheduler's runner hook).  Every engine knob is a
         field of the frozen ``EngineKey``: chunked and one-shot, int8 and
         full-precision engines of one context are different engines.
-        ``shards``/``mesh`` split the engine's page bank (see
-        ``StepEngine``)."""
+        ``shards``/``mesh`` split the engine's page bank and
+        ``multi_step`` fuses up to that many decode steps into each tick
+        (see ``StepEngine``)."""
         sm = self._served[name]
         eff_ps = min(page_size, sm.max_len) if paged else None
         key = EngineKey(name=name, batch_size=batch_size,
                         prefill_chunk=prefill_chunk, page_size=eff_ps,
                         quantize_kv=quantize_kv,
-                        shards=shard_count(shards, mesh))
+                        shards=shard_count(shards, mesh),
+                        multi_step=multi_step)
         eng = self._step_engines.get(key)
         if eng is None:
             eng = StepEngine(sm.model, batch_size, sm.max_len,
@@ -140,6 +142,7 @@ class SwitchableServer:
                              prefill_chunk=prefill_chunk, paged=paged,
                              page_size=page_size, quantize_kv=quantize_kv,
                              shards=shards, mesh=mesh,
+                             multi_step=multi_step,
                              telemetry=self.telemetry.scoped(
                                  f"eng.{next(self._eng_seq)}."))
             self._step_engines[key] = eng

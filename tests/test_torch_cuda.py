@@ -17,7 +17,11 @@ row decode, bit for bit over the same keys.  The decode kernels are held
 at every split of a row's keys over a block cluster (1, 2, 4, 8 blocks),
 at each split boundary, with no host sync in a call; the scan and the
 mLSTM with no host sync, replayed bit for bit from a CUDA graph, the
-mLSTM also in spans of one chunk.  Every test here is
+mLSTM also in spans of one chunk.  The fused multi-step tick
+(``StepEngine(multi_step=4)``) is one graph replay, bit for bit the eager
+single steps (row, paged, int8, local reads, ring and MoE, hybrid,
+xLSTM), adds its captured launches to the counts on every replay,
+recaptures over reloaded weights, and syncs nothing.  Every test here is
 marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -1051,3 +1055,184 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     _partial_close(paged_decode_partial(qp, pool, pool, table, pos, 0),
                    paged_decode_partial_reference(qp, pool, pool, table, pos,
                                                   0))
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-step tick: one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+ENGINES = {                     # (arch, config overrides, engine options)
+    "row": ("tinyllama-1.1b", {}, {}),
+    "paged": ("tinyllama-1.1b", {}, dict(paged=True, page_size=16)),
+    "int8": ("tinyllama-1.1b", {},
+             dict(paged=True, page_size=16, quantize_kv="int8")),
+    "local_read": ("tinyllama-1.1b", {},
+                   dict(paged=True, page_size=16, local_read=True)),
+    "ring_moe": ("mixtral-8x7b", dict(sliding_window=16), {}),
+    "hybrid": ("jamba-v0.1-52b", {}, {}),
+    "xlstm": ("xlstm-125m", {}, {}),
+}
+
+
+def _reduced_lm(arch, cfg_kw):
+    from repro_torch.configs import get_arch, override, reduced
+    from repro_torch.models.model import build_model
+    m = build_model(override(reduced(get_arch(arch)), **cfg_kw),
+                    device="cuda")
+    return m, m.init(seed=0)
+
+
+def _step_engine(m, kind, multi_step, temperature=0.0):
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.serve.engine import StepEngine
+    kw = dict(ENGINES[kind][2])
+    if kw.pop("local_read", False):
+        kw.update(local_read=True, mesh=make_mesh(
+            (4,), ("model",), [torch.device("cuda", 0)] * 4))
+    return StepEngine(m, batch_size=3, max_len=64, temperature=temperature,
+                      seed=5, multi_step=multi_step, **kw)
+
+
+def _fused_stream(eng, p, vocab):
+    """A (3 tokens) and B (9) admitted at once, A retiring at device step
+    2 (inside a fused tick of 4), C admitted at that boundary, all
+    drained.  Seeded rows when the engine samples."""
+    g = torch.Generator().manual_seed(1)
+
+    def prompt(S):
+        return torch.randint(0, vocab, (1, S), generator=g).numpy()
+
+    seeds = [7, 9, 11] if eng.temperature > 0 else [None] * 3
+    ga = eng.admit(p, prompt(8), max_new=3, seeds=seeds[:1])[0]
+    gb = eng.admit(p, prompt(20), max_new=9, seeds=seeds[1:2])[0]
+    while not ga.done:
+        eng.step(p)
+    gc = eng.admit(p, prompt(12), max_new=5, seeds=seeds[2:])[0]
+    while eng.live_slots():
+        eng.step(p)
+    return [ga.tokens, gb.tokens, gc.tokens]
+
+
+@pytest.mark.parametrize("kind,temperature", [
+    *((k, 0.0) for k in ENGINES), ("row", 0.8), ("paged", 0.8)])
+def test_fused_tick_replays_bitwise_single_steps(gen, kind, temperature):
+    """Each fused tick is one replay of the engine's one captured graph
+    and one readback, and its streams are bit for bit those of the eager
+    single steps: dense row, paged, int8 and local reads over 4 logical
+    shards, the ring and MoE, the Mamba hybrid and the xLSTM (A retires
+    inside the first tick, so B's recurrent states cross two steps that
+    do not commit)."""
+    m, p = _reduced_lm(*ENGINES[kind][:2])
+    one = _step_engine(m, kind, 1, temperature)
+    want = _fused_stream(one, p, m.cfg.vocab_size)
+    eng = _step_engine(m, kind, 4, temperature)
+    assert _fused_stream(eng, p, m.cfg.vocab_size) == want
+    assert eng.stats["device_steps"] == one.stats["device_steps"]
+    assert eng.stats["host_ticks"] < one.stats["host_ticks"]
+    assert eng.graph_captures == 1 and len(eng._graphs) == 1
+    assert eng.sampler.snapshot() == one.sampler.snapshot()
+
+
+def test_fused_tick_adds_its_captured_launches_on_every_replay(gen):
+    """A replay calls no wrapper: the engine adds the capture's launches,
+    the decode kernel's T per layer, on every replay (the warm-up before
+    the capture launched them once more)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention)
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    eng = _step_engine(m, "paged", 4)
+    eng.admit(p, torch.randint(0, 256, (3, 10)).numpy(), max_new=13)
+    per_tick = 4 * m.cfg.num_layers
+    kernels.reset_launch_counts()
+    eng.step(p)                                 # warm-up, capture, replay
+    (g,) = eng._graphs.values()
+    assert g.launches[(paged_decode_attention, "launches")] == per_tick
+    assert paged_decode_attention.launches == 2 * per_tick
+    for k in range(2):
+        eng.step(p)
+        assert paged_decode_attention.launches == (3 + k) * per_tick
+    assert eng.stats["device_steps"] == 12 and eng.graph_captures == 1
+
+
+def test_fused_engine_recaptures_when_the_weights_are_reloaded(gen):
+    """A reloaded weight slot holds new buffers (``_copy_in``): the graph
+    over the old ones is dropped, not kept alive by the engine, and the
+    engine captures again; its streams follow the new weights."""
+    import gc
+    import weakref
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    other = m.init(seed=1)
+    prompt = torch.randint(0, 256, (2, 10)).numpy()
+
+    def run(eng, params):
+        gens = eng.admit(params, prompt, max_new=9)
+        while eng.live_slots():
+            eng.step(params)
+        return [g.tokens for g in gens]
+
+    eng = _step_engine(m, "row", 4)
+    first = run(eng, p)
+    old = weakref.ref(p["embed"])
+    del p                                       # the slot's old buffers
+    gc.collect()
+    assert old() is None                        # the graph did not hold them
+    reloaded = _tree_clone(other)
+    got = run(eng, reloaded)
+    assert eng.graph_captures == 2 and len(eng._graphs) == 1
+    assert got == run(_step_engine(m, "row", 1), other)
+    assert first != got
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_clone(v) for v in tree]
+    return tree.clone()
+
+
+@pytest.mark.parametrize("kind", list(ENGINES))
+def test_fused_tick_body_is_sync_free(gen, kind):
+    """The tick's body, run eagerly on the card with go = 0 (no step
+    commits), makes no host sync (``set_sync_debug_mode("error")``), for
+    every engine a graph captures."""
+    m, p = _reduced_lm(*ENGINES[kind][:2])
+    eng = _step_engine(m, kind, 4)
+    eng.admit(p, torch.randint(0, 256, (3, 10)).numpy(), max_new=9)
+    B = eng.batch_size
+    inp = torch.zeros(5 * B + 1, dtype=torch.int32)
+    inp[:B] = torch.from_numpy(eng.state.tok)
+    inp[B:2 * B] = torch.from_numpy(eng.state.pos)
+    inp[2 * B:3 * B] = 1
+    inp[3 * B:4 * B] = 8
+    inp[4 * B:5 * B] = 64
+    inp = inp.cuda()
+    eng._fused_tick(p, inp, None)               # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = eng._fused_tick(p, inp, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(res[-1]) == 0                    # go = 0: nothing committed
+
+
+def test_dropped_engine_drops_its_graphs(gen):
+    """Each tick graph keeps a private memory pool: an engine that the
+    ``max_cached_pools`` LRU drops takes its graphs with it."""
+    import gc
+    import weakref
+    from repro_torch.serve.engine import ServingEngine
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    se = ServingEngine(m, p, max_len=64)
+    se.max_cached_pools = 1
+    prompt = torch.randint(0, 256, (2, 10)).numpy()
+    want = se.generate(prompt, 6)
+    same = bool((se.generate_fused(prompt, 6) == want).all())
+    (graph,) = se.step_engine(2, multi_step=5)._graphs.values()
+    ref = weakref.ref(graph)
+    del graph
+    se.generate_fused(prompt, 8)       # another engine: the idle ones go
+    gc.collect()
+    assert same and ref() is None
+    assert len(se._step_engines) == 1

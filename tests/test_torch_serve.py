@@ -216,7 +216,7 @@ def test_generate_and_generate_paged_agree(pair):
 
 def test_unported_options_raise(pair):
     tm, _, _, _ = pair
-    for kw in (dict(multi_step=2), dict(prefix_cache=True)):
+    for kw in (dict(prefix_cache=True), dict(bank=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             StepEngine(tm, batch_size=2, max_len=32, **kw)
     server, _ = launch.build_server(["supersub-super"], 2, 32,
@@ -326,8 +326,12 @@ def test_launcher_report(mode, capsys):
 def test_launcher_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit) as e:
         launch.main(["--platform", "cpu", "--mode", "speculative",
-                     "--prefix-cache", "--multi-step", "4"])
+                     "--prefix-cache"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "--multi-step" in err and "--prefix-cache" in err
+    assert "--prefix-cache" in err
     assert "--mode speculative" in err and "not yet ported" in err
+    with pytest.raises(SystemExit) as e:
+        launch.main(["--platform", "cpu", "--multi-step", "0"])
+    assert e.value.code == 2
+    assert "--multi-step must be >= 1" in capsys.readouterr().err
