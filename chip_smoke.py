@@ -108,10 +108,25 @@ Phases, in order; any failure exits non-zero before the result lines:
                 layers) under the same mesh, a 2 x 512 prefill through
                 moe_ep (B7, 48 launches) and 4 decode steps through
                 moe_tp, one full-width MoE layer against the CPU in
-                float32.  Every request must resolve with the right
-                shape, and each kernel route's launch count (zeroed
-                right before a pass) must rise in the pass that uses
-                it.
+                float32; ``prefix_*``: the prefix cache on a full
+                tinyllama-1.1b StepEngine with bench_prefix.py's traffic
+                (10 requests, a 2048-token shared preamble and a
+                32-token tail each, 16 new tokens), cache off and on,
+                one-shot (also int8, ``multi_step=8`` and ``shards=4``)
+                and chunked (C=256, fp and int8, and with local reads
+                over Mesh((cuda:0,) * 4)): 9 hits of 8 mapped pages
+                each, B4 launched by the one-shot prefix engine at the
+                hit's shape and by the chunked ones at the chunk's (both
+                also kernel records, fp and int8), the fused and sharded
+                passes bitwise the one-shot prefix pass, each chunked
+                prefix pass bitwise its cold chunked twin, and a
+                copy-on-write hit that leaves every indexed
+                page bitwise unchanged; logged: hit vs cold greedy
+                agreement, time to first token, decode tokens/s on and
+                off, peak rows at 19 pages.  Every request must resolve
+                with the right shape, and each kernel route's launch
+                count (zeroed right before a pass) must rise in the pass
+                that uses it.
   5. profile  — steady decode steps of a full tinyllama-1.1b step engine
                 (row and paged, 8 rows): step wall time, device kernel
                 time and busy share, top kernels (torch.profiler); the
@@ -126,6 +141,7 @@ port's sources beside this script, it exits non-zero and prints neither.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -627,6 +643,7 @@ def kernel_phase(dev) -> list[dict]:
                     lambda: verify_attention(qv, kr, vr, bk, bv, vpos), flush,
                     sdpa)
     ring_verify_record(dev, rn, flush, record)
+    prefix_verify_records(dev, gen, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
     partial_records(dev, gen, rn, flush, record)
@@ -840,6 +857,93 @@ def ring_verify_record(dev, rn, flush, record) -> None:
                                              ring=True), flush,
                     lambda: F.scaled_dot_product_attention(
                         qt, kall, vall, attn_mask=vmask, enable_gqa=True))
+
+
+def prefix_verify_records(dev, gen, rn, flush, record) -> None:
+    """Paged verify (B4) at the shapes the ``prefix_*`` passes give it
+    (``PREFIX_VERIFY``), fp and int8 pools: one row at position 2048
+    over tinyllama-1.1b's 9-page table of 256 (the 8 pages of a hit's
+    preamble and the row's own), with a one-shot hit's 32-token tail or
+    a chunked pass's 256-token chunk.  The 2048 cached keys are 16 key
+    tiles of 128, so the kernel's 3-stage pipeline wraps five times.
+    Each is held to the plain version elementwise and per row, with
+    three faults planted on the plain side that the row limit must
+    catch: the cache/block boundary and the causal diagonal one key
+    late, and the fourth key tile (the first to reuse a stage) missing.
+    The library call is one masked SDPA over the gathered cache plus
+    block."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_verify_attention, paged_verify_reference)
+    from repro_torch.models.layers import PagedKV, _gather_dequant
+
+    page, P, pos = PREFIX_PAGE, PREFIX_MAX_LEN // PREFIX_PAGE, PREFIX_LEN
+    NP = PREFIX_REQUESTS * P + 1                 # the passes' pool
+    S = P * page
+    table = (torch.randperm(NP - 1, generator=gen, device=dev)[:P]
+             + 1).to(torch.int32)[None].contiguous()
+    vpos = torch.tensor([pos], dtype=torch.int32, device=dev)
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    sc = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
+          for _ in range(2)]
+    pools = {False: ((kp, vp), {}, (gather_pages(kp, table),
+                                    gather_pages(vp, table)), 2 * 2 * HD),
+             True: (tuple(codes), dict(k_scale=sc[0], v_scale=sc[1]),
+                    _gather_dequant(PagedKV(*codes, *sc), table,
+                                    torch.bfloat16), 2 * (HD + 4))}
+    slots = torch.arange(S, device=dev)
+    tile = 128                                   # keys of a kernel tile
+    for name, (Kb, int8) in PREFIX_VERIFY.items():
+        pool, scales, gathered, kv_bytes = pools[int8]
+        qv = rn(1, Kb, H, HD)
+        bk, bv = rn(1, Kb, HKV, HD), rn(1, Kb, HKV, HD)
+        args = (qv, *pool, bk, bv, table, vpos)
+        got = paged_verify_attention(*args, **scales)
+        torch.cuda.synchronize()
+        ref = paged_verify_reference(*args, **scales)
+        ar = torch.arange(Kb, device=dev)
+        causal = ar[None, :] <= ar[:, None]
+
+        def mask(cache, block):
+            return torch.cat([cache[None, :].expand(Kb, S), block],
+                             dim=-1)[None, None]
+
+        vmask = mask(slots < pos, causal)
+        faults = [("cache/block boundary +1 key", mask(slots < pos + 1,
+                                                       causal)),
+                  ("causal diagonal +1 key",
+                   mask(slots < pos, ar[None, :] <= ar[:, None] + 1)),
+                  ("the fourth key tile missing",
+                   mask((slots < pos) & ((slots < 3 * tile)
+                                         | (slots >= 4 * tile)), causal))]
+        qt = qv.transpose(1, 2)
+        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
+                      for c, b in zip(gathered, (bk, bv)))
+        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
+                          qt, kall, vall, vmask, faults)
+        pairs = Kb * pos + int(causal.sum())
+        nbytes = (2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 + 4 * P
+                  + kv_bytes * pos * HKV)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kall, vall, attn_mask=vmask, enable_gqa=True)
+
+        record(name,
+               "src/repro_torch/kernels/paged_attention/csrc/"
+               "paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
+               time_ms(lambda: paged_verify_attention(*args, **scales),
+                       flush=flush),
+               time_ms(lambda: paged_verify_reference(*args, **scales),
+                       flush=flush),
+               time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
+        log_kernel_time(name,
+                        lambda: paged_verify_attention(*args, **scales),
+                        flush, sdpa)
 
 
 SCAN_D_IN, SCAN_N = 8192, 16        # jamba-v0.1-52b's Mamba scan
@@ -1541,7 +1645,7 @@ def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
     ring routes count apart), and the launches of flash, gmm, the paged
     decode, the scan and the mLSTM at the shapes of their second
-    records."""
+    records, and of the paged verify at the prefix passes' shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1550,7 +1654,12 @@ def _launch_counters() -> dict:
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    return {"flash_attention": lambda: flash_attention.launches,
+    verify_shapes = paged_verify_attention.launches_by_shape
+    counts = {name: functools.partial(verify_shapes.__getitem__,
+                                      prefix_verify_shape(*kq))
+              for name, kq in PREFIX_VERIFY.items()}
+    return {**counts,
+            "flash_attention": lambda: flash_attention.launches,
             "decode_attention": lambda: decode_attention.launches,
             "decode_attention_ring": lambda: decode_attention.launches_ring,
             "paged_decode_attention":
@@ -1742,7 +1851,7 @@ def serving_phase(dev) -> dict:
         "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
                                   outputs["continuous_paged_chunked"])}))
     for extra in (moe_hybrid_pass, xlstm_pass, sharded_local_read_pass,
-                  moe_ep_mesh_pass):
+                  moe_ep_mesh_pass, prefix_pass):
         counts = extra(dev)
         for n in totals:
             totals[n] += counts[n]
@@ -1752,15 +1861,22 @@ def serving_phase(dev) -> dict:
 # records whose launches are a route's or a shape's of a kernel body also
 # carry the body's launches: no engine verifies a tree or a ring yet, so
 # those routes launch no time on the main path; the windowed flash, the
-# down product, the long paged decode and the scan's and mLSTM's serving
-# records count the launches at their record's shape
+# down product, the long paged decode, the scan's and mLSTM's serving
+# records and the prefix passes' verify records count the launches at
+# their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
               "verify_attention_ring": "verify_attention",
               "flash_attention_window": "flash_attention",
               "gmm_down": "gmm",
               "paged_decode_attention_long": "paged_decode_attention",
               "ssm_scan_serving": "ssm_scan",
-              "mlstm_chunk_serving": "mlstm_chunk"}
+              "mlstm_chunk_serving": "mlstm_chunk",
+              "paged_verify_attention_hit": "paged_verify_attention",
+              "paged_verify_attention_hit_int8":
+                  "paged_verify_attention_int8",
+              "paged_verify_attention_chunk": "paged_verify_attention",
+              "paged_verify_attention_chunk_int8":
+                  "paged_verify_attention_int8"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -2256,6 +2372,262 @@ def moe_ep_mesh_pass(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+PREFIX_PAGE = 256
+PREFIX_LEN = 2048            # the shared preamble: 8 pages of 256
+PREFIX_SUFFIX = 32           # each request's own tail
+PREFIX_NEW = 16              # new tokens a request
+PREFIX_REQUESTS = 10
+PREFIX_MAX_LEN = 2304        # 9 pages: the prompt and its new tokens
+PREFIX_BUDGET = 19           # pages of the peak-rows runs: 2 cold rows
+
+
+def prefix_verify_shape(Kb: int, int8: bool) -> tuple:
+    """A ``prefix_*`` pass's paged verify launch as its wrapper's
+    ``launches_by_shape`` counts it, (B, Hkv, G, Kb, P, page, hd, int8):
+    one row over tinyllama-1.1b's 9-page table of 256."""
+    return (1, HKV, H // HKV, Kb, PREFIX_MAX_LEN // PREFIX_PAGE,
+            PREFIX_PAGE, HD, int8)
+
+
+# the paged verify records at those shapes -> (Kb, int8): a one-shot
+# hit's 32-token tail, and a chunked (C=256) pass's chunk
+PREFIX_VERIFY = {"paged_verify_attention_hit": (PREFIX_SUFFIX, False),
+                 "paged_verify_attention_hit_int8": (PREFIX_SUFFIX, True),
+                 "paged_verify_attention_chunk": (PREFIX_PAGE, False),
+                 "paged_verify_attention_chunk_int8": (PREFIX_PAGE, True)}
+
+
+def _prefix_requests(vocab: int) -> list:
+    """``benchmarks/bench_prefix.py``'s traffic: PREFIX_REQUESTS prompts,
+    one shared PREFIX_LEN-token preamble and PREFIX_SUFFIX tokens of
+    their own each."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    pre = rng.integers(0, vocab, (1, PREFIX_LEN))
+    return [np.concatenate([pre, rng.integers(0, vocab, (1, PREFIX_SUFFIX))],
+                           axis=1) for _ in range(PREFIX_REQUESTS)]
+
+
+def _prefix_drive(eng, params, reqs) -> tuple:
+    """The first request alone until its first token (a chunked prompt
+    is indexed only then), then the others as room allows, stepping until
+    every request is done -> (token lists, peak live rows)."""
+    first = eng.admit(params, reqs[0], max_new=PREFIX_NEW)
+    while not first[0].tokens:
+        eng.step(params)
+    gens, pending, peak = list(first), list(reqs[1:]), 1
+    while pending or eng.live_slots():
+        while pending and eng.can_admit(pending[0], PREFIX_NEW):
+            gens += eng.admit(params, pending.pop(0), max_new=PREFIX_NEW)
+        peak = max(peak, eng.live_slots())
+        if eng.live_slots():
+            eng.step(params)
+    return [list(g.tokens) for g in gens], peak
+
+
+def prefix_pass(dev) -> dict:
+    """``prefix_*``: the prefix cache on a full tinyllama-1.1b
+    ``StepEngine`` (paged, page 256, 10 rows, max_len 2304, greedy, bf16
+    weights from a seed) with ``benchmarks/bench_prefix.py``'s traffic:
+    10 requests, a 2048-token shared preamble (8 pages) and a 32-token
+    tail each, 16 new tokens.  The first request is admitted alone; its
+    prompt's 8 whole pages are indexed, and each of the other 9 maps them
+    and runs only its 32-token tail, as one final chunk through the
+    paged verify kernel (B4), on the one-shot engine too.  Served with
+    the cache off and on, one-shot (also int8, fused with
+    ``multi_step=8`` and on ``shards=4`` logical shards) and chunked
+    (C=256, fp and int8, and over ``Mesh((cuda:0,) * 4)`` with local
+    reads, whose decode runs B5).  Required: 9 hits of 8 mapped pages in
+    every prefix pass; B4 launched by the one-shot prefix engine, at the
+    hit's shape (``PREFIX_VERIFY``), and by the chunked engines at the
+    chunk's; the fused and sharded passes bitwise the one-shot prefix
+    pass; each chunked prefix pass bitwise its cold chunked twin (a hit
+    resumes at a page boundary, so its final chunk is the cold one's,
+    over pages the same chunk programs wrote; under local reads its
+    pages lie on its anchor's shard); and a full-prefix hit (the bare
+    preamble, whose last token is recomputed inside a shared page)
+    makes one copy-on-write and leaves every indexed page bitwise as it
+    was, on every leaf.  Logged only: the one-shot hit's greedy agreement with
+    the cold streams (flash prefill and the verify kernel round apart),
+    admit-to-first-token time of a hit and a cold admission (best of 3)
+    and the device kernel time of one of each (``torch.profiler``),
+    decode tokens/s with the cache on and off, and peak admitted rows at
+    a budget of 19 pages, prefix and cold.  -> launch counts of the
+    passes."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, override
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import StepEngine
+
+    cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=7)
+    reqs = _prefix_requests(cfg.vocab_size)
+    base = dict(batch_size=PREFIX_REQUESTS, max_len=PREFIX_MAX_LEN,
+                paged=True, page_size=PREFIX_PAGE)
+    on = dict(prefix_cache=True)
+    chunked = dict(prefill_chunk=PREFIX_PAGE)
+    int8 = dict(quantize_kv="int8")
+    local = dict(mesh=Mesh((dev,) * SHARDS), local_read=True)
+    hit = ("paged_verify_attention", "paged_verify_attention_hit")
+    chunk = ("paged_verify_attention", "paged_verify_attention_chunk")
+    chunk8 = ("paged_verify_attention_int8",
+              "paged_verify_attention_chunk_int8")
+    passes = (              # (label, engine options, kernels it must launch)
+        ("prefix_cold", {}, ("paged_decode_attention",)),
+        ("prefix_on", on, hit),
+        ("prefix_on_multistep", dict(on, multi_step=MULTI_STEP), hit),
+        ("prefix_on_sharded", dict(on, shards=SHARDS), hit),
+        ("prefix_on_int8", dict(on, **int8),
+         ("paged_verify_attention_int8", "paged_verify_attention_hit_int8")),
+        ("prefix_chunked_cold", chunked, chunk),
+        ("prefix_chunked", dict(chunked, **on), chunk),
+        ("prefix_chunked_cold_int8", dict(chunked, **int8), chunk8),
+        ("prefix_chunked_int8", dict(chunked, **on, **int8), chunk8),
+        ("prefix_chunked_local_read_cold", dict(chunked, **local),
+         ("paged_decode_partial",)),
+        ("prefix_chunked_local_read", dict(chunked, **on, **local),
+         ("paged_decode_partial",)))
+    fns = _launch_counters()
+    totals = {n: 0 for n in fns}
+    streams, kept = {}, {}
+    for label, kw, used in passes:
+        eng = StepEngine(model, **base, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, _ = _prefix_drive(eng, params, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: count() for n, count in fns.items()}
+        for n in totals:
+            totals[n] += counts[n]
+        for t in toks:
+            assert len(t) == PREFIX_NEW and all(
+                0 <= x < cfg.vocab_size for x in t), label
+        for name in used:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} was not "
+                                     "launched")
+        sharing = {k: eng.stats[k] for k in (
+            "prefix_hits", "prefix_pages_mapped", "cow_copies",
+            "cache_evictions")}
+        if kw.get("prefix_cache") and (
+                sharing["prefix_hits"], sharing["prefix_pages_mapped"],
+                sharing["cow_copies"]) != (PREFIX_REQUESTS - 1,
+                                           8 * (PREFIX_REQUESTS - 1), 0):
+            raise AssertionError(f"{label}: sharing {sharing}, expected 9 "
+                                 "hits of 8 mapped pages")
+        streams[label] = toks
+        log("serving " + json.dumps({
+            "pass": label, "requests": len(toks),
+            "tokens_per_s": len(toks) * PREFIX_NEW / wall, "wall_s": wall,
+            **sharing, "graph_captures": eng.graph_captures,
+            "launches": counts}))
+        if label in ("prefix_cold", "prefix_on"):
+            kept[label] = eng
+        del eng
+        gc.collect()
+    for label, twin in (("prefix_on_multistep", "prefix_on"),
+                        ("prefix_on_sharded", "prefix_on"),
+                        ("prefix_chunked", "prefix_chunked_cold"),
+                        ("prefix_chunked_int8", "prefix_chunked_cold_int8"),
+                        ("prefix_chunked_local_read",
+                         "prefix_chunked_local_read_cold")):
+        if streams[label] != streams[twin]:
+            raise AssertionError(
+                f"{label}: streams differ from {twin}'s (matching "
+                f"{_matching(streams[label], streams[twin])})")
+        log(f"serving {label}: streams bitwise equal to {twin}'s")
+
+    cold, hot = kept["prefix_cold"], kept["prefix_on"]
+
+    def ttft(eng, req) -> float:
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = eng.admit(params, req, max_new=PREFIX_NEW)[0]
+            best = min(best, time.perf_counter() - t0)   # first token read
+            assert g.tokens
+            eng.drain(params)
+        return best
+
+    def admit_kernel_ms(eng, req):
+        """Device kernel time of one admission (``torch.profiler``: the
+        kernels' own time, host dispatch left out)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.admit(params, req, max_new=PREFIX_NEW)
+            torch.cuda.synchronize()
+        eng.drain(params)
+        per = kernel_us(prof)
+        return sum(per.values()) / 1e3 if per else "not measured"
+
+    def decode_tps(eng) -> float:
+        eng.reset(keep_prefix=True)
+        gens = [eng.admit(params, r, max_new=PREFIX_NEW)[0] for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.drain(params)
+        torch.cuda.synchronize()
+        return sum(len(g.tokens) - 1 for g in gens) / (
+            time.perf_counter() - t0)
+
+    t_cold, t_hit = ttft(cold, reqs[1]), ttft(hot, reqs[1])
+    k_cold, k_hit = admit_kernel_ms(cold, reqs[2]), admit_kernel_ms(
+        hot, reqs[2])
+    tps = {"cold": decode_tps(cold), "prefix": decode_tps(hot)}
+    # copy-on-write: the bare preamble hits all 8 pages, so its last
+    # token (position 2047) is recomputed inside the 8th shared page
+    idx = torch.as_tensor(sorted(hot._prefix.pages()), device=dev)
+    leaves = [t for c in hot.state.caches for t in c if t is not None]
+    before = [t[idx].clone() for t in leaves]
+    cows = hot.stats["cow_copies"]
+    hot.admit(params, reqs[0][:, :PREFIX_LEN], max_new=PREFIX_NEW)
+    hot.drain(params)
+    torch.cuda.synchronize()
+    if hot.stats["cow_copies"] != cows + 1:
+        raise AssertionError("prefix_on: the full-prefix hit made "
+                             f"{hot.stats['cow_copies'] - cows} copies")
+    if not all(torch.equal(b, t[idx]) for b, t in zip(before, leaves)):
+        raise AssertionError("prefix_on: an indexed page changed under a "
+                             "copy-on-write hit")
+    log(f"serving prefix_on: one copy-on-write, {len(idx)} indexed pages "
+        f"bitwise unchanged on all {len(leaves)} leaves")
+    del kept, cold, hot, before, leaves
+    gc.collect()
+    peak = {}
+    for name, kw in (("cold", {}), ("prefix", on)):
+        eng = StepEngine(model, **dict(base, num_pages=PREFIX_BUDGET), **kw)
+        peak[name] = _prefix_drive(eng, params, reqs)[1]
+        del eng
+        gc.collect()
+    log("serving prefix " + json.dumps({
+        "hit_vs_cold_greedy_agreement": _matching(streams["prefix_on"],
+                                                  streams["prefix_cold"]),
+        "int8_hit_vs_fp_hit_agreement": _matching(
+            streams["prefix_on_int8"], streams["prefix_on"]),
+        "chunked_vs_one_shot_agreement": _matching(
+            streams["prefix_chunked"], streams["prefix_on"]),
+        "local_read_vs_global_chunked_agreement": _matching(
+            streams["prefix_chunked_local_read"], streams["prefix_chunked"]),
+        "ttft_s": {"cold": t_cold, "hit": t_hit,
+                   "hit_over_cold": t_hit / t_cold},
+        "admit_kernel_ms": {"cold": k_cold, "hit": k_hit},
+        "decode_tokens_per_s": {**tps,
+                                "prefix_over_cold": tps["prefix"]
+                                / tps["cold"]},
+        "peak_rows_at_19_pages": peak}))
+    return totals
 
 
 # ---------------------------------------------------------------------------

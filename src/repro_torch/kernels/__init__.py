@@ -275,8 +275,8 @@ def reset_launch_counts() -> None:
     paged wrappers count apart, in ``launches_int8``, the paged verify's
     tree route in ``launches_tree``, and the ring routes of the row
     decode and verify wrappers in ``launches_ring``; flash, gmm, the
-    paged decode, the scan and the mLSTM also count by shape, in
-    ``launches_by_shape``)."""
+    paged decode and verify, the scan and the mLSTM also count by shape,
+    in ``launches_by_shape``)."""
     for (fn, attr), v in launch_counts().items():
         if isinstance(v, int):
             setattr(fn, attr, 0)

@@ -10,7 +10,8 @@ A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 ``<wrapper>.launches``.  A verify with a ``tree`` mask counts in
 ``paged_verify_attention.launches_tree`` instead, whatever the pool.
 The decode also counts by shape, (B, Hkv, G, P, page, hd) of each
-launch, in ``.launches_by_shape``.  ``paged_decode_partial``
+launch, in ``.launches_by_shape``, and the verify by (B, Hkv, G, Kb, P,
+page, hd, int8), every route.  ``paged_decode_partial``
 takes one shard's local slice of a sharded bank and the shard's first
 global page id.  The decode and the partial split each (row, kv head)'s
 keys over a cluster of ``kernels.decode_splits`` blocks, by key index as
@@ -175,12 +176,16 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
         paged_verify_attention.launches_int8 += 1
     else:
         paged_verify_attention.launches += 1
+    paged_verify_attention.launches_by_shape[
+        (B, Hkv, G, Kb, P, page, width, quant)] += 1
     return out[..., :hd]
 
 
 paged_verify_attention.launches = 0
 paged_verify_attention.launches_int8 = 0
 paged_verify_attention.launches_tree = 0
+# (B, Hkv, G, Kb, P, page, hd, int8 pool) -> launches at that shape
+paged_verify_attention.launches_by_shape = collections.Counter()
 
 def paged_decode_partial(q, k_pages, v_pages, page_table, pos, base: int,
                          *, scale: float | None = None, k_scale=None,

@@ -22,7 +22,9 @@ Three modes:
     a mesh of N devices only when every shard lies on the model's device
     (``--platform cpu --host-devices N`` makes N logical CPU devices);
     otherwise, on one card or several, the bank shards logically
-    (``serving_mesh``).
+    (``serving_mesh``); ``--prefix-cache`` (with ``--paged``) maps a
+    request's already written whole-page prompt prefix read-only and
+    prefills only its suffix.
   * ``--mode sync`` — the synchronous round-robin loop (the baseline the
     paper compares against).
 
@@ -115,7 +117,7 @@ def request_stream(names, cfgs, n_requests, batch, seq, seed):
 # JAX launcher flags whose features the port does not have yet, with the
 # value that means "off"
 _NOT_PORTED = {"draft": None, "spec_k": 4, "spec_tree": 1,
-               "spec_adaptive": False, "x64": False, "prefix_cache": False}
+               "spec_adaptive": False, "x64": False}
 
 
 def visible_devices(platform: str | None, host_devices: int | None):
@@ -185,6 +187,14 @@ def main(argv=None) -> int:
                          "when every shard lies on the model's device "
                          "(--platform cpu --host-devices N); otherwise it "
                          "shards logically")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged mode: share already written prompt pages "
+                         "across admissions — a request whose prompt "
+                         "starts with a cached whole-page run maps those "
+                         "pages read-only and prefills only the "
+                         "divergent suffix (copy-on-write on the "
+                         "boundary page); cached pages are evicted "
+                         "LRU-first under page pressure")
     ap.add_argument("--host-devices", type=int, default=None,
                     metavar="N",
                     help="with --platform cpu: N logical CPU devices, for "
@@ -217,8 +227,6 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-adaptive", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     asked = ["--" + k.replace("_", "-") for k, off in _NOT_PORTED.items()
              if getattr(args, k) != off]
@@ -236,6 +244,9 @@ def main(argv=None) -> int:
     if args.quantize_kv != "none" and not args.paged:
         ap.error("--quantize-kv targets the shared page pool: it requires "
                  "--paged")
+    if args.prefix_cache and not args.paged:
+        ap.error("--prefix-cache shares pages of the pooled bank: it "
+                 "requires --paged")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
 
     names = args.archs.split(",")
@@ -275,7 +286,8 @@ def main(argv=None) -> int:
                          quantize_kv=(None if args.quantize_kv == "none"
                                       else args.quantize_kv),
                          shards=args.shards, mesh=mesh,
-                         multi_step=args.multi_step))
+                         multi_step=args.multi_step,
+                         prefix_cache=args.prefix_cache))
         with sched_cls(server) as sched:
             futs = [(sched.submit(n, t, steps=args.steps),
                      time.perf_counter()) for n, t in reqs]

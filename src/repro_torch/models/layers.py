@@ -606,3 +606,23 @@ def insert_pages(cache: PagedKV, rows: KVCache, tables) -> PagedKV:
     cache.k[t] = kr.to(cache.k.dtype)
     cache.v[t] = vr.to(cache.v.dtype)
     return cache
+
+
+def copy_pages(cache: PagedKV, src, dst) -> PagedKV:
+    """Page copy on the device, IN PLACE: ``pool[dst[i]] = pool[src[i]]``
+    for every leaf of the pool (codes AND scales of an int8 pool -- a
+    byte copy, never a re-quantization).  src/dst: (n,) page ids.
+
+    This is the copy-on-write primitive of prefix sharing: a request
+    whose first write would land in a shared page gets a private copy of
+    that page BEFORE the write, so shared pages are never mutated and
+    every reader keeps seeing bitwise the values its cold admission
+    would have produced.  Plain indexing (``index_select`` then
+    ``index_copy_``), stream-ordered before the next program that reads
+    the pool."""
+    src = torch.as_tensor(src, device=cache.k.device).long()
+    dst = torch.as_tensor(dst, device=cache.k.device).long()
+    for pool in cache:
+        if pool is not None:
+            pool.index_copy_(0, dst, pool.index_select(0, src))
+    return cache

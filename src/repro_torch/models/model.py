@@ -413,6 +413,16 @@ class LM:
             layers.insert_pages(c, r, tables)
         return caches
 
+    def copy_cache_pages(self, caches, src, dst):
+        """Copy-on-write support, in place: duplicate pool pages ``src[i]``
+        into ``dst[i]`` in every layer's pool (all leaves -- int8 codes
+        and their scales move together).  The page table is shared by
+        the layers, so one (src, dst) pair names the same position range
+        in every pool; nothing outside ``dst`` changes."""
+        for c in caches:
+            layers.copy_pages(c, src, dst)
+        return caches
+
     def decode_step_pages(self, params, caches, tokens, pos, tables,
                           live=None, shard=None, commit=None):
         """One decode step against the shared page pool.  tokens: (B, 1)

@@ -42,13 +42,13 @@ from repro_torch import kernels
 from repro_torch.core.env import synchronize
 from repro_torch.distributed.mesh import shard_count
 from repro_torch.models.model import LM
-from repro_torch.serve.pool import (Generation, PagePool, ShardedPagePool,
-                                    SlotPool)
+from repro_torch.serve.pool import (Generation, PagePool, PrefixIndex,
+                                    SharedBank, ShardedPagePool, SlotPool)
 from repro_torch.serve.telemetry import Telemetry, safe_ratio
 
 __all__ = ["DecodeState", "EngineKey", "Generation", "GumbelDraws",
-           "PagePool", "ServeStats", "ServingEngine", "ShardedPagePool",
-           "SlotPool", "StepEngine"]
+           "PagePool", "PrefixIndex", "ServeStats", "ServingEngine",
+           "SharedBank", "ShardedPagePool", "SlotPool", "StepEngine"]
 
 _M64 = (1 << 64) - 1
 
@@ -144,6 +144,8 @@ class EngineKey(NamedTuple):
     prefill_chunk: Optional[int] = None
     page_size: Optional[int] = None     # None == row layout (paged off)
     quantize_kv: Optional[str] = None
+    prefix_cache: bool = False
+    shared_bank: bool = False           # pages/prefixes from a SharedBank
     shards: int = 1                     # page-bank shards (1 == unsharded)
     multi_step: int = 1                 # fused decode steps per tick
 
@@ -212,7 +214,16 @@ class _PendingPrefill:
     rseeds: np.ndarray                    # (b,) int64 per-row seeds
     seeded: np.ndarray                    # (b,) bool
     done: int = 0                         # prompt tokens already chunked
+    #                                       (starts at the first divergent
+    #                                       token on a prefix hit)
     tables: Optional[np.ndarray] = None   # (b, P) page tables (paged mode)
+    cow: Optional[tuple] = None           # (src, dst) page pair to copy
+    #                                       before the first chunk write;
+    #                                       src holds a pool reference
+    #                                       (dropped when the copy runs)
+    hit: bool = False                     # admitted through a prefix hit
+    mapped: int = 0                       # shared pages mapped read-only
+    had_cow: bool = False                 # plan included a boundary copy
     started: bool = False                 # first chunk has executed
     #                                       (admit-to-first-chunk latency)
 
@@ -227,6 +238,13 @@ def _tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensors(v)
+
+
+def _mapped(plan) -> list:
+    """The pages a prefix plan maps or copies from: never evicted to make
+    room for the plan's own fresh pages."""
+    retained, cow_src, _, _ = plan
+    return retained + ([cow_src] if cow_src is not None else [])
 
 
 class _TickGraph:
@@ -261,9 +279,6 @@ class _TickGraph:
         self.inp.copy_(self.inp_host, non_blocking=True)
         if gumbel is not None:
             self.gumbel.copy_(gumbel)
-
-
-_NOT_PORTED = ("prefix_cache", "bank")
 
 
 class StepEngine(SlotPool):
@@ -335,8 +350,36 @@ class StepEngine(SlotPool):
     prompt is pending the engine single-steps, so the prompt keeps its
     one chunk per tick.
 
-    The JAX engine's other options — ``prefix_cache``, ``bank`` — are not
-    ported yet and raise ``NotImplementedError``.
+    ``prefix_cache=True`` (paged only) shares already written prompt
+    pages across admissions: every completed prompt's whole pages are
+    indexed by their token runs (``PrefixIndex``), and a single-row
+    admission whose prompt starts with an indexed run maps those page ids
+    into its table -- refcounted, read-only -- and prefills only from the
+    first divergent token, as one final chunk (``_chunk_fn``, the paged
+    verify route), on one-shot engines too.  A full-prefix hit recomputes
+    just the last prompt token; that write would land in a *shared*
+    page, so the engine copies that one boundary page first
+    (``LM.copy_cache_pages``): shared pages are never written.  Retired
+    prompts' pages stay cached at refcount 1; when an admission is short
+    of pages, ``can_admit`` evicts them LRU-first (leaves before their
+    parents) until it fits.  Multi-row admissions stay cold but index
+    their prompts.  int8 pools index under their own namespace.  Hit
+    streams are bitwise a cold admission's where both compute the same
+    numbers: chunked engines, and one-shot fp engines on the CPU.  A
+    one-shot cold admission runs flash prefill over the prompt's own
+    full-precision k/v, a hit's suffix the verify kernel over the pool,
+    which round apart on the card and, on an int8 pool, by int8 rounding
+    (as in the JAX engine).  Counters
+    ``prefix_hits``, ``prefix_pages_mapped``, ``cow_copies`` and
+    ``cache_evictions`` go to the engine's registry view.
+
+    ``bank=SharedBank(...)`` (paged only) allocates from a bank that
+    several engines share (``SwitchableServer.shared_bank``): its pool
+    (and its sharding), its prefix index and its device caches.  The
+    programs write the caches in place, so every engine over the bank
+    holds the same tensors at the same addresses; nothing is handed
+    back and forth between calls (the JAX engine's ``_bank_pull`` /
+    ``_bank_push`` exist because its jitted calls donate buffers).
     """
 
     def __init__(self, model: LM, batch_size: int, max_len: int,
@@ -349,16 +392,10 @@ class StepEngine(SlotPool):
                  prefill_chunk: Optional[int] = None,
                  admit_jump_limit: int = 4, multi_step: int = 1,
                  quantize_kv: Optional[str] = None,
-                 prefix_cache: bool = False, bank=None,
+                 prefix_cache: bool = False,
+                 bank: Optional[SharedBank] = None,
                  shards: Optional[int] = None, mesh=None,
                  local_read: bool = False):
-        unported = dict(prefix_cache=bool(prefix_cache),
-                        bank=bank is not None)
-        asked = [k for k in _NOT_PORTED if unported[k]]
-        if asked:
-            raise NotImplementedError(
-                f"StepEngine option(s) {asked} are not yet ported to "
-                "repro_torch")
         if multi_step < 1:
             raise ValueError(f"multi_step must be >= 1, got {multi_step}")
         self.multi_step = multi_step
@@ -406,6 +443,7 @@ class StepEngine(SlotPool):
         if mesh is not None and shards not in (None, mesh.size):
             raise ValueError(f"shards={shards} disagrees with the mesh's "
                              f"{mesh.size} shards")
+        shards_asked = shards is not None or mesh is not None
         shards = shard_count(shards, mesh)
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
@@ -425,6 +463,10 @@ class StepEngine(SlotPool):
         self.num_shards = shards
 
         self.paged = paged
+        if bank is not None and not paged:
+            raise ValueError(
+                "a shared bank IS a page pool: it needs paged=True")
+        self._bank = bank
         if paged:
             model._require_paged_support()   # all-attention, non-ring
             page_size = min(page_size, max_len)
@@ -436,6 +478,24 @@ class StepEngine(SlotPool):
                     "cache elementwise for the identity guarantees)")
             self.page_size = page_size
             self.pages_per_row = max_len // page_size
+        if paged and bank is not None:
+            # the bank's creator sized AND sharded the pool; this engine
+            # allocates from it beside the bank's other engines
+            bank_shards = bank.pool.num_shards
+            if shards_asked and shards != bank_shards:
+                raise ValueError(
+                    f"shards={shards} but the shared bank's pool has "
+                    f"{bank_shards} shard(s) — the bank's creator fixes "
+                    "the sharding")
+            self.num_shards = bank_shards
+            if bank.pool.total_pages - bank_shards < self.pages_per_row:
+                raise ValueError(
+                    f"shared bank of {bank.pool.total_pages} pages cannot "
+                    f"hold one worst-case row ({self.pages_per_row} pages) "
+                    "plus the reserved park page(s)")
+            self.num_pages = bank.pool.total_pages
+            self._pages = bank.pool
+        elif paged:
             if num_pages is None:
                 # capacity parity with the row layout: every slot can
                 # always hold a worst-case row, split evenly across
@@ -464,6 +524,25 @@ class StepEngine(SlotPool):
             self.pages_per_row = 0
             self.num_pages = 0
             self._pages = None
+        if prefix_cache and not paged:
+            raise ValueError(
+                "prefix_cache shares pages of the pooled bank: it needs "
+                "paged=True (the row cache has nothing to share)")
+        self.prefix_cache = prefix_cache
+        # int8 codes are a lossy function of the same source tokens:
+        # namespacing keeps fp16 and int8 entries from ever cross-matching
+        if not prefix_cache:
+            self._prefix = None
+        elif bank is not None:
+            # one index per bank: prefixes another engine of this bank
+            # indexed are hits here -- the pages are the same pool
+            if bank.index is None:
+                bank.index = PrefixIndex(self.page_size,
+                                         namespace=quantize_kv or "fp16")
+            self._prefix = bank.index
+        else:
+            self._prefix = PrefixIndex(self.page_size,
+                                       namespace=quantize_kv or "fp16")
 
         # Execution hook: when set, every device program runs as
         # ``runner(fn, params, *args)`` — the continuous scheduler points
@@ -473,25 +552,65 @@ class StepEngine(SlotPool):
 
         self.state: Optional[DecodeState] = None
         self._pool_init(batch_size, telemetry=telemetry)
+        if paged:
+            # prefix-cache counters (0 with the cache off): benches and
+            # the scheduler's snapshot read them engine-lifetime
+            self.stats.update(prefix_hits=0, prefix_pages_mapped=0,
+                              cow_copies=0, cache_evictions=0)
         self.reset()
 
     # ------------------------------------------------------------- lifecycle
-    def reset(self, seed: Optional[int] = None):
+    def reset(self, seed: Optional[int] = None, keep_prefix: bool = False):
         """Empty pool + restarted draw schedule.  Cache buffers are reused
         when they exist: a freed slot's stale row is dead weight that the
         next admission overwrites in full (a freed page is rewritten
         before any of its positions is read), so only the first reset
-        pays the allocation."""
+        pays the allocation.
+
+        ``keep_prefix=True`` carries the prefix cache across the reset:
+        the index is snapshotted before the allocator clears and, since
+        the cache tensors survive, its pages are re-adopted from the
+        fresh free-list afterwards, so the first admission of a cached
+        prompt after the reset still hits.  The first reset allocates
+        zeroed caches and keeps nothing.  An engine over a shared bank
+        releases only its own rows' pages: the pool, the index and the
+        caches keep serving the bank's other engines."""
         B = self.batch_size
-        if self._pages is not None:
+        snap = None
+        if keep_prefix and self._bank is None and self._prefix is not None:
+            snap = self._prefix.snapshot()
+        if self._bank is not None:
+            own = []
+            for g in self.slots:
+                if g is not None and g.pages:
+                    own += g.pages
+                    g.pages = None
+            for ps in self._pending:
+                if ps.cow is not None:      # the deferred copy's pin
+                    own.append(ps.cow[0])
+                    ps.cow = None
+                for g in ps.gens:
+                    if g.pages:
+                        own += g.pages
+                        g.pages = None
+            if own:
+                self._pages.release(own)
+        elif self._pages is not None:
             self._pages.reset()
+        if self._bank is None and self._prefix is not None:
+            self._prefix.clear()     # its pages just left the allocator
         caches = self.state.caches if self.state is not None else None
-        if caches is None:
+        if self._bank is not None and self._bank.caches is not None:
+            caches = self._bank.caches
+        rebuilt = caches is None
+        if rebuilt:
             caches = (self.model.init_page_pool(
                           self.num_pages, self.page_size,
                           quantized=self.quantize_kv is not None)
                       if self.paged else
                       self.model.init_cache(B, self.max_len))
+        if self._bank is not None:
+            self._bank.caches = caches
         table = np.zeros((B, self.pages_per_row), np.int32)
         table_dev = None
         if self.paged:
@@ -514,6 +633,29 @@ class StepEngine(SlotPool):
         self._pool_reset()
         self._pending.clear()
         self._jumps = 0
+        if snap is not None and not rebuilt:
+            # the cache tensors survived the reset: the snapshot's pages
+            # still hold their token runs, so re-adopt them from the fresh
+            # free-list (refcount 1 each, LRU recency kept)
+            self._prefix.restore(snap, self._pages.adopt)
+
+    def export_prefix_index(self) -> Optional[dict]:
+        """Host-side snapshot of the prefix index: which pool pages hold
+        which token runs (the bank keeps the k/v bytes), so an engine over
+        the SAME bank content can re-adopt them
+        (``restore_prefix_index``).  ``None`` with the cache off."""
+        return None if self._prefix is None else self._prefix.snapshot()
+
+    def restore_prefix_index(self, snap: dict) -> list[int]:
+        """Re-adopt a snapshot's cached pages into this engine's index:
+        every page still on the free-list is claimed back at refcount 1
+        with its LRU recency; entries whose page was handed out meanwhile
+        drop out with their subtrees (their bytes are someone else's
+        now).  -> the page ids adopted."""
+        if self._prefix is None:
+            raise ValueError("prefix_cache is off: nothing to restore "
+                             "into")
+        return self._prefix.restore(snap, self._pages.adopt)
 
     def _shard_arg(self):
         """``(mesh, axis)`` under local reads (the paged programs then
@@ -547,11 +689,165 @@ class StepEngine(SlotPool):
         tokens = np.asarray(tokens)
         b, S = (1, tokens.shape[0]) if tokens.ndim == 1 else tokens.shape
         npages = self.pages_needed(S, max_new)
-        # "shard_pages": the pool has room, just not on the shard the
-        # request routes to (sharded pools only)
-        block = self._pages.blocked_rows(b, npages)
+        plan = None
+        if self.prefix_cache and b == 1:
+            plan = self._prefix_plan(tokens.reshape(1, S), max_new,
+                                     peek=True)
+        block = self._admit_block(b, npages, plan)
+        if block is not None:
+            # under pressure the cache gives memory back before admission
+            # is refused: refcount-1 cached pages (no live table maps
+            # them) leave LRU-first until the request fits or nothing
+            # evictable is left -- never the pages this very request is
+            # about to map.  A shard-local shortage ("shard_pages")
+            # scopes eviction to the routed shard: freeing elsewhere
+            # cannot help the shard the request must land on.
+            if plan is not None:
+                self._make_room(block, plan[3], self._route_prefix(plan),
+                                _mapped(plan))
+            else:
+                self._make_room(block, b * npages, self._pages.route(npages))
+            block = self._admit_block(b, npages, plan)
         self.last_admit_block = block
         return block is None
+
+    def _admit_block(self, b: int, npages: int, plan) -> Optional[str]:
+        """Why the next admission would fail on pages: ``None`` (it fits),
+        ``"pages"`` (the pool is short) or ``"shard_pages"`` (the routed
+        shard is short though the pool is not -- sharded pools only)."""
+        if plan is not None:
+            return self._pages.blocked(plan[3],
+                                       shard=self._route_prefix(plan))
+        if b == 1:
+            return self._pages.blocked(npages)
+        return self._pages.blocked_rows(b, npages)
+
+    def _route_prefix(self, plan) -> Optional[int]:
+        """Locality routing for a prefix hit: the row's fresh pages land
+        on the shard that holds the matched pages (the CoW boundary page
+        when there is one -- its copy must lie beside its source under
+        local reads).  ``None`` (route freely) when nothing anchors the
+        hit or the pool has one shard."""
+        if self._pages.num_shards == 1:
+            return None
+        retained, cow_src, _, _ = plan
+        anchor = cow_src if cow_src is not None else (
+            retained[-1] if retained else None)
+        return None if anchor is None else self._pages.shard_of(anchor)
+
+    # -------------------------------------------------------- prefix cache
+    def _reclaim(self, deficit: int, protect=(),
+                 shard: Optional[int] = None) -> int:
+        """Evict up to ``deficit`` cached prefix pages (LRU leaves first;
+        only refcount-1 pages, held by nothing but the index) back into
+        the free-list.  ``shard`` scopes eviction to that shard's pages.
+        -> the pages reclaimed."""
+        if self._prefix is None or deficit <= 0:
+            return 0
+        keep = set(protect)
+
+        def _evictable(p):
+            if p in keep or self._pages.refcount(p) != 1:
+                return False
+            return shard is None or self._pages.shard_of(p) == shard
+
+        evicted = self._prefix.evict_lru(deficit, _evictable)
+        if evicted:
+            self._pages.release(evicted)
+            self._pages.note_reclaimed(evicted)
+            self.stats["cache_evictions"] += len(evicted)
+            if self._trace.enabled:
+                self._trace.instant(
+                    "page-reclaim", f"{self.telemetry.prefix}eng",
+                    args={"evicted": len(evicted)})
+        return len(evicted)
+
+    def _make_room(self, block: Optional[str], need: int,
+                   shard: Optional[int], protect=()) -> None:
+        """Evict before a take that ``block`` (a ``blocked`` answer) says
+        would fail: a shard-local shortage (``"shard_pages"``) evicts on
+        ``shard`` until ``need`` pages fit there, a pool-wide one anywhere
+        until they fit in the pool; ``protect`` is never evicted."""
+        if block == "shard_pages" and shard is not None:
+            self._reclaim(need - self._pages.shard_free(shard),
+                          protect=protect, shard=shard)
+        elif block is not None:
+            self._reclaim(need - self._pages.free_pages(), protect=protect)
+
+    def _prefix_plan(self, tokens, max_new: int, peek: bool = False):
+        """The longest indexed whole-page prefix of a single-row prompt
+        -> ``(retained, cow_src, d, owned)``, or ``None`` (a miss, the
+        cache off, or several rows).  ``retained``: the page ids mapped
+        read-only; ``d``: where prefill resumes (the first divergent
+        token, at most S-1 -- the last prompt token is always recomputed,
+        for the logits that sample the first token); ``cow_src``: the
+        shared boundary page to copy when ``d`` lands inside it;
+        ``owned``: the fresh pages still to allocate (the CoW destination
+        among them).  ``peek`` leaves the index's recency as it is: a
+        capacity probe must not bump it, the ``admit`` that follows
+        does."""
+        if self._prefix is None or tokens.shape[0] != 1:
+            return None
+        b, S = tokens.shape
+        hit = self._prefix.lookup(tokens[0], peek=peek)
+        if not hit:
+            return None
+        ps = self.page_size
+        d = min(len(hit) * ps, S - 1)
+        retained = hit[:d // ps]
+        cow_src = hit[d // ps] if d < len(hit) * ps else None
+        owned = self.pages_needed(S, max_new) - len(retained)
+        return retained, cow_src, d, owned
+
+    def _take_prefix_pages(self, plan, S: int, max_new: int):
+        """A prefix-hit row's table: the matched pages mapped read-only
+        (one pool reference each), fresh pages for the rest -- the first
+        fresh page is the CoW destination when the plan has one.  The
+        CoW *source* takes a pool reference too, though it never enters
+        the table: the copy may run later (chunked admission defers it to
+        the first chunk tick), and without the pin an interleaved
+        admission's ``_reclaim`` could find it at refcount 1 once its
+        owner retired, evict it and recycle its storage before the copy
+        reads it.  The pin drops when the copy runs (or on the failure
+        paths).  -> (table (1, P), pages in table order, fresh)."""
+        retained, cow_src, d, owned = plan
+        shard = self._route_prefix(plan)
+        self._make_room(self._pages.blocked(owned, shard=shard), owned,
+                        shard, _mapped(plan))
+        fresh = self._pages.take(owned, shard=shard)   # raises if short
+        self._pages.acquire(retained)
+        if cow_src is not None:
+            self._pages.acquire([cow_src])       # pinned until the copy
+        npages = len(retained) + owned
+        table = np.full((1, self.pages_per_row), PagePool.PARK, np.int32)
+        table[0, :len(retained)] = retained
+        table[0, len(retained):npages] = fresh
+        return table, retained + fresh, fresh
+
+    def _drop_prefix_pages(self, plan, fresh):
+        """Failed prefix-hit admission: the fresh pages go back to the
+        FRONT in their original order (a retry draws them again), the
+        mapped references drop (the index still pins those pages) and so
+        does the CoW source's pin."""
+        retained, cow_src, _, _ = plan
+        self._pages.restore(fresh)
+        self._pages.release(retained)
+        if cow_src is not None:
+            self._pages.release([cow_src])
+
+    def _index_prompt(self, tokens_row, pages):
+        """Index one row's *fully written* prompt pages -- called only once
+        its prefill is done, so every indexed page holds its whole token
+        run and is never written again (the owner's later writes are
+        decode tokens at positions >= S).  The partly filled last prompt
+        page never enters.  The index takes one pool reference per page
+        it newly adopted; runs already indexed keep their first writer's
+        page."""
+        if self._prefix is None or pages is None:
+            return
+        n = len(tokens_row) // self.page_size
+        if n:
+            self._pages.acquire(self._prefix.insert(tokens_row, pages[:n]))
 
     # ------------------------------------------------------ page allocation
     def _take_pages(self, b: int, S: int, max_new: int):
@@ -560,9 +856,15 @@ class StepEngine(SlotPool):
         their pages one after another -- on a sharded pool each routes to
         the least-loaded shard at its turn, as ``blocked_rows`` prices --
         and a mid-batch shortage gives the earlier rows' pages back, so
-        the caller sees one atomic failure.  Returns (tables, flat page
-        list for failure restore)."""
+        the caller sees one atomic failure.  With the prefix cache on, a
+        shortage first evicts cached pages (a shard-local one up to one
+        row's worth on the shard the next row routes to).  Returns
+        (tables, flat page list for failure restore)."""
         npages = self.pages_needed(S, max_new)
+        if self.prefix_cache:
+            blk = self._pages.blocked_rows(b, npages)
+            self._make_room(blk, npages if blk == "shard_pages"
+                            else b * npages, self._pages.route(npages))
         taken: list[list[int]] = []
         tables = np.full((b, self.pages_per_row), PagePool.PARK, np.int32)
         try:
@@ -576,18 +878,25 @@ class StepEngine(SlotPool):
             raise
         return tables, [p for rows in taken for p in rows]
 
-    def _reserve(self, b: int, S: int, max_new: int):
-        """Take b slots and, paged, their pages -> (slots, tables or
-        None, flat page list); on a shortage nothing stays taken."""
+    def _reserve(self, b: int, S: int, max_new: int, plan=None):
+        """Take b slots and, paged, their pages (a prefix hit's ``plan``:
+        its mapped and fresh pages) -> (slots, tables or None, flat page
+        list, the hit's fresh pages); on a shortage nothing stays
+        taken."""
         slots = self._take_slots(b)
         if not self.paged:
-            return slots, None, []
+            return slots, None, [], []
         try:
-            tables, pages = self._take_pages(b, S, max_new)
+            if plan is not None:
+                tables, pages, fresh = self._take_prefix_pages(
+                    plan, S, max_new)
+            else:
+                tables, pages = self._take_pages(b, S, max_new)
+                fresh = []
         except BaseException:
             self._restore_slots(slots)
             raise
-        return slots, tables, pages
+        return slots, tables, pages, fresh
 
     def _hand_pages(self, gens, pages, S: int, max_new: int) -> None:
         """Record each generation's own pages (released on retire)."""
@@ -684,6 +993,14 @@ class StepEngine(SlotPool):
         st.rseed[slots] = rseeds
         st.seeded[slots] = seeded
         return first
+
+    def _copy_fn(self, params, src, dst):
+        """Copy-on-write: duplicate pool pages ``src`` -> ``dst`` in every
+        layer BEFORE the diverging row's first write, in place
+        (``params`` is unused; it keeps the runner's ``fn(params,
+        *args)`` convention)."""
+        del params
+        self.model.copy_cache_pages(self.state.caches, src, dst)
 
     def _step_fn(self, params, live):
         """One decode step for the whole batch; ``live`` ((B,) bool) rows
@@ -868,10 +1185,17 @@ class StepEngine(SlotPool):
         if S + max_new > self.max_len:
             raise ValueError(f"prompt {S} + {max_new} new tokens exceeds "
                              f"max_len {self.max_len}")
+        plan = (self._prefix_plan(tokens, max_new) if self.prefix_cache
+                else None)
         if self.prefill_chunk is not None:
             return self._admit_chunked(tokens, max_new, metas, rseeds,
-                                       seeded, submitted_at=submitted_at)
-        slots, tables, pages = self._reserve(b, S, max_new)
+                                       seeded, plan=plan,
+                                       submitted_at=submitted_at)
+        if plan is not None:
+            return self._admit_prefix_hit(params, tokens, max_new, metas,
+                                          rseeds, seeded, plan,
+                                          submitted_at=submitted_at)
+        slots, tables, pages, _ = self._reserve(b, S, max_new)
         try:
             first = self._call(self._admit_fn, params, tokens,
                                np.asarray(slots, np.int64), tables, rseeds,
@@ -884,6 +1208,9 @@ class StepEngine(SlotPool):
         gens = self._register(slots, S, max_new, metas, first=first,
                               submitted_at=submitted_at)
         self._hand_pages(gens, pages, S, max_new)
+        if self.paged:
+            for i, g in enumerate(gens):
+                self._index_prompt(tokens[i], g.pages)
         if self._retire_done(gens):
             # a slot freed with no step in between (steps==1 / EOS at
             # admission): advance the draws so a same-boundary
@@ -891,8 +1218,61 @@ class StepEngine(SlotPool):
             self._salt_admit_key()
         return gens
 
+    def _admit_prefix_hit(self, params, tokens, max_new: int, metas,
+                          rseeds, seeded, plan,
+                          submitted_at=None) -> list[Generation]:
+        """One-shot admission on a prefix hit: the matched pages map
+        read-only into the new row's table, the boundary page is copied
+        when the divergence lands inside one (BEFORE any write -- shared
+        pages are never mutated), and only the prompt's un-cached suffix
+        runs, as ONE final chunk (``_chunk_fn`` at the suffix's width).
+        The chunk samples under the one-shot admission draw, and the
+        shared pages hold the k/v this prompt's own prefill would write
+        (same tokens, same positions), so the stream is a cold
+        admission's, bitwise where both run the same device route."""
+        b, S = tokens.shape
+        retained, cow_src, d, owned = plan
+        slots, table, pages, fresh = self._reserve(b, S, max_new, plan)
+        try:
+            if cow_src is not None:
+                self._call(self._copy_fn, params, [cow_src], [fresh[0]])
+            self._set_tables(slots, table)
+            first = self._call(
+                self._chunk_fn, params,
+                np.ascontiguousarray(tokens[:, d:], dtype=np.int32),
+                np.full((b,), d, np.int32), np.asarray(slots, np.int64),
+                table, (np.full((b,), S - d, np.int32), rseeds, seeded))
+        except BaseException:
+            self._restore_slots(slots)
+            self._drop_prefix_pages(plan, fresh)
+            raise
+        if cow_src is not None:
+            self._pages.release([cow_src])       # copy done: pin drops
+        gens = self._register(slots, S, max_new, metas, first=first,
+                              submitted_at=submitted_at)
+        gens[0].pages = pages
+        self._index_prompt(tokens[0], pages)
+        # counters only once the admission committed: a failed program
+        # rolls pages and slots back and leaves the stats alone
+        self._note_hit(gens[0], len(retained), cow_src is not None)
+        if self._retire_done(gens):
+            self._salt_admit_key()
+        return gens
+
+    def _note_hit(self, g: Generation, mapped: int, cow: bool) -> None:
+        """A committed prefix-hit admission: its counters and its
+        ``prefix-hit:<rid>`` trace instant."""
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_pages_mapped"] += mapped
+        if cow:
+            self.stats["cow_copies"] += 1
+        if self._trace.enabled:
+            self._trace.instant(
+                f"prefix-hit:{g.rid}", f"{self.telemetry.prefix}eng",
+                args={"mapped": mapped, "cow": cow})
+
     def _admit_chunked(self, tokens, max_new, metas, rseeds, seeded,
-                       submitted_at=None) -> list[Generation]:
+                       plan=None, submitted_at=None) -> list[Generation]:
         """Reserve slots (and pages) and queue the prompt for chunked
         prefill.  The reserved rows park at the LAST cache slot: every
         decode step still writes a (garbage) k/v for every row, and slot
@@ -902,7 +1282,15 @@ class StepEngine(SlotPool):
         route the reserved rows' writes to the park page, and the final
         chunk's row needs its table at the next step."""
         b, S = tokens.shape
-        slots, tables, pages = self._reserve(b, S, max_new)
+        slots, tables, pages, fresh = self._reserve(b, S, max_new, plan)
+        done, cow = 0, None
+        if plan is not None:
+            # prefix hit: the matched pages map read-only, chunking
+            # resumes at the first divergent token, and the boundary page
+            # (if any) is copied right before the first chunk
+            done = plan[2]
+            if plan[1] is not None:
+                cow = (plan[1], fresh[0])
         if self.paged:
             self._set_tables(slots, tables)
         self.state.pos[slots] = self.max_len - 1
@@ -911,7 +1299,10 @@ class StepEngine(SlotPool):
         self._hand_pages(gens, pages, S, max_new)
         self._pending.append(_PendingPrefill(
             tokens=np.asarray(tokens, np.int32), gens=gens, rseeds=rseeds,
-            seeded=seeded, tables=tables))
+            seeded=seeded, done=done, tables=tables, cow=cow,
+            hit=plan is not None,
+            mapped=len(plan[0]) if plan is not None else 0,
+            had_cow=cow is not None))
         return gens
 
     def _promote_pending(self):
@@ -972,6 +1363,15 @@ class StepEngine(SlotPool):
         pos = np.full((b,), start, np.int32)
         t0 = self.telemetry.clock()
         try:
+            if ps.cow is not None:
+                # copy-on-write the shared boundary page BEFORE this
+                # request's first write lands in it; then the
+                # admission-time pin on the source drops (the index still
+                # holds its own reference)
+                src, dst = ps.cow
+                self._call(self._copy_fn, params, [src], [dst])
+                ps.cow = None
+                self._pages.release([src])
             if end < S:
                 self._call(self._chunk_fn, params, chunk, pos, slots,
                            ps.tables)
@@ -986,6 +1386,10 @@ class StepEngine(SlotPool):
             # so the pool keeps serving (the caller fails the futures).
             # Pages restore in ONE call, in their original take order.
             self._pending.popleft()
+            if ps.cow is not None:
+                # the deferred copy never ran: drop the source's pin, the
+                # page goes back to being plain index-cached (evictable)
+                self._pages.release([ps.cow[0]])
             pages = []
             for g in ps.gens:
                 self.slots[g.slot] = None
@@ -997,12 +1401,22 @@ class StepEngine(SlotPool):
             raise
         self._pending.popleft()
         self._note_chunk(ps, t0, start, end, final=True)
+        if ps.hit:
+            # counters only once the hit committed (its final chunk
+            # sampled): an abandoned admission rolled its pages back
+            self._note_hit(ps.gens[0], ps.mapped, ps.had_cow)
         now = self.telemetry.clock()
         for i, g in enumerate(ps.gens):
             g.tokens.append(int(first[i]))
             self._live[g.slot] = True
             self.stats["tokens_out"] += 1
             self._note_first_token(g, now)
+        if self.paged:
+            # the prompt is fully written now: its whole pages become
+            # indexable (BEFORE retirement, so an instant retire still
+            # fills the cache -- the index's reference outlives the row)
+            for i, g in enumerate(ps.gens):
+                self._index_prompt(ps.tokens[i], g.pages)
         finished = self._retire_done(ps.gens)
         if finished:
             self._salt_admit_key()

@@ -27,11 +27,13 @@ Pool invariants:
     ``self.sampler`` (``repro_torch.serve.sampling``) get
     ``_salt_admit_key`` (the instant-retire salt) for free.
 
-``ShardedPagePool`` splits the page bank into equal per-shard slices
-with one free-list each (the JAX package's, without its refcounts).
-The JAX package's refcounted prefix sharing (``PrefixIndex``, with
-``PagePool.adopt``/``acquire``) and cross-engine ``SharedBank`` are not
-ported yet, so every allocated page here has exactly one owner.
+``PagePool`` refcounts its pages, so one page can be mapped into
+several tables (prefix sharing); ``ShardedPagePool`` splits the page
+bank into equal per-shard slices with one free-list each.
+``PrefixIndex`` maps whole-page token runs of written prompts to the
+pages holding them, and ``SharedBank`` puts one pool, one index and one
+set of device caches behind every engine serving the same cache
+content.  Page choices are the JAX package's, call for call.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ class Generation:
 
 
 class PagePool:
-    """Host-side page allocator over one shared device KV page bank.
+    """Host-side *refcounted* page allocator over one shared device KV
+    page bank.
 
     The device side is one ``layers.PagedKV`` pool of ``total_pages``
     pages per layer; this class hands out page *ids*.  Page 0 is the
@@ -77,16 +80,23 @@ class PagePool:
     per-step writes are routed into it — so ``allocatable ==
     total_pages - 1``.
 
+    Every allocated page carries a reference count.  ``take`` hands out
+    fresh pages at refcount 1; ``acquire`` adds a reference (prefix
+    sharing: the same physical page mapped into another table, or held
+    by the prefix index); ``release``/``restore`` *decrement*, and a page
+    re-enters the free-list only when its count reaches 0.  With every
+    page at refcount 1 the pool behaves as a plain allocator.
+
     Recycling contract (mirrors ``SlotPool``'s slot free-list, and is
     load-bearing for test reproducibility the same way):
 
       * **FIFO** — ``take`` pops from the *front*, ``release``
-        (retirement) appends to the *back*: a page is reused as late as
-        possible, and the allocation order of a fixed traffic pattern is
-        deterministic.
-      * **failed-admit restore** — ``restore`` puts pages back at the
-        *front in their original order*, so a retried admission draws
-        exactly the pages the failed call drew.
+        (retirement) appends pages reaching refcount 0 to the *back*: a
+        page is reused as late as possible, and the allocation order of
+        a fixed traffic pattern is deterministic.
+      * **failed-admit restore** — ``restore`` puts pages reaching
+        refcount 0 back at the *front in their original order*, so a
+        retried admission draws exactly the pages the failed call drew.
     """
 
     PARK = 0
@@ -98,8 +108,6 @@ class PagePool:
         self.total_pages = total_pages
         self._tm = telemetry             # optional: free_pages gauge
         self.reset()
-
-    num_shards = 1
 
     def _note_free(self):
         if self._tm is not None:
@@ -113,11 +121,30 @@ class PagePool:
     def free_pages(self) -> int:
         return len(self._free)
 
-    def blocked(self, n: int) -> Optional[str]:
-        """Why ``take(n)`` would fail right now: ``None`` (it would not),
-        ``"pages"`` (the pool is short) or ``"shard_pages"`` (room
-        exists, but not on the shard this request routes to -- sharded
-        pools only)."""
+    def refcount(self, page: int) -> int:
+        """References held on an allocated page (0 == on the free-list)."""
+        return self._held.get(page, 0)
+
+    # A one-shard pool answers the sharded-routing queries trivially, so
+    # the engine's admission path is the same over both pool kinds.
+    num_shards = 1
+
+    def shard_of(self, page: int) -> int:
+        return 0
+
+    def shard_free(self, shard: int) -> int:
+        return len(self._free)
+
+    def route(self, n: int) -> Optional[int]:
+        """Shard a fresh ``n``-page allocation would be routed to
+        (``None``: the pages span shards).  One shard: always 0."""
+        return 0
+
+    def blocked(self, n: int, shard: Optional[int] = None) -> Optional[str]:
+        """Why ``take(n, shard)`` would fail right now: ``None`` (it
+        would not), ``"pages"`` (the pool is short) or ``"shard_pages"``
+        (room exists, but not on the shard this request routes to --
+        sharded pools only)."""
         return None if n <= len(self._free) else "pages"
 
     def blocked_rows(self, b: int, n: int) -> Optional[str]:
@@ -125,36 +152,73 @@ class PagePool:
         admitted in sequence under the routing policy."""
         return None if b * n <= len(self._free) else "pages"
 
-    def take(self, n: int) -> list[int]:
+    def take(self, n: int, shard: Optional[int] = None) -> list[int]:
         if n > len(self._free):
             raise RuntimeError(f"take({n}) with {len(self._free)} free "
                                "pages")
         pages = [self._free.popleft() for _ in range(n)]
-        self._held.update(pages)
+        for p in pages:
+            self._held[p] = 1
         self._note_free()
         return pages
 
-    def _drop(self, pages: list[int]) -> list[int]:
+    def adopt(self, page: int) -> bool:
+        """Re-allocate one specific FREE page at refcount 1 -- the prefix
+        index's restore path: the bank still holds the page's bytes, so a
+        surviving index entry re-pins exactly that page.  False (and no
+        change) if the page was handed out or is out of range."""
+        try:
+            self._free.remove(page)
+        except ValueError:
+            return False
+        self._held[page] = 1
+        self._note_free()
+        return True
+
+    def note_reclaimed(self, pages: list[int]):
+        """Telemetry hook: pages the engine just reclaimed from the prefix
+        cache.  A sharded pool counts them per owning shard; one shard has
+        nothing more to record."""
+
+    def acquire(self, pages: list[int]):
+        """Add one reference to each (already allocated) page: prefix
+        sharing maps the same physical page into another table, or the
+        prefix index pins it past its owner's retirement."""
         for p in pages:
-            if p not in self._held:
-                raise ValueError(f"page {p} is not allocated")
-            self._held.remove(p)
-        return pages
+            if self._held.get(p, 0) < 1:
+                raise ValueError(f"acquire({p}): page is not allocated")
+            self._held[p] += 1
+
+    def _decref(self, pages: list[int]) -> list[int]:
+        """Drop one reference per page -> the pages that reached 0, in the
+        order given (they leave ``_held`` and must rejoin a free-list)."""
+        freed = []
+        for p in pages:
+            n = self._held.get(p, 0)
+            if n < 1:
+                raise ValueError(f"refcount underflow on page {p}")
+            if n == 1:
+                del self._held[p]
+                freed.append(p)
+            else:
+                self._held[p] = n - 1
+        return freed
 
     def restore(self, pages: list[int]):
-        """Failed admission: pages go back to the FRONT in original
-        order."""
-        self._free.extendleft(reversed(self._drop(pages)))
+        """Failed admission: drop one reference; pages reaching refcount 0
+        go back to the FRONT in their original order."""
+        self._free.extendleft(reversed(self._decref(pages)))
         self._note_free()
 
     def release(self, pages: list[int]):
-        """Retirement: pages go to the BACK (FIFO recycling)."""
-        self._free.extend(self._drop(pages))
+        """Retirement: drop one reference; pages reaching refcount 0 go to
+        the BACK (FIFO recycling)."""
+        self._free.extend(self._decref(pages))
         self._note_free()
 
     def reset(self):
         self._free: deque[int] = deque(range(1, self.total_pages))
-        self._held: set[int] = set()
+        self._held: dict[int, int] = {}  # page id -> refcount (allocated)
         self._note_free()
 
 
@@ -173,14 +237,17 @@ class ShardedPagePool(PagePool):
 
     Routing (deterministic, so a fixed traffic pattern replays exactly):
     a request that can ever fit on one shard (``n <=
-    per_shard_allocatable``) goes whole to the least-loaded shard (most
-    free pages, ties to the lowest index); a bigger one spans, drawing
-    its pages one at a time from whichever shard is most free at that
-    moment.  ``release`` and ``restore`` return a page to its OWNING
-    shard's free-list with the base class's FIFO / front-restore
-    contract, so the per-shard allocation order is deterministic too.
-    Per-shard gauges ``shard.{s}.free_pages`` and counters
-    ``shard.{s}.admitted_pages`` go to the telemetry registry."""
+    per_shard_allocatable``) goes whole to one shard -- the engine routes
+    a prefix hit to the shard already holding its cached pages, a cold
+    admission to the least-loaded shard (most free pages, ties to the
+    lowest index); a bigger one spans, drawing its pages one at a time
+    from whichever shard is most free at that moment.  Refcounts are
+    global (a page's id never changes); ``release`` and ``restore``
+    return a page reaching refcount 0 to its OWNING shard's free-list
+    with the base class's FIFO / front-restore contract, so the
+    per-shard allocation order is deterministic too.  Per-shard gauges
+    ``shard.{s}.free_pages`` and counters ``shard.{s}.admitted_pages``
+    and ``shard.{s}.reclaimed_pages`` go to the telemetry registry."""
 
     def __init__(self, total_pages: int, num_shards: int,
                  telemetry: Telemetry | None = None):
@@ -228,6 +295,9 @@ class ShardedPagePool(PagePool):
     def shard_of(self, page: int) -> int:
         return page // self.pages_per_shard
 
+    def shard_free(self, shard: int) -> int:
+        return len(self._shards[shard])
+
     def least_loaded(self) -> int:
         """The shard with the most free pages; ties go to the lowest
         index."""
@@ -239,8 +309,9 @@ class ShardedPagePool(PagePool):
             return None                     # can never fit on one shard
         return self.least_loaded()
 
-    def blocked(self, n: int) -> Optional[str]:
-        shard = self.route(n)               # None: the pages span shards
+    def blocked(self, n: int, shard: Optional[int] = None) -> Optional[str]:
+        if shard is None or n > self.per_shard_allocatable:
+            shard = self.route(n)           # None: the pages span shards
         if shard is None:
             return None if n <= self.free_pages() else "pages"
         if n <= len(self._shards[shard]):
@@ -269,8 +340,12 @@ class ShardedPagePool(PagePool):
                 counts[s] -= n
         return None
 
-    def take(self, n: int) -> list[int]:
-        shard = self.route(n)
+    def take(self, n: int, shard: Optional[int] = None) -> list[int]:
+        """``n`` fresh pages on ``shard`` (a prefix hit's anchor shard),
+        or where the routing policy puts them when ``shard`` is None or
+        ``n`` outgrows one shard."""
+        if shard is None or n > self.per_shard_allocatable:
+            shard = self.route(n)
         if shard is None:
             return self._take_spanning(n)
         dq = self._shards[shard]
@@ -278,7 +353,8 @@ class ShardedPagePool(PagePool):
             raise RuntimeError(f"take({n}) with {len(dq)} free pages on "
                                f"routed shard {shard}")
         pages = [dq.popleft() for _ in range(n)]
-        self._held.update(pages)
+        for p in pages:
+            self._held[p] = 1
         self._note_admitted(shard, n)
         self._note_free()
         return pages
@@ -290,16 +366,17 @@ class ShardedPagePool(PagePool):
         pages, counts = [], [0] * self.num_shards
         for _ in range(n):
             s = self.least_loaded()
-            pages.append(self._shards[s].popleft())
+            p = self._shards[s].popleft()
+            self._held[p] = 1
             counts[s] += 1
-        self._held.update(pages)
+            pages.append(p)
         for s, c in enumerate(counts):
             self._note_admitted(s, c)
         self._note_free()
         return pages
 
     def restore(self, pages: list[int]):
-        freed = self._drop(pages)
+        freed = self._decref(pages)
         for s in range(self.num_shards):
             own = [p for p in freed if self.shard_of(p) == s]
             if own:
@@ -307,17 +384,246 @@ class ShardedPagePool(PagePool):
         self._note_free()
 
     def release(self, pages: list[int]):
-        for p in self._drop(pages):
+        for p in self._decref(pages):
             self._shards[self.shard_of(p)].append(p)
         self._note_free()
+
+    def adopt(self, page: int) -> bool:
+        try:
+            self._shards[self.shard_of(page)].remove(page)
+        except (ValueError, IndexError):
+            return False
+        self._held[page] = 1
+        self._note_free()
+        return True
+
+    def note_reclaimed(self, pages: list[int]):
+        if self._tm is None or not pages:
+            return
+        counts: dict[int, int] = {}
+        for p in pages:
+            s = self.shard_of(p)
+            counts[s] = counts.get(s, 0) + 1
+        for s, c in counts.items():
+            self._tm.registry.inc(
+                f"{self._tm.prefix}shard.{s}.reclaimed_pages", c)
 
     def reset(self):
         per = self.pages_per_shard
         self._shards: list[deque[int]] = [
             deque(range(s * per + 1, (s + 1) * per))
             for s in range(self.num_shards)]
-        self._held = set()
+        self._held = {}
         self._note_free()
+
+
+@dataclass
+class _PrefixNode:
+    """One cached prompt page: the edge from its parent is the page's
+    full token run, ``page`` is the pool page holding those tokens' k/v."""
+    page: int
+    run: tuple
+    parent: Optional["_PrefixNode"]
+    children: dict = field(default_factory=dict)   # run tuple -> node
+    last_used: int = 0
+
+
+class PrefixIndex:
+    """Radix (longest-common-prefix) index over *fully written* prompt
+    pages.
+
+    Granularity is whole pages: an edge is one page's complete
+    ``page_size``-token run, so a lookup matches the longest indexed
+    prefix in units of pages.  A page enters only once its owner has
+    written it completely (the last, partly filled prompt page never
+    does; decode tokens land past the prompt, so an indexed page is
+    immutable for the rest of its life).  ``namespace`` keys the bank's
+    value format into every path: an int8 bank's codes are a lossy
+    function of the same tokens, so ``"fp16"`` and ``"int8"`` entries
+    never cross-match, even in one index.
+
+    The index holds no refcounts itself: the engine pairs ``insert`` with
+    ``PagePool.acquire`` (the index's reference) and ``evict_lru`` with
+    ``PagePool.release``.  Eviction is leaf-first (an inner node's
+    children are reachable only through it) and least recently used
+    among the leaves."""
+
+    def __init__(self, page_size: int, namespace: str = "fp16"):
+        self.page_size = page_size
+        self.namespace = namespace
+        self._root: dict = {}            # (namespace, run) -> _PrefixNode
+        self._clock = 0                  # monotonic recency counter
+
+    def __len__(self) -> int:
+        return len(self.pages())
+
+    def _runs(self, tokens) -> list[tuple]:
+        toks = np.asarray(tokens).reshape(-1)
+        ps = self.page_size
+        return [tuple(int(x) for x in toks[j * ps:(j + 1) * ps])
+                for j in range(len(toks) // ps)]
+
+    def _key(self, node: Optional[_PrefixNode], run: tuple):
+        return (self.namespace, run) if node is None else run
+
+    def _children(self, node: Optional[_PrefixNode]) -> dict:
+        return self._root if node is None else node.children
+
+    def lookup(self, tokens, peek: bool = False) -> list[int]:
+        """Longest indexed prefix of ``tokens`` in WHOLE pages -> the page
+        ids holding it (possibly []).  Bumps recency on the path; ``peek``
+        leaves it untouched -- a capacity probe (``can_admit``) must not
+        keep never-admitted prefixes hot, nor bump twice the path its
+        ``admit`` bumps."""
+        if not peek:
+            self._clock += 1
+        node, out = None, []
+        for run in self._runs(tokens):
+            nxt = self._children(node).get(self._key(node, run))
+            if nxt is None:
+                break
+            if not peek:
+                nxt.last_used = self._clock
+            out.append(nxt.page)
+            node = nxt
+        return out
+
+    def insert(self, tokens, pages: list[int]) -> list[int]:
+        """Index one admitted row's fully written prompt pages:
+        ``pages[j]`` holds tokens ``[j*page_size, (j+1)*page_size)``.
+        Runs already indexed keep their page (first writer wins) -> the
+        page ids NEWLY inserted, for which the caller must
+        ``PagePool.acquire`` the index's reference."""
+        self._clock += 1
+        node, fresh = None, []
+        for j, run in enumerate(self._runs(tokens)):
+            if j >= len(pages):
+                break
+            key = self._key(node, run)
+            kids = self._children(node)
+            nxt = kids.get(key)
+            if nxt is None:
+                nxt = _PrefixNode(page=int(pages[j]), run=run, parent=node,
+                                  last_used=self._clock)
+                kids[key] = nxt
+                fresh.append(nxt.page)
+            else:
+                nxt.last_used = self._clock
+            node = nxt
+        return fresh
+
+    def _nodes(self) -> list[_PrefixNode]:
+        out, stack = [], list(self._root.values())
+        while stack:
+            nd = stack.pop()
+            out.append(nd)
+            stack.extend(nd.children.values())
+        return out
+
+    def pages(self) -> set[int]:
+        """Every page id the index pins."""
+        return {nd.page for nd in self._nodes()}
+
+    def evict_lru(self, n: int, can_evict) -> list[int]:
+        """Drop up to ``n`` cached pages, least recently used *leaves*
+        first (an inner node cannot go before its children, or the
+        subtree leaks).  Only pages ``can_evict`` approves leave -- the
+        engine passes refcount == 1, i.e. no live table maps the page.
+        -> the evicted page ids; the caller drops the index's pool
+        reference for each."""
+        out = []
+        while len(out) < n:
+            leaves = [nd for nd in self._nodes()
+                      if not nd.children and can_evict(nd.page)]
+            if not leaves:
+                break
+            victim = min(leaves, key=lambda nd: (nd.last_used, nd.page))
+            kids = self._children(victim.parent)
+            del kids[self._key(victim.parent, victim.run)]
+            out.append(victim.page)
+        return out
+
+    def clear(self):
+        self._root = {}
+
+    def snapshot(self) -> dict:
+        """The trie's host state as plain lists and ints (JSON-safe).  The
+        pages' bytes live in the device bank and are NOT captured: a
+        snapshot is worth restoring only while the bank survives (an
+        engine reset keeps its cache tensors; ``restore`` re-pins the
+        pages from the pool's free-list)."""
+        nodes = []
+
+        def walk(node, path):
+            for nd in self._children(node).values():
+                rec_path = path + [list(nd.run)]
+                nodes.append({"path": rec_path, "page": int(nd.page),
+                              "last_used": int(nd.last_used)})
+                walk(nd, rec_path)
+
+        walk(None, [])
+        return {"namespace": self.namespace, "page_size": self.page_size,
+                "clock": int(self._clock), "nodes": nodes}
+
+    def restore(self, snap: dict, adopt) -> list[int]:
+        """Rebuild trie branches from an earlier ``snapshot``.
+
+        ``adopt(page) -> bool`` must re-pin the page in the pool (the
+        index's reference): ``PagePool.adopt``.  A node whose page cannot
+        be adopted (recycled since the snapshot) is dropped *with its
+        whole subtree*: its children's runs are reachable only through
+        the lost page.  Existing entries win over the snapshot's (first
+        writer wins, as in ``insert``).  -> the pages adopted; the index
+        now pins them."""
+        if (snap["namespace"] != self.namespace
+                or snap["page_size"] != self.page_size):
+            raise ValueError(
+                f"snapshot is {snap['namespace']}/page {snap['page_size']}, "
+                f"index is {self.namespace}/page {self.page_size}")
+        self._clock = max(self._clock, int(snap["clock"]))
+        adopted = []
+        # snapshot() emits parents before children, so one forward pass
+        # sees every node's parent already rebuilt (or already dropped)
+        for rec in snap["nodes"]:
+            path = [tuple(r) for r in rec["path"]]
+            node, lost = None, False
+            for run in path[:-1]:
+                node = self._children(node).get(self._key(node, run))
+                if node is None:
+                    lost = True             # the parent branch was dropped
+                    break
+            if lost:
+                continue
+            run = path[-1]
+            kids = self._children(node)
+            key = self._key(node, run)
+            if key in kids:
+                continue
+            if not adopt(rec["page"]):
+                continue
+            kids[key] = _PrefixNode(page=int(rec["page"]), run=run,
+                                    parent=node,
+                                    last_used=int(rec["last_used"]))
+            adopted.append(int(rec["page"]))
+        return adopted
+
+
+@dataclass
+class SharedBank:
+    """One shared paged-KV bank: the allocator, the prefix index and the
+    device caches, shared by every engine serving the same cache content.
+
+    Keyed by *content* -- (context name, page size, kv format) -- not by
+    pool shape: engines of different batch sizes over the same weights
+    read and write the same pages, so a prompt one of them indexed is a
+    prefix hit for all of them.  ``caches`` starts ``None``; the first
+    engine to reset allocates it.  The device programs write the caches
+    in place, so ``caches`` is the one tensor tree every engine over the
+    bank holds, at fixed addresses (a CUDA graph captured by one engine
+    reads them where they are): no engine ever replaces it."""
+    pool: PagePool
+    index: Optional[PrefixIndex] = None
+    caches: Any = None
 
 
 class SlotPool:

@@ -379,9 +379,14 @@ class ContinuousScheduler:
     (one CUDA graph replay on a card), so the rank/drain/admit
     bookkeeping amortizes over up to T tokens, with streams bitwise those
     of single steps (``snapshot()["steps_per_tick"]`` reports the
-    realized ratio).  The JAX scheduler's speculative contexts
-    (``draft``) and prefix-cached banks are not ported yet: a non-empty
-    ``draft`` raises.
+    realized ratio); ``prefix_cache=True`` (paged) maps an admission's
+    already written whole-page prompt prefix read-only and prefills only
+    its suffix, evicting cached pages LRU-first under page pressure
+    (the snapshot then carries ``prefix_hits``, ``prefix_pages_mapped``,
+    ``cow_copies`` and ``cache_evictions``); ``share_bank=True`` (paged)
+    has every engine of a context allocate from, and index into, one
+    ``SharedBank``.  The JAX scheduler's speculative contexts (``draft``)
+    are not ported yet: a non-empty ``draft`` raises.
 
     Per-request seeds ARE honored: a seeded row draws from its own
     generator state (folded with the row's token position), so a seeded
@@ -397,7 +402,8 @@ class ContinuousScheduler:
                  paged: bool = False, page_size: int = 256,
                  quantize_kv: Optional[str] = None,
                  shards: Optional[int] = None, mesh=None,
-                 multi_step: int = 1):
+                 multi_step: int = 1, prefix_cache: bool = False,
+                 share_bank: bool = False):
         if draft:
             raise NotImplementedError(
                 "speculative contexts (draft=) are not yet ported to "
@@ -425,6 +431,18 @@ class ContinuousScheduler:
         # fused decode: each engine tick commits up to ``multi_step``
         # steps in one device program
         self.multi_step = multi_step
+        # prefix cache (paged mode): admissions whose prompt starts with
+        # an already written whole-page run map those pages read-only
+        # and prefill only the divergent suffix; ``can_admit`` evicts
+        # cached pages LRU-first under page pressure
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache needs paged=True")
+        self.prefix_cache = prefix_cache
+        # shared page banks: a context's engines allocate from one pool
+        # and share one prefix index
+        if share_bank and not paged:
+            raise ValueError("share_bank needs paged=True")
+        self.share_bank = share_bank
         self.age_weight = age_weight
         self.cost_weight = cost_weight
         self.switch_margin = switch_margin
@@ -545,7 +563,9 @@ class ContinuousScheduler:
                                       page_size=self.page_size,
                                       quantize_kv=self.quantize_kv,
                                       shards=self.shards, mesh=self.mesh,
-                                      multi_step=self.multi_step)
+                                      multi_step=self.multi_step,
+                                      prefix_cache=self.prefix_cache,
+                                      share_bank=self.share_bank)
         if eng.runner is None:
             cse = self.server.engine
             # every device program (prefill + step) routes through the
@@ -567,6 +587,8 @@ class ContinuousScheduler:
         return EngineKey(name=name, batch_size=self.batch_size,
                          prefill_chunk=self.prefill_chunk, page_size=ps,
                          quantize_kv=self.quantize_kv,
+                         prefix_cache=self.prefix_cache,
+                         shared_bank=self.share_bank,
                          shards=shard_count(self.shards, self.mesh),
                          multi_step=self.multi_step)
 
@@ -821,14 +843,21 @@ class ContinuousScheduler:
     def snapshot(self) -> dict:
         out = _snapshot(self.stats, self.server.engine, self.telemetry)
         ticks = dsteps = 0
+        prefix = {"prefix_hits": 0, "prefix_pages_mapped": 0,
+                  "cow_copies": 0, "cache_evictions": 0}
         for key, eng in self.server._step_engines.items():
             # full-key match: the server outlives schedulers
             if key == self._step_key(key.name):
                 ticks += eng.stats["host_ticks"]
                 dsteps += eng.stats["device_steps"]
+                for k in prefix:
+                    prefix[k] += eng.stats.get(k, 0)
         # always present (0 / 0.0 before the first tick) so report
         # consumers never need an existence check
         out["host_ticks"] = ticks
         out["device_steps"] = dsteps
         out["steps_per_tick"] = round(safe_ratio(dsteps, ticks), 3)
+        if self.prefix_cache:
+            # prefix-cache effectiveness across this config's engines
+            out.update(prefix)
         return out

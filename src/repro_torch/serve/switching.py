@@ -9,9 +9,10 @@ Which context loads/evicts when is decided by the engine's shared
 
 One ``ServingEngine`` is cached per context and one ``StepEngine`` per
 (context, pool shape); sampling threads a fresh per-request seed so
-temperature>0 requests are independent draws.  The JAX package's
-speculative engines, shared page banks and state snapshots are not
-ported yet.
+temperature>0 requests are independent draws.  Shared page banks
+(``shared_bank``) put one page pool, prefix index and cache behind every
+engine of one context's cache content.  The JAX package's speculative
+engines and state snapshots are not ported yet.
 
 For request-level scheduling (queueing, coalescing, shadow-slot prefetch
 under mixed traffic) see ``repro_torch.serve.scheduler``.
@@ -30,6 +31,7 @@ from repro_torch.distributed.mesh import shard_count
 from repro_torch.models.model import LM
 from repro_torch.serve.engine import (EngineKey, GumbelDraws, ServingEngine,
                                       StepEngine, _sample)
+from repro_torch.serve.pool import PagePool, SharedBank, ShardedPagePool
 from repro_torch.serve.telemetry import Telemetry
 
 
@@ -57,6 +59,11 @@ class SwitchableServer:
         self.device = self.engine.device
         self._served: dict[str, ServedModel] = {}
         self._engines: dict[str, ServingEngine] = {}   # one per context
+        # shared page banks, keyed by CONTENT -- (context name, page_size,
+        # quantize_kv) -- never by pool shape: every engine whose pages
+        # would hold the same bytes (any batch size) resolves to the same
+        # bank, so a prefix one engine indexed is a hit for all of them
+        self._banks: dict[tuple, SharedBank] = {}
         self._step_engines: dict[EngineKey, StepEngine] = {}
         self._eng_seq = itertools.count()   # telemetry namespace ids
         self._req_seq = itertools.count()
@@ -111,12 +118,45 @@ class SwitchableServer:
             eng.params = params
         return eng
 
+    def shared_bank(self, name: str, page_size: int,
+                    quantize_kv: Optional[str] = None,
+                    num_pages: Optional[int] = None,
+                    num_shards: int = 1) -> SharedBank:
+        """Get-or-create the shared page bank of one cache content --
+        ``(context name, page_size, quantize_kv)``.  The first caller
+        sizes the pool (``num_pages``, and ``num_shards`` > 1 for a
+        sharded bank); later callers allocate from it whatever their
+        batch size, and all of them see one ``PrefixIndex`` over those
+        pages and one set of cache tensors (made by the first engine's
+        reset)."""
+        key = (name, int(page_size), quantize_kv)
+        bank = self._banks.get(key)
+        if bank is None:
+            if num_pages is None:
+                raise ValueError(
+                    f"shared bank {key} does not exist yet: the first "
+                    "caller must size it (num_pages)")
+            tel = self.telemetry.scoped(f"eng.{next(self._eng_seq)}.")
+            pool = (ShardedPagePool(num_pages, num_shards, telemetry=tel)
+                    if num_shards > 1 else PagePool(num_pages,
+                                                   telemetry=tel))
+            bank = SharedBank(pool)
+            self._banks[key] = bank
+        elif num_shards != bank.pool.num_shards:
+            raise ValueError(
+                f"shared bank {key} has {bank.pool.num_shards} shard(s); "
+                f"requested {num_shards}")
+        return bank
+
     def step_engine(self, name: str, batch_size: int,
                     prefill_chunk: Optional[int] = None,
                     paged: bool = False, page_size: int = 256,
                     quantize_kv: Optional[str] = None,
                     shards: Optional[int] = None,
-                    mesh=None, multi_step: int = 1) -> StepEngine:
+                    mesh=None, multi_step: int = 1,
+                    prefix_cache: bool = False,
+                    num_pages: Optional[int] = None,
+                    share_bank: bool = False) -> StepEngine:
         """Per-context continuous-batching engine (one per configuration).
         Its decode state — slot-pooled KV rows or pages, positions,
         free-list — persists across context switches, so a paused context
@@ -125,22 +165,41 @@ class SwitchableServer:
         buffers via the scheduler's runner hook).  Every engine knob is a
         field of the frozen ``EngineKey``: chunked and one-shot, int8 and
         full-precision engines of one context are different engines.
-        ``shards``/``mesh`` split the engine's page bank and
-        ``multi_step`` fuses up to that many decode steps into each tick
-        (see ``StepEngine``)."""
+        ``shards``/``mesh`` split the engine's page bank,
+        ``multi_step`` fuses up to that many decode steps into each tick,
+        ``prefix_cache`` shares written prompt pages across admissions
+        (see ``StepEngine``).  ``share_bank`` allocates from the
+        context's shared bank (``shared_bank``), which the first such
+        engine sizes: ``num_pages``, or by default one worst-case row per
+        slot plus the park page(s), as a private bank is sized."""
         sm = self._served[name]
         eff_ps = min(page_size, sm.max_len) if paged else None
+        n_shards = shard_count(shards, mesh)
         key = EngineKey(name=name, batch_size=batch_size,
                         prefill_chunk=prefill_chunk, page_size=eff_ps,
-                        quantize_kv=quantize_kv,
-                        shards=shard_count(shards, mesh),
+                        quantize_kv=quantize_kv, prefix_cache=prefix_cache,
+                        shared_bank=share_bank, shards=n_shards,
                         multi_step=multi_step)
         eng = self._step_engines.get(key)
         if eng is None:
+            bank = None
+            if share_bank:
+                if not paged:
+                    raise ValueError("share_bank needs paged=True")
+                need = batch_size * (sm.max_len // eff_ps)
+                default_np = (n_shards * (-(-need // n_shards) + 1)
+                              if n_shards > 1 else need + 1)
+                bank = self.shared_bank(
+                    name, eff_ps, quantize_kv,
+                    num_pages=(num_pages if num_pages is not None
+                               else default_np),
+                    num_shards=n_shards)
             eng = StepEngine(sm.model, batch_size, sm.max_len,
                              temperature=sm.temperature,
                              prefill_chunk=prefill_chunk, paged=paged,
                              page_size=page_size, quantize_kv=quantize_kv,
+                             prefix_cache=prefix_cache,
+                             num_pages=num_pages, bank=bank,
                              shards=shards, mesh=mesh,
                              multi_step=multi_step,
                              telemetry=self.telemetry.scoped(

@@ -21,7 +21,11 @@ mLSTM also in spans of one chunk.  The fused multi-step tick
 (``StepEngine(multi_step=4)``) is one graph replay, bit for bit the eager
 single steps (row, paged, int8, local reads, ring and MoE, hybrid,
 xLSTM), adds its captured launches to the counts on every replay,
-recaptures over reloaded weights, and syncs nothing.  Every test here is
+recaptures over reloaded weights, and syncs nothing.  The prefix cache:
+the page copy is a byte copy, a chunked hit (C = page) is bit for bit
+the cold chunked stream (bf16, int8, local reads), and fused prefix
+engines, one alone and two over a shared bank, are bit for bit their
+single-step twins with one capture each.  Every test here is
 marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
@@ -1236,3 +1240,197 @@ def test_dropped_engine_drops_its_graphs(gen):
     gc.collect()
     assert same and ref() is None
     assert len(se._step_engines) == 1
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_copy_cache_pages_is_a_byte_copy_on_the_card(gen, quantized):
+    """``LM.copy_cache_pages`` moves every leaf of every layer's pool bit
+    for bit (bf16 k/v; int8 codes and their f32 scales) into the
+    destination pages and leaves every other page as it was."""
+    m, _ = _reduced_lm("tinyllama-1.1b", {})
+    caches = m.init_page_pool(8, 16, quantized=quantized)
+    for c in caches:
+        for t in c:
+            if t is None:
+                continue
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    assert caches[0].k.dtype == (torch.int8 if quantized
+                                 else torch.bfloat16)
+    want = [[None if t is None else t.clone() for t in c] for c in caches]
+    src, dst, rest = [1, 5, 2], [3, 6, 7], [0, 1, 2, 4, 5]
+    m.copy_cache_pages(caches, src, dst)
+    torch.cuda.synchronize()
+    n = 0
+    for c, w in zip(caches, want):
+        for t, u in zip(c, w):
+            if t is None:
+                continue
+            assert torch.equal(t[dst], u[src]) and torch.equal(t[rest],
+                                                               u[rest])
+            n += 1
+    assert n == (4 if quantized else 2) * m.cfg.num_layers
+
+
+def _prefix_traffic(vocab, n=3, head=32, tail=8):
+    g = torch.Generator().manual_seed(3)
+    pre = torch.randint(0, vocab, (1, head), generator=g)
+    return [torch.cat([pre, torch.randint(0, vocab, (1, tail), generator=g)],
+                      dim=1).numpy() for _ in range(n)]
+
+
+@pytest.mark.parametrize("quantize_kv", [None, "int8"])
+def test_chunked_hit_is_bitwise_the_cold_chunked_stream(gen, quantize_kv):
+    """Chunked prefill with the chunk as wide as a page (16), prompts
+    sharing a 2-page preamble: each hit resumes at a page boundary, so its
+    final chunk is the cold admission's final chunk, over pages that the
+    same chunk programs wrote.  The streams are bit for bit the cold
+    ones, bf16 and int8."""
+    from repro_torch.serve.engine import StepEngine
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    prompts = _prefix_traffic(m.cfg.vocab_size)
+
+    def run(prefix_cache):
+        eng = StepEngine(m, batch_size=3, max_len=64, paged=True,
+                         page_size=16, prefill_chunk=16,
+                         quantize_kv=quantize_kv, prefix_cache=prefix_cache)
+        first = eng.admit(p, prompts[0], max_new=8)[0]
+        while not first.tokens:                 # indexed once it is done
+            eng.step(p)
+        gens = [first] + [eng.admit(p, t, max_new=8)[0]
+                          for t in prompts[1:]]
+        while eng.live_slots():
+            eng.step(p)
+        return [g.tokens for g in gens], eng
+
+    cold, _ = run(False)
+    hit, eng = run(True)
+    assert hit == cold
+    assert (eng.stats["prefix_hits"], eng.stats["prefix_pages_mapped"],
+            eng.stats["cow_copies"]) == (2, 4, 0)
+
+
+def test_fused_engine_with_hits_is_bitwise_its_single_step_twin(gen):
+    """A one-shot paged prefix engine fused (``multi_step=4``, one graph
+    replay a tick) against its single-step twin: hits mapping shared
+    pages, one of them copying its boundary page, give bit for bit the
+    same streams, and the copies and table writes leave the captured
+    graph valid (one capture)."""
+    from repro_torch.serve.engine import StepEngine
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    prompts = _prefix_traffic(m.cfg.vocab_size)
+    prompts.append(prompts[0][:, :32].copy())   # the bare preamble: a CoW
+
+    def run(multi_step):
+        eng = StepEngine(m, batch_size=3, max_len=64, paged=True,
+                         page_size=16, prefix_cache=True,
+                         multi_step=multi_step)
+        gens = []
+        for t in prompts:
+            while not eng.can_admit(t, 6):
+                eng.step(p)
+            gens += eng.admit(p, t, max_new=6)
+            eng.step(p)
+        while eng.live_slots():
+            eng.step(p)
+        return [g.tokens for g in gens], eng
+
+    want, one = run(1)
+    got, eng = run(4)
+    assert got == want
+    assert eng.stats["prefix_hits"] == one.stats["prefix_hits"] == 3
+    assert eng.stats["cow_copies"] == 1 and eng.graph_captures == 1
+
+
+def test_shared_bank_under_fused_graphs_is_bitwise_single_step(gen):
+    """Two fused prefix engines (batch 3 and 2, ``multi_step=4``) over one
+    ``SharedBank``.  Between the first engine's graph replays the second
+    maps pages the first indexed, copies a shared boundary page, resets
+    with ``keep_prefix=True`` and hits again: the bank's tensors stay
+    where both captured graphs read them.  Both streams are bit for bit
+    their single-step twins', each engine captures one graph, and the
+    bank's caches are the tensors it started with."""
+    from repro_torch.serve.engine import StepEngine
+    from repro_torch.serve.pool import PagePool, SharedBank
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    prompts = _prefix_traffic(m.cfg.vocab_size, n=4)
+    bare = prompts[0][:, :32].copy()            # the preamble: a CoW hit
+
+    def run(multi_step):
+        bank = SharedBank(PagePool(5 * 4 + 1))
+        kw = dict(max_len=64, paged=True, page_size=16, prefix_cache=True,
+                  bank=bank, multi_step=multi_step)
+        a, b = StepEngine(m, batch_size=3, **kw), StepEngine(
+            m, batch_size=2, **kw)
+        leaves = [t for c in bank.caches for t in c if t is not None]
+        ga = a.admit(p, prompts[0], max_new=12)  # indexed on admission
+        a.step(p)
+        ga += a.admit(p, prompts[1], max_new=12)
+        a.step(p)
+        gb = b.admit(p, prompts[2], max_new=6)   # maps a's pages
+        a.step(p)
+        gb += b.admit(p, bare, max_new=6)
+        b.step(p)
+        a.step(p)
+        b.drain(p)
+        b.reset(keep_prefix=True)                # between a's replays
+        a.step(p)
+        gb += b.admit(p, prompts[3], max_new=6)
+        while a.live_slots() or b.live_slots():
+            for eng in (a, b):
+                if eng.live_slots():
+                    eng.step(p)
+        now = [t for c in bank.caches for t in c if t is not None]
+        assert all(x is y for x, y in zip(now, leaves))
+        assert a.state.caches is b.state.caches is bank.caches
+        return [g.tokens for g in ga], [g.tokens for g in gb], a, b
+
+    want_a, want_b, _, _ = run(1)
+    got_a, got_b, a, b = run(4)
+    assert got_a == want_a and got_b == want_b
+    assert (a.stats["prefix_hits"], b.stats["prefix_hits"],
+            b.stats["cow_copies"]) == (1, 3, 1)
+    assert a.graph_captures == 1 and b.graph_captures == 1
+
+
+def test_chunked_hit_under_local_reads_is_bitwise_the_cold_stream(gen):
+    """A chunked (C = page) prefix engine whose bank is split over
+    ``Mesh((cuda:0,) * 4)`` with local reads (the decode through B5):
+    each hit's pages lie on its anchor's shard, its final chunk is the
+    cold admission's, and the streams are bit for bit the cold chunked
+    local-read engine's."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels.paged_attention.ops import paged_decode_partial
+    from repro_torch.serve.engine import StepEngine
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    prompts = _prefix_traffic(m.cfg.vocab_size)
+    mesh = Mesh((torch.device("cuda", 0),) * 4)
+
+    def run(prefix_cache):
+        eng = StepEngine(m, batch_size=3, max_len=64, paged=True,
+                         page_size=16, num_pages=4 * 10,
+                         prefill_chunk=16, mesh=mesh, local_read=True,
+                         prefix_cache=prefix_cache)
+        first = eng.admit(p, prompts[0], max_new=8)[0]
+        while not first.tokens:
+            eng.step(p)
+        gens = [first] + [eng.admit(p, t, max_new=8)[0]
+                          for t in prompts[1:]]
+        while eng.live_slots():
+            eng.step(p)
+        return [g.tokens for g in gens], eng
+
+    cold, _ = run(False)
+    before = paged_decode_partial.launches
+    hit, eng = run(True)
+    assert hit == cold
+    assert paged_decode_partial.launches > before
+    assert (eng.stats["prefix_hits"], eng.stats["prefix_pages_mapped"],
+            eng.stats["cow_copies"]) == (2, 4, 0)

@@ -123,19 +123,24 @@ def test_serving_mesh_never_spans_distinct_cards(cards, monkeypatch, capsys):
 
 
 def test_reset_clears_the_launch_counts_by_shape():
-    """``chip_smoke.py`` reads the launches of flash, gmm, the scan and
-    the mLSTM at its second records' shapes from ``launches_by_shape``;
-    zeroing the counts before a pass must clear them too."""
+    """``chip_smoke.py`` reads the launches of flash, gmm, the scan,
+    the mLSTM and the paged verify at its later records' shapes from
+    ``launches_by_shape``; zeroing the counts before a pass must clear
+    them too."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.paged_attention.ops import paged_verify_attention
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     flash_attention.launches_by_shape[(1, 32, 8, 4160, 128, 4096)] += 2
     gmm.launches_by_shape[(2, 320, 14336, 4096)] += 1
     ssm_scan.launches_by_shape[(1, 410, 8192, 16)] += 7
     mlstm_chunk.launches_by_shape[(1, 4, 768, 384, 256)] += 9
+    paged_verify_attention.launches_by_shape[
+        (1, 4, 8, 32, 9, 256, 64, True)] += 22
     kernels.reset_launch_counts()
-    for fn in (flash_attention, gmm, ssm_scan, mlstm_chunk):
+    for fn in (flash_attention, gmm, ssm_scan, mlstm_chunk,
+               paged_verify_attention):
         assert not fn.launches_by_shape
     assert gmm.launches_by_shape[(2, 320, 14336, 4096)] == 0
