@@ -65,7 +65,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 one bf16 ulp.  Flash, gmm, the decode and the verify
                 records also log their device kernel time
                 (torch.profiler), the decode and verify records beside
-                their SDPA call's.
+                their SDPA call's.  The paged verify's tree route also
+                at the speculative tree passes' shape (8 rows, 13 nodes
+                of a depth-4, width-3 sausage tree, fp and int8), each
+                score row within 2**-7, a limit shown to catch one tree
+                bit cleared.
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -77,7 +81,12 @@ Phases, in order; any failure exits non-zero before the result lines:
                 512-token chunkwise prefill, decode and 4-token verify
                 from its state, and one sLSTM block's.  Then, logged
                 only, how far an int8 pool moves the full-depth
-                tinyllama-1.1b's logits.
+                tinyllama-1.1b's logits.  Then tinyllama-1.1b's
+                speculative engine at one layer: a tree round's verify
+                (13 nodes) and a flat one against the CPU float32 path,
+                the greedy accept rules on the card's logits bitwise the
+                CPU's, and (logged) an aligned draft's acceptance at 1-8
+                layers.
   4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
                 supersub-super at their published widths, requests
                 alternating contexts, through ContinuousScheduler(paged),
@@ -123,7 +132,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                 copy-on-write hit that leaves every indexed
                 page bitwise unchanged; logged: hit vs cold greedy
                 agreement, time to first token, decode tokens/s on and
-                off, peak rows at 19 pages.  Every request must resolve
+                off, peak rows at 19 pages; ``spec_*``: speculative
+                decoding of tinyllama-1.1b through ContinuousScheduler
+                (8 requests, 2 weight slots, pages of 256): a plain
+                twin, flat K=4 with an aligned draft, the same on a
+                SharedBank (bitwise the flat pass), a K=4, W=3 tree with
+                a noised draft (B4's tree route) and that tree on chunked
+                int8 columns, each logged with its tokens/s, accepted
+                tokens a round, rounds and greedy agreement beside the
+                twin's.  Every request must resolve
                 with the right shape, and each kernel route's launch
                 count (zeroed right before a pass) must rise in the pass
                 that uses it.
@@ -184,6 +201,8 @@ NEW_TOKENS = 32
 N_REQUESTS = 8
 CHUNK = 128                  # chunked-prefill width of the serving passes
 MULTI_STEP = 8               # fused decode steps a tick (multi_step passes)
+SPEC_K, SPEC_W = 4, 3        # speculative depth and tree width (13 nodes)
+SPEC_PAGE, SPEC_P = 256, 3   # the speculative passes' pages: 768 slots
 
 
 def log(msg: str) -> None:
@@ -644,6 +663,7 @@ def kernel_phase(dev) -> list[dict]:
                     sdpa)
     ring_verify_record(dev, rn, flush, record)
     prefix_verify_records(dev, gen, rn, flush, record)
+    spec_verify_records(dev, gen, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
     partial_records(dev, gen, rn, flush, record)
@@ -943,6 +963,128 @@ def prefix_verify_records(dev, gen, rn, flush, record) -> None:
                time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
         log_kernel_time(name,
                         lambda: paged_verify_attention(*args, **scales),
+                        flush, sdpa)
+
+
+def sausage_tree(K: int, W: int):
+    """The speculative engine's tree of depth K and width W as (1 + K*W,)
+    int32 ancestor bitmasks: node 0 sees itself; node ``1 + (i-1)*W +
+    w`` (candidate w at depth i) itself, node 0 and the chain (sibling
+    0) at every depth before i."""
+    import torch
+    chain = [1 + (i - 1) * W for i in range(1, K + 1)]
+    masks = [1]
+    for i in range(1, K + 1):
+        anc = 1
+        for d in range(1, i):
+            anc |= 1 << chain[d - 1]
+        masks += [anc | (1 << (chain[i - 1] + w)) for w in range(W)]
+    return torch.tensor(masks, dtype=torch.int32)
+
+
+def spec_verify_shape(int8: bool) -> tuple:
+    """The speculative tree passes' verify launch as its wrapper's
+    ``launches_by_shape`` counts it, (B, Hkv, G, Kb, P, page, hd, int8):
+    8 rows of 1 + K*W = 13 tree nodes over tinyllama-1.1b's 3-page
+    tables of 256."""
+    return (N_REQUESTS, HKV, H // HKV, 1 + SPEC_K * SPEC_W, SPEC_P,
+            SPEC_PAGE, HD, int8)
+
+
+# the paged verify records at that shape -> int8 pool
+SPEC_VERIFY = {"paged_verify_attention_tree_spec": False,
+               "paged_verify_attention_tree_spec_int8": True}
+
+
+def spec_verify_records(dev, gen, rn, flush, record) -> None:
+    """Paged verify (B4) with a tree mask at the speculative tree passes'
+    shape (``spec_verify_shape``): 8 rows at positions 130-540 over
+    shuffled 3-page tables of 256 (pages past a row's block on the park
+    page), 13 nodes each under the engine's sausage mask of depth 4 and
+    width 3, fp and int8 pools.  Each is held to the plain version within
+    2e-2 and each score row within 2**-7 relative L2, with two faults
+    planted on the plain side that the row limit must catch: the
+    cache/block boundary one key late, and one tree bit cleared (each
+    node's lowest ancestor other than itself).  The library call is one
+    masked SDPA over the gathered cache plus block."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_verify_attention, paged_verify_reference)
+    from repro_torch.models.layers import PagedKV, _gather_dequant
+
+    B, page, P = N_REQUESTS, SPEC_PAGE, SPEC_P
+    Kb = 1 + SPEC_K * SPEC_W
+    S = P * page
+    NP = B * P + 1
+    vpos = torch.tensor([130, 200, 255, 256, 300, 400, 511, 540],
+                        dtype=torch.int32, device=dev)
+    ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
+    table = ids.reshape(B, P).to(torch.int32)
+    dead = (torch.arange(P, device=dev)[None, :] * page
+            >= vpos[:, None] + SPEC_K + 1)
+    table = torch.where(dead, torch.zeros_like(table), table).contiguous()
+    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
+    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    sc = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
+          for _ in range(2)]
+    pools = {False: ((kp, vp), {}, (gather_pages(kp, table),
+                                    gather_pages(vp, table)), 2 * 2 * HD),
+             True: (tuple(codes), dict(k_scale=sc[0], v_scale=sc[1]),
+                    _gather_dequant(PagedKV(*codes, *sc), table,
+                                    torch.bfloat16), 2 * (HD + 4))}
+    tree = sausage_tree(SPEC_K, SPEC_W).to(dev)[None].expand(
+        B, Kb).contiguous()
+    ar = torch.arange(Kb, device=dev)
+    vis = ((tree[:, :, None] >> ar[None, None, :]) & 1) == 1  # (B, Kb, Kb)
+    slots = torch.arange(S, device=dev)[None, None, :]
+    cols = slots < vpos[:, None, None]
+    anc = tree & ~(torch.ones_like(tree) << ar.to(torch.int32))
+    low = anc & -anc                          # lowest ancestor bit
+    cut = ((tree & ~low)[:, :, None] >> ar[None, None, :]) & 1 == 1
+
+    def mask(cache, block):
+        return torch.cat([cache.expand(B, Kb, S), block], dim=-1)[:, None]
+
+    vmask = mask(cols, vis)
+    faults = [("cache/block boundary +1 key",
+               mask(slots < vpos[:, None, None] + 1, vis)),
+              ("one tree bit cleared", mask(cols, cut))]
+    cache_keys = int(vpos.sum())
+    pairs = Kb * cache_keys + int(vis.sum())
+    for name, int8 in SPEC_VERIFY.items():
+        pool, scales, gathered, kv_bytes = pools[int8]
+        qv = rn(B, Kb, H, HD)
+        bk, bv = rn(B, Kb, HKV, HD), rn(B, Kb, HKV, HD)
+        args = (qv, *pool, bk, bv, table, vpos)
+        kw = dict(tree=tree, **scales)
+        got = paged_verify_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = paged_verify_reference(*args, **kw)
+        qt = qv.transpose(1, 2)
+        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
+                      for c, b in zip(gathered, (bk, bv)))
+        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
+                          qt, kall, vall, vmask, faults)
+        nbytes = (2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
+                  + 4 * tree.numel() + 4 * B * P
+                  + kv_bytes * cache_keys * HKV)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kall, vall, attn_mask=vmask, enable_gqa=True)
+
+        record(name,
+               "src/repro_torch/kernels/paged_attention/csrc/"
+               "paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
+               time_ms(lambda: paged_verify_attention(*args, **kw),
+                       flush=flush),
+               time_ms(lambda: paged_verify_reference(*args, **kw),
+                       flush=flush),
+               time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
+        log_kernel_time(name, lambda: paged_verify_attention(*args, **kw),
                         flush, sdpa)
 
 
@@ -1645,7 +1787,8 @@ def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
     ring routes count apart), and the launches of flash, gmm, the paged
     decode, the scan and the mLSTM at the shapes of their second
-    records, and of the paged verify at the prefix passes' shapes."""
+    records, and of the paged verify at the prefix passes' and the
+    speculative tree passes' shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1658,6 +1801,9 @@ def _launch_counters() -> dict:
     counts = {name: functools.partial(verify_shapes.__getitem__,
                                       prefix_verify_shape(*kq))
               for name, kq in PREFIX_VERIFY.items()}
+    counts.update({name: functools.partial(verify_shapes.__getitem__,
+                                           spec_verify_shape(int8))
+                   for name, int8 in SPEC_VERIFY.items()})
     return {**counts,
             "flash_attention": lambda: flash_attention.launches,
             "decode_attention": lambda: decode_attention.launches,
@@ -1693,13 +1839,14 @@ def _launch_counters() -> dict:
 
 
 def run_pass(dev, label, server, cfgs, reqs, make_sched, used,
-             keep_server: bool = False) -> tuple:
+             keep_server: bool = False, report=None) -> tuple:
     """Serve ``reqs`` ((name, (1, S) prompt) pairs) through one scheduler
     on ``server``, with every launch count zeroed just before.  Each
     request must resolve to NEW_TOKENS in-vocabulary tokens and every
     kernel in ``used`` must have launched.  Logs the pass's report;
-    returns (launch counts, outputs).  Shuts the server down unless
-    ``keep_server`` (a twin pass follows on the same weights)."""
+    returns (launch counts, outputs), and puts the report in
+    ``report`` when given.  Shuts the server down unless ``keep_server``
+    (a twin pass follows on the same weights)."""
     import torch
     from repro_torch import kernels
 
@@ -1732,6 +1879,11 @@ def run_pass(dev, label, server, cfgs, reqs, make_sched, used,
                / max(st["switches"], 1),
                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
                "launches": counts}
+        snap = sched.snapshot()
+        for key in ("spec_rounds", "spec_committed_tokens",
+                    "accepted_tokens_per_round", "spec_acceptance_rate"):
+            if key in snap:
+                rep[key] = snap[key]
         fused = [e for k, e in server._step_engines.items()
                  if k.multi_step > 1]
         if fused:                       # the pass's CUDA graphs of a tick
@@ -1741,23 +1893,27 @@ def run_pass(dev, label, server, cfgs, reqs, make_sched, used,
                 e.stats["device_steps"] for e in fused) / max(1, sum(
                     e.stats["host_ticks"] for e in fused))
         log("serving " + json.dumps(rep))
+        if report is not None:
+            report.update(rep)
         return counts, outs
     finally:
         if not keep_server:
             server.shutdown()
 
 
-def require_bitwise(label, got, want) -> None:
-    """A fused pass's streams against its single-step twin's: the same
-    tokens, every one, or the pass fails."""
+def require_bitwise(label, got, want,
+                    twin: str = "the single-step twin") -> None:
+    """A pass's streams against its twin's (a fused pass's, its
+    single-step twin's): the same tokens, every one, or the pass
+    fails."""
     import numpy as np
     if len(got) != len(want) or not all(
             np.array_equal(a, b) for a, b in zip(got, want)):
         same = sum(int((a == b).sum()) for a, b in zip(got, want))
         raise AssertionError(
-            f"{label}: streams differ from the single-step twin's "
+            f"{label}: streams differ from {twin}'s "
             f"({same} of {sum(b.size for b in want)} tokens agree)")
-    log(f"serving {label}: streams bitwise equal to the single-step twin's")
+    log(f"serving {label}: streams bitwise equal to {twin}'s")
 
 
 def serving_phase(dev) -> dict:
@@ -1851,7 +2007,7 @@ def serving_phase(dev) -> dict:
         "int8_vs_fp_paged": agree(outputs["continuous_paged_chunked_int8"],
                                   outputs["continuous_paged_chunked"])}))
     for extra in (moe_hybrid_pass, xlstm_pass, sharded_local_read_pass,
-                  moe_ep_mesh_pass, prefix_pass):
+                  moe_ep_mesh_pass, prefix_pass, spec_pass):
         counts = extra(dev)
         for n in totals:
             totals[n] += counts[n]
@@ -1859,12 +2015,17 @@ def serving_phase(dev) -> dict:
 
 
 # records whose launches are a route's or a shape's of a kernel body also
-# carry the body's launches: no engine verifies a tree or a ring yet, so
-# those routes launch no time on the main path; the windowed flash, the
+# carry the body's launches: no engine verifies a ring yet, so that route
+# launches no time on the main path; the speculative tree passes verify
+# the tree route; the tree records at their shape, the windowed flash, the
 # down product, the long paged decode, the scan's and mLSTM's serving
 # records and the prefix passes' verify records count the launches at
 # their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
+              "paged_verify_attention_tree_spec":
+                  "paged_verify_attention_tree",
+              "paged_verify_attention_tree_spec_int8":
+                  "paged_verify_attention_tree",
               "verify_attention_ring": "verify_attention",
               "flash_attention_window": "flash_attention",
               "gmm_down": "gmm",
@@ -2780,6 +2941,240 @@ def profile_phase(dev, steps: int = 8) -> None:
         "graph_capture_s": eng.graph_capture_s}))
 
 
+SPEC_DRAFT = "tinyllama-1.1b:draft"
+SPEC_PERTURB = 2e-3          # the tree passes' draft: weights + 2e-3 N(0, 1)
+
+
+def spec_server(dev, max_len: int, perturb: float) -> tuple:
+    """tinyllama-1.1b at its published width (bf16 weights from a seed,
+    pinned in host memory, as ``build_server`` makes them) and a draft
+    context ``SPEC_DRAFT`` of the same model: the target's own weights
+    (an aligned draft, as ``benchmarks/bench_speculative.py`` has it) or,
+    with ``perturb``, those weights plus ``perturb`` times a standard
+    normal draw (seed 9), which disagree with the target now and then."""
+    import torch
+    from repro_torch.launch.serve import _to_host, build_server
+    from repro_torch.serve.switching import ServedModel
+
+    server, cfgs = build_server(["tinyllama-1.1b"], slots=2, max_len=max_len,
+                                reduce=False, device=dev,
+                                arch_overrides={"param_dtype": "bfloat16"})
+    sm = server._served["tinyllama-1.1b"]
+    params = sm.weights_fn()
+    if perturb:
+        gen = torch.Generator(device=dev).manual_seed(9)
+
+        def noised(t):
+            d = t.to(dev).float()
+            d += perturb * torch.randn(d.shape, generator=gen, device=dev)
+            return d.to(t.dtype)
+        params = _to_host(_tree(noised, params))
+    server.register(ServedModel(name=SPEC_DRAFT, model=sm.model,
+                                weights_fn=lambda p=params: p,
+                                max_len=max_len))
+    cfgs[SPEC_DRAFT] = cfgs["tinyllama-1.1b"]
+    return server, cfgs
+
+
+def spec_pass(dev) -> dict:
+    """``spec_*``: speculative decoding through ``ContinuousScheduler``
+    at tinyllama-1.1b's published width (bf16, 2 weight slots, 8 slots
+    of paged columns, pages of 256), 8 requests of 128-512 prompt tokens
+    and NEW_TOKENS new ones, greedy: ``spec_plain_twin`` (the same
+    requests on a plain paged engine), ``spec_flat`` (K=4, an aligned
+    draft), ``spec_flat_shared_bank`` (the same, the target column on a
+    ``SharedBank``: bitwise ``spec_flat``), ``spec_tree`` (K=4, W=3, a
+    perturbed draft: the tree route of B4, at the tree records' shape)
+    and ``spec_tree_int8_chunked`` (the same on int8 columns, prompts in
+    CHUNK-token chunks).  Logged beside each: accepted tokens a round,
+    rounds, the twin's tokens/s and the greedy agreement with it."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    target = "tinyllama-1.1b"
+    max_len = SPEC_P * SPEC_PAGE
+    rng = np.random.default_rng(2)
+    vocab = get_arch(target).vocab_size
+    reqs = [(target, rng.integers(0, vocab, (1, int(rng.integers(
+        PROMPT_LENS[0], PROMPT_LENS[1] + 1))))) for _ in range(N_REQUESTS)]
+
+    def sched(**kw):
+        return lambda s: ContinuousScheduler(
+            s, batch_size=N_REQUESTS, paged=True, page_size=SPEC_PAGE, **kw)
+
+    spec = dict(draft={target: SPEC_DRAFT}, spec_k=SPEC_K)
+    tree = dict(spec, spec_tree=SPEC_W)
+    paged = {"flash_attention", "paged_decode_attention"}
+    runs = [(0.0, [
+        ("spec_plain_twin", sched(), paged),
+        ("spec_flat", sched(**spec), paged | {"paged_verify_attention"}),
+        ("spec_flat_shared_bank", sched(**spec, share_bank=True),
+         paged | {"paged_verify_attention"})]),
+        (SPEC_PERTURB, [
+            ("spec_tree", sched(**tree),
+             paged | {"paged_verify_attention_tree",
+                      "paged_verify_attention_tree_spec"}),
+            ("spec_tree_int8_chunked",
+             sched(**tree, prefill_chunk=CHUNK, quantize_kv="int8"),
+             {"paged_verify_attention_int8", "paged_decode_attention_int8",
+              "paged_verify_attention_tree",
+              "paged_verify_attention_tree_spec_int8"})])]
+    totals = {n: 0 for n in _launch_counters()}
+    outs, reports = {}, {}
+    for perturb, passes in runs:
+        server, cfgs = spec_server(dev, max_len, perturb)
+        try:
+            for label, make, used in passes:
+                reports[label] = {}
+                counts, outs[label] = run_pass(
+                    dev, label, server, cfgs, reqs, make, used,
+                    keep_server=True, report=reports[label])
+                for n in totals:
+                    totals[n] += counts[n]
+        finally:
+            server.shutdown()
+    require_bitwise("spec_flat_shared_bank", outs["spec_flat_shared_bank"],
+                    outs["spec_flat"], twin="spec_flat")
+    twin = reports["spec_plain_twin"]
+    for label in ("spec_flat", "spec_tree", "spec_tree_int8_chunked"):
+        rep = reports[label]
+        log(f"serving {label}: " + json.dumps({
+            "tokens_per_s": rep["tokens_per_s"],
+            "accepted_tokens_per_round": rep["accepted_tokens_per_round"],
+            "spec_rounds": rep["spec_rounds"],
+            "spec_acceptance_rate": rep["spec_acceptance_rate"],
+            "twin_tokens_per_s": twin["tokens_per_s"],
+            "greedy_agreement_with_twin": _matching(
+                [list(o[0]) for o in outs[label]],
+                [list(o[0]) for o in outs["spec_plain_twin"]])}))
+    return totals
+
+
+def spec_reference(dev) -> None:
+    """tinyllama-1.1b at full width cut to one layer, two prompts (200
+    and 333 tokens) admitted into a ``SpecEngine`` (K=4, W=3, pages of
+    256) on the card (bf16, kernels) and on the CPU in float32 on the
+    same weights: the same page tables and positions, then one tree
+    round's verify pass (13 nodes, the engine's depth offsets and
+    ancestor masks) and one flat verify (5 tokens), each within
+    ``REF_TOL`` of the CPU's logits.  The greedy accept rules
+    (``tree_speculative_accept``, ``speculative_accept``) on the card's
+    logits, run on the card and on the CPU, must agree bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.speculative import (
+        SpecEngine, speculative_accept, tree_speculative_accept)
+
+    K, W = SPEC_K, SPEC_W
+    cfg = override(get_arch("tinyllama-1.1b"), param_dtype="bfloat16",
+                   num_layers=REF_LAYERS)
+    gpu = build_model(cfg, device=dev)
+    params = gpu.init(seed=7)
+    cpu = build_model(override(cfg, dtype="float32", param_dtype="float32"),
+                      cache_dtype=torch.float32, device="cpu")
+    cparams = _tree(lambda t: t.float().cpu(), params)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n)) for n in (200, 333)]
+    engs = []
+    for model, p in ((gpu, params), (cpu, cparams)):
+        eng = SpecEngine(model, model, batch_size=2, max_len=768, k=K,
+                         tree_width=W, page_size=SPEC_PAGE)
+        for prompt in prompts:
+            eng.admit((p, p), prompt, max_new=8)
+        engs.append(eng)
+    for key in ("pos", "t_table", "tok"):
+        a, b = (getattr(e.state, key).cpu() for e in engs)
+        log(f"reference spec {key}: card {a.flatten().tolist()[:8]} cpu "
+            f"{b.flatten().tolist()[:8]}")
+        if key != "tok" and not torch.equal(a, b):
+            raise AssertionError(f"spec reference: {key} differs")
+    fns = engs[0]._programs(K)
+    Kt = 1 + K * W
+    block = rng.integers(0, cfg.vocab_size, (2, Kt))
+    logits = []
+    for (model, p), eng in zip(((gpu, params), (cpu, cparams)), engs):
+        dv = eng.device
+        st = eng.state
+        tree_l, _ = model.verify_step_pages(
+            p, st.t_caches, torch.as_tensor(block, device=dv), st.pos,
+            st.t_table, wmask=fns["writer"].to(dv)[None].expand(2, Kt),
+            offsets=fns["offsets"].to(dv), tree=fns["tree"].to(dv))
+        flat_l, _ = model.verify_step_pages(
+            p, st.t_caches, torch.as_tensor(block[:, :K + 1], device=dv),
+            st.pos, st.t_table)
+        logits.append((tree_l, flat_l))
+    (tree_g, flat_g), (tree_c, flat_c) = logits
+    _rel_check(f"tinyllama-1.1b spec tree verify ({REF_LAYERS} layer)",
+               tree_g, tree_c)
+    _rel_check(f"tinyllama-1.1b spec flat verify ({REF_LAYERS} layer)",
+               flat_g, flat_c)
+    tgt = tree_g.argmax(-1).cpu().numpy()
+    cand = rng.integers(0, cfg.vocab_size, (2, K, W))
+    for i in range(K):                # hits on the chain and on siblings
+        parent = 0 if i == 0 else 1 + (i - 1) * W
+        cand[0, i, i % W] = tgt[0, parent]
+        cand[1, i, (i + 1) % W] = tgt[1, parent]
+    props = tgt[:, :K].copy()
+    props[1, 2] = (props[1, 2] + 1) % cfg.vocab_size
+    dl = torch.randn((2, K, cfg.vocab_size), device=dev)
+    for label, fn, args in (
+            ("tree_speculative_accept", tree_speculative_accept,
+             (cand, dl, tree_g)),
+            ("speculative_accept", speculative_accept,
+             (props, dl, flat_g))):
+        on_card = fn(*(torch.as_tensor(a, device=dev) for a in args), 0.0)
+        on_cpu = fn(*(torch.as_tensor(a).cpu() for a in args), 0.0)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+        log(f"reference spec {label} on the card's logits: n card "
+            f"{on_card[1].tolist()} cpu {on_cpu[1].tolist()}, bitwise "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{label}: card and CPU disagree on the "
+                                 "card's logits")
+    spec_depth_sweep(dev, prompts)
+
+
+SPEC_DEPTHS = (1, 2, 4, 8)   # depths of the aligned-draft sweep
+
+
+def spec_depth_sweep(dev, prompts) -> None:
+    """Logged only: an aligned draft (the target's own weights) at
+    tinyllama-1.1b's width cut to 1-8 layers, two prompts and 24 new
+    tokens each through a ``SpecEngine`` (K=4, flat, greedy) and through
+    a plain paged ``StepEngine`` on the card: accepted tokens a round
+    and the streams' agreement.  The draft proposes through the decode
+    kernel (B3), the target scores through the verify kernel (B4); they
+    round apart in bf16, and with random weights the gap grows with
+    depth (``sharded_local_read``'s sweep measures the same growth for
+    another pair of routes)."""
+    from repro_torch.configs import get_arch, override
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import StepEngine
+    from repro_torch.serve.speculative import SpecEngine
+
+    for depth in SPEC_DEPTHS:
+        m = build_model(override(get_arch("tinyllama-1.1b"),
+                                 param_dtype="bfloat16", num_layers=depth),
+                        device=dev)
+        p = m.init(seed=7)
+        spec = SpecEngine(m, m, batch_size=2, max_len=768, k=SPEC_K,
+                          page_size=SPEC_PAGE)
+        plain = StepEngine(m, batch_size=2, max_len=768, paged=True,
+                           page_size=SPEC_PAGE)
+        got = [spec.admit((p, p), t, max_new=24)[0] for t in prompts]
+        spec.drain((p, p))
+        want = [plain.admit(p, t, max_new=24)[0] for t in prompts]
+        plain.drain(p)
+        same = _matching([g.tokens for g in got], [g.tokens for g in want])
+        log(f"reference spec depth {depth}: accepted tokens a round "
+            f"{spec.accepted_per_round:.3f} over {spec.stats['rounds']} "
+            f"rounds, agreement with the plain engine {same:.4f}")
+        del m, p, spec, plain
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2788,6 +3183,7 @@ def main() -> int:
     from repro_torch import kernels
 
     dev = torch.device("cuda", 0)
+    start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2806,12 +3202,14 @@ def main() -> int:
     moe_hybrid_reference(dev)
     xlstm_reference(dev)
     int8_drift(dev)
+    spec_reference(dev)
     totals = serving_phase(dev)
     profile_phase(dev)
     for rec in records:
         rec["launches"] = totals[rec["name"]]
         if rec["name"] in ROUTE_BODY:
             rec["body_launches"] = totals[ROUTE_BODY[rec["name"]]]
+    log(f"chip_smoke total seconds: {time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@ registered models, with the JAX launcher's flags and JSON report.
 
 ``python -m repro_torch.launch.serve --archs supersub-super,supersub-sub --steps 4``
 
-Three modes:
+Four modes:
 
   * ``--mode queue`` (default) — the async ``SwitchScheduler``: requests
     for all models are submitted up front; the scheduler coalesces
@@ -25,6 +25,15 @@ Three modes:
     (``serving_mesh``); ``--prefix-cache`` (with ``--paged``) maps a
     request's already written whole-page prompt prefix read-only and
     prefills only its suffix.
+  * ``--mode speculative`` — continuous batching with speculative cascade
+    decode: ``--draft NAME`` names the draft context; every other
+    registered context becomes a verify target whose requests run on a
+    ``SpecEngine`` (draft proposes ``--spec-k`` tokens per round, the
+    target scores them in one multi-token verify pass; ``--spec-tree W``
+    verifies W candidates a depth as one token tree; ``--spec-adaptive``
+    walks K from the measured acceptance).  Draft/target hand-offs are
+    O(1) select flips with the other side prefetched into the shadow
+    slot — the paper's Super-Sub cascade as a serving mode.
   * ``--mode sync`` — the synchronous round-robin loop (the baseline the
     paper compares against).
 
@@ -116,8 +125,7 @@ def request_stream(names, cfgs, n_requests, batch, seq, seed):
 
 # JAX launcher flags whose features the port does not have yet, with the
 # value that means "off"
-_NOT_PORTED = {"draft": None, "spec_k": 4, "spec_tree": 1,
-               "spec_adaptive": False, "x64": False}
+_NOT_PORTED = {"x64": False}
 
 
 def visible_devices(platform: str | None, host_devices: int | None):
@@ -154,7 +162,24 @@ def main(argv=None) -> int:
                     choices=("queue", "continuous", "speculative", "sync"),
                     default="queue")
     ap.add_argument("--pool", type=int, default=8,
-                    help="continuous mode: slot-pool width")
+                    help="continuous/speculative mode: slot-pool width")
+    ap.add_argument("--draft", default=None,
+                    help="speculative mode: draft context name (must be "
+                         "one of --archs; the remaining archs become "
+                         "verify targets)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative mode: draft tokens per round (the "
+                         "adaptive ceiling when --spec-adaptive is set)")
+    ap.add_argument("--spec-tree", type=int, default=1,
+                    help="speculative mode: sibling candidates per draft "
+                         "depth — 1 is the flat chain; W>1 verifies a "
+                         "token tree so a rejected chain can still "
+                         "commit an accepted sibling (needs "
+                         "1 + K*W <= 31 tree nodes)")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="speculative mode: let the scheduler walk each "
+                         "engine's K inside [1, --spec-k] from the "
+                         "measured acceptance rate (EWMA, hysteresis)")
     ap.add_argument("--paged", action="store_true",
                     help="continuous mode: paged slot pool — per-slot "
                          "page tables over one shared KV page bank")
@@ -220,18 +245,10 @@ def main(argv=None) -> int:
                          "registry snapshot (one JSON line to stderr) "
                          "every SECONDS; 0 disables")
     # flags of the JAX launcher that are not ported yet (rejected below)
-    ap.add_argument("--draft", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--spec-k", type=int, default=4, help=argparse.SUPPRESS)
-    ap.add_argument("--spec-tree", type=int, default=1,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--spec-adaptive", action="store_true",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     asked = ["--" + k.replace("_", "-") for k, off in _NOT_PORTED.items()
              if getattr(args, k) != off]
-    if args.mode == "speculative":
-        asked.insert(0, "--mode speculative")
     if asked:
         ap.error(f"{', '.join(asked)}: not yet ported to repro_torch")
     if args.multi_step < 1:
@@ -241,16 +258,43 @@ def main(argv=None) -> int:
     if args.host_devices is not None and args.host_devices < 1:
         ap.error(f"host device count must be >= 1, got "
                  f"{args.host_devices}")
-    if args.quantize_kv != "none" and not args.paged:
-        ap.error("--quantize-kv targets the shared page pool: it requires "
-                 "--paged")
-    if args.prefix_cache and not args.paged:
+    if args.quantize_kv != "none" and not args.paged \
+            and args.mode != "speculative":
+        ap.error("--quantize-kv targets the shared page bank: it "
+                 "requires --paged (or --mode speculative, whose cache "
+                 "columns are always paged)")
+    if args.prefix_cache and not args.paged \
+            and args.mode != "speculative":
         ap.error("--prefix-cache shares pages of the pooled bank: it "
-                 "requires --paged")
+                 "requires --paged (or --mode speculative, whose target "
+                 "column is always paged)")
+    if args.spec_k < 1:
+        ap.error("--spec-k must be >= 1 (one drafted token per round is "
+                 "the minimum speculative step)")
+    if args.spec_tree < 1:
+        ap.error("--spec-tree must be >= 1 (1 is the flat chain)")
+    if args.mode == "speculative":
+        if args.draft is None:
+            ap.error("--mode speculative requires --draft: name the "
+                     "context that proposes tokens (the remaining "
+                     "--archs become verify targets)")
+        if 1 + args.spec_k * args.spec_tree > 31:
+            ap.error(f"--spec-k {args.spec_k} with --spec-tree "
+                     f"{args.spec_tree} needs 1 + K*W <= 31 tree nodes "
+                     "(ancestor masks live in an int32 bitmask); lower "
+                     "one of them")
+    else:
+        if args.draft is not None:
+            ap.error("--draft only applies to --mode speculative")
+        if args.spec_tree != 1:
+            ap.error("--spec-tree only applies to --mode speculative")
+        if args.spec_adaptive:
+            ap.error("--spec-adaptive only applies to --mode speculative")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
 
     names = args.archs.split(",")
-    max_len = args.seq + args.steps + 8
+    slack = args.spec_k if args.mode == "speculative" else 0
+    max_len = args.seq + args.steps + slack + 8
     if args.paged:
         # a paged pool's row space is a whole number of pages
         ps = min(args.page_size, max_len)
@@ -270,17 +314,29 @@ def main(argv=None) -> int:
                                  default=str), file=sys.stderr)
         threading.Thread(target=_stats_loop, daemon=True,
                          name="stats-reporter").start()
-    reqs = list(request_stream(names, cfgs, args.requests, args.batch,
-                               args.seq, args.seed))
+    draft_map = {}
+    if args.mode == "speculative":
+        if args.draft not in names:
+            ap.error(f"--draft {args.draft!r} must be one of "
+                     f"--archs {names}")
+        targets = [n for n in names if n != args.draft]
+        draft_map = {t: args.draft for t in targets}
+        reqs = list(request_stream(targets, cfgs, args.requests,
+                                   args.batch, args.seq, args.seed))
+    else:
+        reqs = list(request_stream(names, cfgs, args.requests, args.batch,
+                                   args.seq, args.seed))
     mesh = serving_mesh(args.shards,
                         visible_devices(args.platform, args.host_devices),
                         device)
 
     t0 = time.perf_counter()
-    if args.mode in ("queue", "continuous"):
+    if args.mode in ("queue", "continuous", "speculative"):
         sched_cls = (SwitchScheduler if args.mode == "queue" else
                      lambda s: ContinuousScheduler(
-                         s, batch_size=args.pool,
+                         s, batch_size=args.pool, draft=draft_map,
+                         spec_k=args.spec_k, spec_tree=args.spec_tree,
+                         spec_adaptive=args.spec_adaptive,
                          prefill_chunk=args.prefill_chunk,
                          paged=args.paged, page_size=args.page_size,
                          quantize_kv=(None if args.quantize_kv == "none"

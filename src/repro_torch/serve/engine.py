@@ -81,13 +81,16 @@ class GumbelDraws:
                           last gumbel row)
       * ``salt()``      — after an instant retire: key := mix(key, 2^30 | t)
       * ``field(key, shape)``          — the gumbel field of one key
+      * ``uniform(key, shape)``        — the uniform [0, 1) field of one
+                          key (speculative acceptance)
+      * ``fold(key, x)``               — the key mix(key, x) (``fold_in``)
       * ``rows(seeds, produced_at, V)`` — seeded rows: row i draws from
                           mix(seeds[i], produced_at[i]), independent of
                           slot, admission boundary and pool traffic
 
     A field is drawn with a ``torch.Generator`` on the engine's device
     seeded from the key.  Tests subclass this to feed the JAX engine's
-    own gumbel fields (torch and JAX generators differ)."""
+    own gumbel and uniform fields (torch and JAX generators differ)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -119,6 +122,13 @@ class GumbelDraws:
         u = torch.rand(shape, generator=gen, device=self.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def uniform(self, key, shape) -> torch.Tensor:
+        gen = torch.Generator(device=self.device).manual_seed(int(key))
+        return torch.rand(shape, generator=gen, device=self.device)
+
+    def fold(self, key, x: int):
+        return _mix(key, x)
 
     def rows(self, seeds, produced_at, V: int) -> torch.Tensor:
         return torch.stack([self.field(_mix(_mix(s), p), (V,))

@@ -37,6 +37,7 @@ forward pass; everything else is served back-to-back after a single switch.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 from collections import defaultdict, deque
@@ -48,6 +49,7 @@ import numpy as np
 
 from repro_torch.distributed.mesh import shard_count
 from repro_torch.serve.engine import EngineKey, _mix
+from repro_torch.serve.speculative import SpecKey
 from repro_torch.serve.telemetry import Telemetry, safe_ratio
 
 # request-level histograms surfaced by every scheduler snapshot
@@ -385,29 +387,37 @@ class ContinuousScheduler:
     (the snapshot then carries ``prefix_hits``, ``prefix_pages_mapped``,
     ``cow_copies`` and ``cache_evictions``); ``share_bank=True`` (paged)
     has every engine of a context allocate from, and index into, one
-    ``SharedBank``.  The JAX scheduler's speculative contexts (``draft``)
-    are not ported yet: a non-empty ``draft`` raises.
+    ``SharedBank`` (a speculative target column of the context too).
 
-    Per-request seeds ARE honored: a seeded row draws from its own
-    generator state (folded with the row's token position), so a seeded
-    resubmission reproduces its tokens exactly regardless of slot or
-    surrounding traffic.
+    ``draft`` maps a context name to a *draft* context: requests for that
+    context run on a speculative ``SpecEngine`` (draft proposes
+    ``spec_k`` tokens, the target verifies them in one multi-token pass;
+    ``spec_tree`` candidates per depth; ``spec_adaptive`` walks each
+    engine's K inside [1, spec_k] from the measured acceptance) instead
+    of a plain ``StepEngine`` — mixed speculative/plain traffic shares the
+    same rank/drain/stack loop, and each draft/target hand-off inside a
+    round is an O(1) select flip with the other context prefetched into
+    the shadow slot.  The speculative engines' cache columns are always
+    paged (``page_size`` when ``paged``).
+
+    Per-request seeds ARE honored for plain contexts: a seeded row draws
+    from its own generator state (folded with the row's token position),
+    so a seeded resubmission reproduces its tokens exactly regardless of
+    slot or surrounding traffic.  Speculative contexts reject seeds (the
+    accept/reject cascade has no per-row schedule).
     """
 
     def __init__(self, server, batch_size: int = 8,
                  age_weight: float = 10.0, cost_weight: float = 1.0,
                  switch_margin: float = 1.5, preempt_margin: float = 6.0,
-                 draft: Optional[dict] = None,
+                 draft: Optional[dict] = None, spec_k: int = 4,
+                 spec_tree: int = 1, spec_adaptive: bool = False,
                  prefill_chunk: Optional[int] = None,
                  paged: bool = False, page_size: int = 256,
                  quantize_kv: Optional[str] = None,
                  shards: Optional[int] = None, mesh=None,
                  multi_step: int = 1, prefix_cache: bool = False,
                  share_bank: bool = False):
-        if draft:
-            raise NotImplementedError(
-                "speculative contexts (draft=) are not yet ported to "
-                "repro_torch")
         self.server = server
         self.batch_size = batch_size
         # sharded page bank (paged mode): engines partition their page
@@ -447,6 +457,19 @@ class ContinuousScheduler:
         self.cost_weight = cost_weight
         self.switch_margin = switch_margin
         self.preempt_margin = preempt_margin
+        self.draft = dict(draft or {})
+        self.spec_k = spec_k
+        # speculative tree width (siblings per depth; 1 == flat chain)
+        if spec_tree < 1:
+            raise ValueError(f"spec_tree must be >= 1, got {spec_tree}")
+        self.spec_tree = spec_tree
+        # acceptance-driven adaptive K: EWMA the measured per-tick
+        # acceptance fraction and walk each spec engine's K inside
+        # [1, spec_k] (spec_k is the ceiling — admission slack, program
+        # cache, and submit validation all use it)
+        self.spec_adaptive = spec_adaptive
+        self._accept_ewma: dict[str, float] = {}
+        self._spec_prev: dict[str, tuple[int, int]] = {}
         self._queues: dict[str, deque[_Request]] = defaultdict(deque)
         self._inflight: dict[int, _Inflight] = {}
         self._inflight_seq = 0          # monotonic key: ids recycle, this
@@ -484,9 +507,13 @@ class ContinuousScheduler:
         seed column (``DecodeState.rseed``), folded with each token's
         position: a seeded resubmission reproduces its tokens exactly,
         independent of slot assignment, admission boundary, and pool
-        traffic."""
+        traffic.  Speculative contexts (see ``draft``) reject seeds."""
         if name not in self.server.served():
             raise KeyError(f"model {name!r} not registered")
+        if seed is not None and name in self.draft:
+            raise ValueError(
+                "speculative contexts do not honor per-request seeds; "
+                "submit to a plain context for seed reproducibility")
         tokens = np.asarray(tokens)
         if tokens.ndim == 1:
             tokens = tokens[None]
@@ -495,8 +522,10 @@ class ContinuousScheduler:
             raise ValueError(f"request batch {b} > pool size "
                              f"{self.batch_size}")
         sm = self.server._served[name]
-        if S + steps > sm.max_len:
-            raise ValueError(f"prompt {S} + {steps} steps exceeds max_len "
+        slack = self.spec_k if name in self.draft else 0
+        if S + steps + slack > sm.max_len:
+            raise ValueError(f"prompt {S} + {steps} steps (+{slack} "
+                             f"speculative slack) exceeds max_len "
                              f"{sm.max_len}")
         fut: Future = Future()
         req = _Request(name=name, tokens=tokens, steps=steps,
@@ -557,6 +586,8 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------ engines
     def _engine(self, name: str):
+        if name in self.draft:
+            return self._spec_engine(name)
         eng = self.server.step_engine(name, self.batch_size,
                                       prefill_chunk=self.prefill_chunk,
                                       paged=self.paged,
@@ -573,6 +604,36 @@ class ContinuousScheduler:
             # hidden-load accounting sees token-granular execution; the
             # params slot is filled with the ACTIVE buffers by run_step.
             eng.runner = lambda fn, params, *args: cse.run_step(fn, *args)
+        return eng
+
+    def _spec_engine(self, name: str):
+        dname = self.draft[name]
+        eng = self.server.spec_engine(
+            name, dname, self.batch_size, k=self.spec_k,
+            tree_width=self.spec_tree,
+            page_size=self.page_size if self.paged else None,
+            prefill_chunk=self.prefill_chunk,
+            prefix_cache=self.prefix_cache,
+            quantize_kv=self.quantize_kv,
+            share_bank=self.share_bank)
+        if eng.runner is None:
+            cse = self.server.engine
+
+            def runner(which, fn, *args, _t=name, _d=dname):
+                # the paper's dual-copy cascade at program granularity:
+                # activate the side this program needs (O(1) when
+                # resident) and stream the OTHER side into the shadow
+                # slot behind this program's execution
+                want, other = (_t, _d) if which == "target" else (_d, _t)
+                cse.preload(want)
+                cse.switch(want, wait=True)
+                try:
+                    cse.prefetch([other], limit=1)
+                except Exception:
+                    pass
+                return cse.run_step(fn, *args)
+
+            eng.runner = runner
         return eng
 
     def _step_key(self, name: str) -> EngineKey:
@@ -592,10 +653,29 @@ class ContinuousScheduler:
                          shards=shard_count(self.shards, self.mesh),
                          multi_step=self.multi_step)
 
+    def _spec_key(self, name: str) -> SpecKey:
+        """The server-side ``_spec_engines`` cache key this scheduler's
+        configuration resolves to — the resolved page size mirrors
+        ``SwitchableServer.spec_engine`` (scheduler page size when paged,
+        the SpecEngine default otherwise)."""
+        sm = self.server._served[name]
+        ps = (min(self.page_size, sm.max_len) if self.paged
+              else math.gcd(sm.max_len, 256))
+        return SpecKey(name=name, draft=self.draft[name],
+                       batch_size=self.batch_size, k=self.spec_k,
+                       tree_width=self.spec_tree, page_size=ps,
+                       quantize_kv=self.quantize_kv,
+                       prefix_cache=self.prefix_cache,
+                       prefill_chunk=self.prefill_chunk,
+                       shared_bank=self.share_bank)
+
     def _live_engines(self):
         out = {}
         for name in self.server.served():
-            eng = self.server._step_engines.get(self._step_key(name))
+            if name in self.draft:
+                eng = self.server._spec_engines.get(self._spec_key(name))
+            else:
+                eng = self.server._step_engines.get(self._step_key(name))
             if eng is not None and eng.live_slots():
                 out[name] = eng
         return out
@@ -711,6 +791,8 @@ class ContinuousScheduler:
             self.stats["steps"] += 1
             self.stats["busy_seconds"] += self._clock() - t0
             self._resolve(finished)
+            if self.spec_adaptive and cur in self.draft:
+                self._adapt_k(cur, eng)
         else:
             time.sleep(0.0005)                # waiting on a load/queue
         # starvation-guard bookkeeping: stamp contexts left holding frozen
@@ -724,6 +806,32 @@ class ContinuousScheduler:
             if name not in live:
                 del self._stranded_since[name]
         return cur
+
+    def _adapt_k(self, name: str, eng):
+        """Acceptance-driven K: EWMA (alpha=0.2) the fraction of DRAFTED
+        tokens the target accepted since the last look (stats deltas, so
+        resets and other schedulers' traffic don't pollute it), then walk
+        K one step inside [1, spec_k] with hysteresis — above 0.8 the
+        draft is tracking the target and a longer chain amortizes more
+        target calls per round; below 0.4 most drafted tokens are wasted
+        draft steps, so shrink.  The dead band between keeps K stable
+        under ordinary acceptance noise."""
+        committed = eng.stats["committed_tokens"]
+        rows = eng.stats["row_rounds"]
+        pc, pr = self._spec_prev.get(name, (0, 0))
+        dc, dr = committed - pc, rows - pr
+        if dr <= 0:
+            return                      # no row finished a round this tick
+        self._spec_prev[name] = (committed, rows)
+        # each row-round commits accepted+1 (the bonus/correction token)
+        acc = (dc / dr - 1.0) / max(eng.k, 1)
+        ew = self._accept_ewma.get(name)
+        ew = acc if ew is None else 0.8 * ew + 0.2 * acc
+        self._accept_ewma[name] = ew
+        if ew > 0.8 and eng.k < eng.k_max:
+            eng.set_k(eng.k + 1)
+        elif ew < 0.4 and eng.k > 1:
+            eng.set_k(eng.k - 1)
 
     def _activate(self, name: str) -> str:
         t0 = self._clock()
@@ -838,6 +946,11 @@ class ContinuousScheduler:
             if bsz == self.batch_size and (cur is None or name == cur) \
                     and eng.live_slots():
                 eng.reset()
+        for skey, eng in list(self.server._spec_engines.items()):
+            if skey.batch_size == self.batch_size \
+                    and (cur is None or skey.name == cur) \
+                    and eng.live_slots():
+                eng.reset()
 
     # ------------------------------------------------------------- report
     def snapshot(self) -> dict:
@@ -860,4 +973,23 @@ class ContinuousScheduler:
         if self.prefix_cache:
             # prefix-cache effectiveness across this config's engines
             out.update(prefix)
+        rounds = row_rounds = committed = 0
+        for skey, eng in self.server._spec_engines.items():
+            # full-key match: the server outlives schedulers, so engines
+            # from a prior draft/spec configuration may coexist
+            if (self.draft.get(skey.name) == skey.draft
+                    and skey == self._spec_key(skey.name)):
+                rounds += eng.stats["rounds"]
+                row_rounds += eng.stats["row_rounds"]
+                committed += eng.stats["committed_tokens"]
+        if rounds or self.draft:
+            out["spec_rounds"] = rounds
+            out["spec_committed_tokens"] = committed
+            out["accepted_tokens_per_round"] = round(
+                safe_ratio(committed, row_rounds), 3)
+            # fraction of *drafted* tokens the target accepted: each row
+            # round drafts spec_k and commits accepted+1 (the bonus token)
+            out["spec_acceptance_rate"] = round(
+                safe_ratio(committed - row_rounds,
+                           row_rounds * self.spec_k), 3)
         return out

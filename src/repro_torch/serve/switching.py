@@ -11,8 +11,9 @@ One ``ServingEngine`` is cached per context and one ``StepEngine`` per
 (context, pool shape); sampling threads a fresh per-request seed so
 temperature>0 requests are independent draws.  Shared page banks
 (``shared_bank``) put one page pool, prefix index and cache behind every
-engine of one context's cache content.  The JAX package's speculative
-engines and state snapshots are not ported yet.
+engine of one context's cache content, and one ``SpecEngine`` is cached
+per (target, draft, configuration).  The JAX package's state snapshots
+are not ported yet.
 
 For request-level scheduling (queueing, coalescing, shadow-slot prefetch
 under mixed traffic) see ``repro_torch.serve.scheduler``.
@@ -20,6 +21,7 @@ under mixed traffic) see ``repro_torch.serve.scheduler``.
 from __future__ import annotations
 
 import itertools
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -32,6 +34,7 @@ from repro_torch.models.model import LM
 from repro_torch.serve.engine import (EngineKey, GumbelDraws, ServingEngine,
                                       StepEngine, _sample)
 from repro_torch.serve.pool import PagePool, SharedBank, ShardedPagePool
+from repro_torch.serve.speculative import SpecEngine, SpecKey
 from repro_torch.serve.telemetry import Telemetry
 
 
@@ -65,6 +68,7 @@ class SwitchableServer:
         # bank, so a prefix one engine indexed is a hit for all of them
         self._banks: dict[tuple, SharedBank] = {}
         self._step_engines: dict[EngineKey, StepEngine] = {}
+        self._spec_engines: dict[SpecKey, SpecEngine] = {}
         self._eng_seq = itertools.count()   # telemetry namespace ids
         self._req_seq = itertools.count()
         self.log: list[dict] = []
@@ -205,6 +209,53 @@ class SwitchableServer:
                              telemetry=self.telemetry.scoped(
                                  f"eng.{next(self._eng_seq)}."))
             self._step_engines[key] = eng
+        return eng
+
+    def spec_engine(self, name: str, draft: str, batch_size: int,
+                    k: int = 4, tree_width: int = 1,
+                    page_size: Optional[int] = None,
+                    num_pages: Optional[int] = None,
+                    prefill_chunk: Optional[int] = None,
+                    prefix_cache: bool = False,
+                    quantize_kv: Optional[str] = None,
+                    share_bank: bool = False) -> SpecEngine:
+        """Per-(target, draft) speculative engine (one per configuration).
+        Like ``step_engine``, decode state persists across context
+        switches and weights are never captured — every draft / target
+        program runs against the matching context slot via the
+        scheduler's runner hook.  ``k`` is the engine's K_MAX: adaptive
+        schedulers move ``eng.set_k`` under it without changing which
+        engine serves the pair.  With ``share_bank`` the TARGET column
+        allocates from (and indexes prefixes into) the context's shared
+        bank, so prompts cached by a plain paged engine of ``name`` are
+        prefix hits here and vice versa; the draft column always stays
+        private (different bytes)."""
+        sm, dm = self._served[name], self._served[draft]
+        eff_ps = (min(page_size, sm.max_len) if page_size is not None
+                  else math.gcd(sm.max_len, 256))
+        key = SpecKey(name=name, draft=draft, batch_size=batch_size,
+                      k=k, tree_width=tree_width, page_size=eff_ps,
+                      quantize_kv=quantize_kv, prefix_cache=prefix_cache,
+                      prefill_chunk=prefill_chunk, shared_bank=share_bank)
+        eng = self._spec_engines.get(key)
+        if eng is None:
+            bank = None
+            if share_bank:
+                ppr = sm.max_len // eff_ps
+                bank = self.shared_bank(
+                    name, eff_ps, quantize_kv,
+                    num_pages=(num_pages if num_pages is not None
+                               else batch_size * ppr + 1))
+            eng = SpecEngine(dm.model, sm.model, batch_size, sm.max_len,
+                             k=k, temperature=sm.temperature,
+                             tree_width=tree_width, page_size=eff_ps,
+                             num_pages=num_pages,
+                             prefill_chunk=prefill_chunk,
+                             prefix_cache=prefix_cache,
+                             quantize_kv=quantize_kv, bank=bank,
+                             telemetry=self.telemetry.scoped(
+                                 f"eng.{next(self._eng_seq)}."))
+            self._spec_engines[key] = eng
         return eng
 
     # ------------------------------------------------------------------

@@ -1434,3 +1434,76 @@ def test_chunked_hit_under_local_reads_is_bitwise_the_cold_stream(gen):
     assert paged_decode_partial.launches > before
     assert (eng.stats["prefix_hits"], eng.stats["prefix_pages_mapped"],
             eng.stats["cow_copies"]) == (2, 4, 0)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_greedy_accept_on_the_card_is_the_cpus(gen, tree):
+    """The greedy accept rules on CUDA tensors and on CPU copies of the
+    same values agree bit for bit, over bf16-rounded logits (ties
+    plausible) at a 32000-token vocabulary, with hits on the chain, on
+    later siblings and misses; the greedy tree's top W breaks ties to
+    the lowest index on the card too."""
+    from repro_torch.serve.speculative import (_top_w, speculative_accept,
+                                               tree_speculative_accept)
+    B, K, W, V = 64, 4, 3, 32000
+    Kt = 1 + K * W if tree else K + 1
+    tl = torch.randn((B, Kt, V), generator=gen, device="cuda").to(
+        torch.bfloat16).float()
+    dl = torch.randn((B, K, V), generator=gen, device="cuda")
+    tgt = tl.argmax(-1)
+    if tree:
+        x = torch.randint(0, V, (B, K, W), generator=gen, device="cuda")
+        rows = torch.arange(B, device="cuda")
+        for i in range(K):              # row r hits sibling (r + i) % W,
+            parent = 0 if i == 0 else 1 + (i - 1) * W   # every 4th misses
+            col = (rows + i) % W
+            x[rows, i, col] = torch.where(rows % 4 == 3, x[rows, i, col],
+                                          tgt[:, parent])
+        fn = tree_speculative_accept
+    else:
+        x = tgt[:, :K].clone()
+        miss = torch.rand((B, K), generator=gen, device="cuda") < 0.3
+        x[miss] = (x[miss] + 1) % V
+        fn = speculative_accept
+    on_card = fn(x, dl, tl, 0.0)
+    on_cpu = fn(x.cpu(), dl.cpu(), tl.cpu(), 0.0)
+    for a, b in zip(on_card, on_cpu):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    n = on_card[1]
+    assert (n == 0).any() and (n > 0).any()
+    ties = torch.zeros((2, V), device="cuda")
+    ties[:, [7, 31999, 5, 100]] = 1.0
+    assert _top_w(ties, 3).tolist() == [[5, 7, 100]] * 2
+
+
+@pytest.mark.parametrize("tree_width", [1, 3])
+def test_spec_rounds_on_the_card(gen, tree_width):
+    """Reduced tinyllama on the card, an aligned draft: each round
+    launches the paged verify kernel once per target layer on its route
+    (the causal body for a flat round, the tree route for a tree of
+    1 + 4*3 nodes), commits 1 to K+1 tokens a row, and the engine drains
+    with every page back."""
+    from repro_torch.kernels.paged_attention.ops import paged_verify_attention
+    from repro_torch.serve.speculative import SpecEngine
+    m, p = _reduced_lm("tinyllama-1.1b", {})
+    eng = SpecEngine(m, m, batch_size=2, max_len=64, k=4,
+                     tree_width=tree_width, page_size=16)
+    g = torch.Generator().manual_seed(2)
+    gens = [eng.admit((p, p), torch.randint(
+        0, m.cfg.vocab_size, (1, S), generator=g).numpy(), max_new=12)[0]
+        for S in (9, 20)]
+    route = "launches_tree" if tree_width > 1 else "launches"
+    while eng.live_slots():
+        before = getattr(paged_verify_attention, route)
+        done = sum(len(x.tokens) for x in gens)
+        eng.step((p, p))
+        assert getattr(paged_verify_attention, route) - before == \
+            m.cfg.num_layers
+        assert 1 <= sum(len(x.tokens) for x in gens) - done <= 2 * 5
+    assert [len(x.tokens) for x in gens] == [12, 12]
+    assert eng.accepted_per_round >= 1.0 and eng.stats["rounds"] <= 11
+    assert eng.free_pages() == eng._d_pages.allocatable

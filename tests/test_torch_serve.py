@@ -110,6 +110,13 @@ class JaxDraws(GumbelDraws):
         return torch.from_numpy(np.array(
             jax.random.gumbel(key, shape, jnp.float32)))
 
+    def uniform(self, key, shape):
+        return torch.from_numpy(np.array(
+            jax.random.uniform(key, shape, jnp.float32)))
+
+    def fold(self, key, x):
+        return jax.random.fold_in(key, x)
+
     def rows(self, seeds, produced_at, V):
         return torch.stack([self.field(jax.random.fold_in(
             jax.random.PRNGKey(int(s)), int(p)), (V,))
@@ -216,16 +223,23 @@ def test_generate_and_generate_paged_agree(pair):
 
 def test_unported_options_raise(pair):
     """The prefix cache and a shared bank need a paged engine (JAX's
-    ``ValueError``s); speculative contexts are not ported yet."""
+    ``ValueError``s); a speculative context (``draft=``) builds and
+    serves a request."""
     tm, _, _, _ = pair
     for kw in (dict(prefix_cache=True), dict(bank=object())):
         with pytest.raises(ValueError, match="paged"):
             StepEngine(tm, batch_size=2, max_len=32, **kw)
-    server, _ = launch.build_server(["supersub-super"], 2, 32,
-                                    device="cpu")
+    server, cfgs = launch.build_server(["supersub-super", "supersub-sub"],
+                                       2, 32, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ContinuousScheduler(server, draft={"supersub-super": "x"})
+        with ContinuousScheduler(
+                server, batch_size=2,
+                draft={"supersub-super": "supersub-sub"}) as sched:
+            toks = np.arange(8)[None] % cfgs["supersub-super"].vocab_size
+            out = sched.submit("supersub-super", toks, steps=3).result(
+                timeout=120)
+        assert out.shape == (1, 3)
+        assert sched.snapshot()["spec_rounds"] > 0
     finally:
         server.shutdown()
 
@@ -327,10 +341,10 @@ def test_launcher_report(mode, capsys):
 
 def test_launcher_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit) as e:
-        launch.main(["--platform", "cpu", "--mode", "speculative"])
+        launch.main(["--platform", "cpu", "--x64"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "--mode speculative" in err and "not yet ported" in err
+    assert "--x64" in err and "not yet ported" in err
     with pytest.raises(SystemExit) as e:
         launch.main(["--platform", "cpu", "--multi-step", "0"])
     assert e.value.code == 2
