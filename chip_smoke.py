@@ -65,11 +65,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                 one bf16 ulp.  Flash, gmm, the decode and the verify
                 records also log their device kernel time
                 (torch.profiler), the decode and verify records beside
-                their SDPA call's.  The paged verify's tree route also
-                at the speculative tree passes' shape (8 rows, 13 nodes
-                of a depth-4, width-3 sausage tree, fp and int8), each
-                score row within 2**-7, a limit shown to catch one tree
-                bit cleared.
+                their SDPA call's.  The paged verify also at the
+                speculative passes' shapes (8 rows over 3-page tables of
+                256: the flat passes' 5 tokens under the causal mask, and
+                the tree route over 13 nodes of a depth-4, width-3
+                sausage tree, fp and int8), each score row within 2**-7,
+                a limit shown to catch the cache/block boundary or the
+                causal diagonal one key late and one tree bit cleared.
   3. reference — each served model at full width, cut to one layer, on
                 the card (kernels, bf16), held against the plain path on
                 the CPU in float32 on the same weights: the dense models'
@@ -85,8 +87,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                 speculative engine at one layer: a tree round's verify
                 (13 nodes) and a flat one against the CPU float32 path,
                 the greedy accept rules on the card's logits bitwise the
-                CPU's, and (logged) an aligned draft's acceptance at 1-8
-                layers.
+                CPU's; one tree round with a sibling hit planted (the
+                draft's top two candidates swapped), which must commit
+                the sibling and repair both columns' k/v at its
+                position, against an unplanted twin; and an aligned
+                draft's acceptance at 1-8 layers, which at one layer
+                must reach 3 tokens a round and 0.9 agreement with the
+                plain engine (deeper, logged).
   4. serving  — the port's ``SwitchableServer`` with tinyllama-1.1b and
                 supersub-super at their published widths, requests
                 alternating contexts, through ContinuousScheduler(paged),
@@ -135,7 +142,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 off, peak rows at 19 pages; ``spec_*``: speculative
                 decoding of tinyllama-1.1b through ContinuousScheduler
                 (8 requests, 2 weight slots, pages of 256): a plain
-                twin, flat K=4 with an aligned draft, the same on a
+                twin, flat K=4 with an aligned draft (B4 at the flat
+                record's shape), the same on a
                 SharedBank (bitwise the flat pass), a K=4, W=3 tree with
                 a noised draft (B4's tree route) and that tree on chunked
                 int8 columns, each logged with its tokens/s, accepted
@@ -422,11 +430,8 @@ def kernel_phase(dev) -> list[dict]:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          mha_reference)
-    from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_verify_attention, paged_verify_reference)
     from repro_torch.kernels.verify_attention.ops import (verify_attention,
                                                           verify_reference)
-    from repro_torch.models.layers import PagedKV, _gather_dequant
 
     gen = torch.Generator(device=dev).manual_seed(0)
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -539,12 +544,6 @@ def kernel_phase(dev) -> list[dict]:
 
     # verify (chunked prefill): B=4 rows, a K=128 chunk each at positions
     # 0, mid-page, a page boundary and mid second page; pages of 256
-    def int8_pool(n):
-        codes = torch.randint(-127, 128, (n, HKV, page, HD), generator=gen,
-                              device=dev, dtype=torch.int8)
-        return codes, torch.rand((n, HKV, page), generator=gen,
-                                 device=dev) / 64
-
     B, K, page = 4, CHUNK, 256
     vpos = torch.tensor([0, 100, 256, 384], dtype=torch.int32, device=dev)
     P = 3
@@ -554,100 +553,37 @@ def kernel_phase(dev) -> list[dict]:
     vtable = ids.reshape(B, P).to(torch.int32)
     dead = torch.arange(P, device=dev)[None, :] * page >= vpos[:, None] + K
     vtable = torch.where(dead, torch.zeros_like(vtable), vtable).contiguous()
-    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
-    (kq, ks), (vq, vs) = int8_pool(NP), int8_pool(NP)
-    kr, vr = rn(B, HKV, S, HD), rn(B, HKV, S, HD)            # row cache
-    cache_keys = int(vpos.sum())
-
-    def verify_case(Kb, tree=None):
-        qv = rn(B, Kb, H, HD)
-        bk, bv = rn(B, Kb, HKV, HD), rn(B, Kb, HKV, HD)
-        ar = torch.arange(Kb, device=dev)
-        if tree is None:
-            vis = (ar[None, :] <= ar[:, None])[None].expand(B, Kb, Kb)
-        else:
-            vis = ((tree[:, :, None] >> ar[None, None, :]) & 1) == 1
-        cols = torch.arange(S, device=dev)[None, None, :] < vpos[:, None,
-                                                                 None]
-        vmask = torch.cat([cols.expand(B, Kb, S), vis], dim=-1)[:, None]
-        pairs = Kb * cache_keys + int(vis.sum())     # (query, key) pairs
-        flops = 4 * HD * (H // HKV) * HKV * pairs
-        qbytes = 2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
-        if tree is not None:
-            qbytes += 4 * tree.numel()
-        # planted faults: the cache/block boundary one key late (each row
-        # reads slot pos too), the causal diagonal one key late (query i
-        # sees block key i + 1), one tree bit cleared (each query's lowest
-        # ancestor other than itself)
-        late = torch.arange(S, device=dev)[None, None, :] < vpos[:, None,
-                                                                 None] + 1
-        faults = [("cache/block boundary +1 key",
-                   torch.cat([late.expand(B, Kb, S), vis], dim=-1)[:, None])]
-        if tree is None:
-            diag = ar[None, :] <= ar[:, None] + 1
-            faults.append(("causal diagonal +1 key", torch.cat(
-                [cols.expand(B, Kb, S), diag[None].expand(B, Kb, Kb)],
-                dim=-1)[:, None]))
-        else:
-            anc = tree & ~(torch.ones_like(tree) << ar.to(torch.int32))
-            low = anc & -anc                          # lowest ancestor bit
-            cut = ((tree & ~low)[:, :, None] >> ar[None, None, :]) & 1 == 1
-            faults.append(("one tree bit cleared", torch.cat(
-                [cols.expand(B, Kb, S), cut], dim=-1)[:, None]))
-        return qv.transpose(1, 2), qv, bk, bv, vmask, flops, qbytes, faults
-
-    def lib(qt, kc, vc, bk, bv, vmask):
-        kall = torch.cat([kc, bk.transpose(1, 2)], dim=2)
-        vall = torch.cat([vc, bv.transpose(1, 2)], dim=2)
-        return lambda: F.scaled_dot_product_attention(
-            qt, kall, vall, attn_mask=vmask, enable_gqa=True)
-
-    paged_src = ("src/repro_torch/kernels/paged_attention/csrc/"
-                 "paged_attention.cu")
+    fp, q8 = (verify_pool(gen, rn, NP, page, int8) for int8 in (False, True))
     tree8 = torch.randint(0, 1 << 30, (B, 8), generator=gen, device=dev,
                           dtype=torch.int32)
     bit = torch.ones(8, device=dev, dtype=torch.int32) << torch.arange(
         8, device=dev, dtype=torch.int32)
     tree8 = ((tree8 & (bit - 1)) | bit).contiguous()   # self + ancestors
-    kgp, vgp = gather_pages(kp, vtable), gather_pages(vp, vtable)
-    kgq, vgq = _gather_dequant(PagedKV(kq, vq, ks, vs), vtable,
-                               torch.bfloat16)
-    for name, Kb, tree, pool, scales, gathered, kv_bytes in (
-            ("paged_verify_attention", K, None, (kp, vp), {}, (kgp, vgp),
-             2 * 2 * HD),
-            ("paged_verify_attention_tree", 8, tree8, (kp, vp), {},
-             (kgp, vgp), 2 * 2 * HD),
-            ("paged_verify_attention_int8", K, None, (kq, vq),
-             dict(k_scale=ks, v_scale=vs), (kgq, vgq), 2 * (HD + 4))):
-        qt, qv, bk, bv, vmask, flops, qbytes, faults = verify_case(Kb, tree)
-        args = (qv, *pool, bk, bv, vtable, vpos)
-        kw = dict(tree=tree, **scales)
-        got = paged_verify_attention(*args, **kw)
-        ref = paged_verify_reference(*args, **kw)
-        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
-                      for c, b in zip(gathered, (bk, bv)))
-        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
-                          qt, kall, vall, vmask, faults)
-        nbytes = qbytes + 4 * B * P + kv_bytes * cache_keys * HKV
-        sdpa = lib(qt, *gathered, bk, bv, vmask)
-        record(name, paged_src,
-               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
-               time_ms(lambda: paged_verify_attention(*args, **kw),
-                       flush=flush),
-               time_ms(lambda: paged_verify_reference(*args, **kw),
-                       flush=flush),
-               time_ms(sdpa, flush=flush), nbytes, flops)
-        log_kernel_time(name, lambda: paged_verify_attention(*args, **kw),
-                        flush, sdpa)
+    for name, Kb, tree, pool in (
+            ("paged_verify_attention", K, None, fp),
+            ("paged_verify_attention_tree", 8, tree8, fp),
+            ("paged_verify_attention_int8", K, None, q8)):
+        paged_verify_record(record, flush, rn, name, pool, vtable, vpos, Kb,
+                            tree)
 
-    qt, qv, bk, bv, vmask, flops, qbytes, faults = verify_case(K)
+    # the row verify at the same rows over a (B, Hkv, S, hd) row cache
+    kr, vr = rn(B, HKV, S, HD), rn(B, HKV, S, HD)
+    qv = rn(B, K, H, HD)
+    bk, bv = rn(B, K, HKV, HD), rn(B, K, HKV, HD)
     got = verify_attention(qv, kr, vr, bk, bv, vpos)
     ref = verify_reference(qv, kr, vr, bk, bv, vpos)
+    vmask, faults, pairs = verify_masks(vpos, S, K)
+    qt = qv.transpose(1, 2)
     kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
                   for c, b in ((kr, bk), (vr, bv)))
     check_verify_rows("verify_attention", got.transpose(1, 2),
                       ref.transpose(1, 2), qt, kall, vall, vmask, faults)
-    sdpa = lib(qt, kr, vr, bk, bv, vmask)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kall, vall,
+                                              attn_mask=vmask,
+                                              enable_gqa=True)
+
     record("verify_attention",
            "src/repro_torch/kernels/verify_attention/csrc/"
            "verify_attention.cu",
@@ -657,13 +593,14 @@ def kernel_phase(dev) -> list[dict]:
            time_ms(lambda: verify_reference(qv, kr, vr, bk, bv, vpos),
                    flush=flush),
            time_ms(sdpa, flush=flush),
-           qbytes + 2 * 2 * HD * cache_keys * HKV, flops)
+           2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
+           + 2 * 2 * HD * int(vpos.sum()) * HKV, 4 * HD * H * pairs)
     log_kernel_time("verify_attention",
                     lambda: verify_attention(qv, kr, vr, bk, bv, vpos), flush,
                     sdpa)
     ring_verify_record(dev, rn, flush, record)
-    prefix_verify_records(dev, gen, rn, flush, record)
-    spec_verify_records(dev, gen, rn, flush, record)
+    prefix_verify_records(gen, rn, flush, record)
+    spec_verify_records(gen, rn, flush, record)
     scan_record(dev, gen, flush, record)
     mlstm_record(dev, gen, flush, record)
     partial_records(dev, gen, rn, flush, record)
@@ -879,144 +816,176 @@ def ring_verify_record(dev, rn, flush, record) -> None:
                         qt, kall, vall, attn_mask=vmask, enable_gqa=True))
 
 
-def prefix_verify_records(dev, gen, rn, flush, record) -> None:
+PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+VERIFY_TILE = 128            # cache keys of one key tile of the verify body
+
+
+def verify_masks(vpos, S, Kb, tree=None, lost_tile=None) -> tuple:
+    """A verify record's visibility mask, (B, 1, Kb, S + Kb) over a row's
+    S cache slots and its Kb block keys: the slots before ``vpos`` (B,)
+    and the block causally, or under the ancestor bitmasks ``tree`` (B,
+    Kb).  With it the faults ``check_verify_rows`` plants on the plain
+    side: the cache/block boundary one key late (each row reads slot pos
+    too); the causal diagonal one key late (query i sees block key i +
+    1), or one tree bit cleared (each query's lowest ancestor other than
+    itself); with ``lost_tile``, that key tile of the cache missing.
+    -> (mask, faults, the (query, key) pairs the mask keeps)."""
+    import torch
+    B, dev = vpos.shape[0], vpos.device
+    ar = torch.arange(Kb, device=dev)
+    slots = torch.arange(S, device=dev)[None, None, :]
+    cols = slots < vpos[:, None, None]
+    if tree is None:
+        vis = (ar[None, :] <= ar[:, None])[None].expand(B, Kb, Kb)
+    else:
+        vis = ((tree[:, :, None] >> ar[None, None, :]) & 1) == 1
+
+    def mask(cache, block):
+        return torch.cat([cache.expand(B, Kb, S), block.expand(B, Kb, Kb)],
+                         dim=-1)[:, None]
+
+    faults = [("cache/block boundary +1 key",
+               mask(slots < vpos[:, None, None] + 1, vis))]
+    if tree is None:
+        faults.append(("causal diagonal +1 key",
+                       mask(cols, (ar[None, :] <= ar[:, None] + 1)[None])))
+    else:
+        anc = tree & ~(torch.ones_like(tree) << ar.to(torch.int32))
+        low = anc & -anc                          # lowest ancestor bit
+        cut = ((tree & ~low)[:, :, None] >> ar[None, None, :]) & 1 == 1
+        faults.append(("one tree bit cleared", mask(cols, cut)))
+    if lost_tile is not None:
+        lo = lost_tile * VERIFY_TILE
+        faults.append((f"key tile {lost_tile} missing", mask(
+            cols & ((slots < lo) | (slots >= lo + VERIFY_TILE)), vis)))
+    return mask(cols, vis), faults, Kb * int(vpos.sum()) + int(vis.sum())
+
+
+def verify_pool(gen, rn, NP: int, page: int, int8: bool) -> tuple:
+    """A random page pool of NP pages of ``page`` slots at
+    tinyllama-1.1b's kv heads: bf16 k/v, or int8 codes with f32 scales
+    in [0, 1/64).  -> ((k, v), the wrapper's scale keywords)."""
+    import torch
+    if not int8:
+        return (rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)), {}
+    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
+                           device=gen.device, dtype=torch.int8)
+             for _ in range(2)]
+    sc = [torch.rand((NP, HKV, page), generator=gen, device=gen.device) / 64
+          for _ in range(2)]
+    return tuple(codes), dict(k_scale=sc[0], v_scale=sc[1])
+
+
+def paged_verify_record(record, flush, rn, name, pool, table, vpos, Kb,
+                        tree=None, lost_tile=None) -> None:
+    """One record of the paged verify (B4) at tinyllama-1.1b's heads: B
+    rows at positions ``vpos`` through page tables ``table`` (B, P) over
+    ``pool`` (``verify_pool``), Kb block queries a row, causal or under
+    ``tree``.  Held to the plain version within 2e-2 and each score row
+    within 2**-7 relative L2, with ``verify_masks``' faults shown to
+    leave that limit; timed beside the plain version and the library
+    call, one masked SDPA over the gathered cache plus block."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        gather_pages, paged_verify_attention, paged_verify_reference)
+    from repro_torch.models.layers import PagedKV, _gather_dequant
+
+    (kp, vp), scales = pool
+    B, P = table.shape
+    page = kp.shape[2]
+    if scales:
+        cache = _gather_dequant(PagedKV(kp, vp, scales["k_scale"],
+                                        scales["v_scale"]), table,
+                                torch.bfloat16)
+        kv_bytes = 2 * (HD + 4)          # k and v: codes and an f32 scale
+    else:
+        cache = gather_pages(kp, table), gather_pages(vp, table)
+        kv_bytes = 2 * 2 * HD
+    qv = rn(B, Kb, H, HD)
+    bk, bv = rn(B, Kb, HKV, HD), rn(B, Kb, HKV, HD)
+    args = (qv, kp, vp, bk, bv, table, vpos)
+    kw = dict(tree=tree, **scales)
+    got = paged_verify_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = paged_verify_reference(*args, **kw)
+    vmask, faults, pairs = verify_masks(vpos, P * page, Kb, tree, lost_tile)
+    qt = qv.transpose(1, 2)
+    kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
+                  for c, b in zip(cache, (bk, bv)))
+    check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2), qt,
+                      kall, vall, vmask, faults)
+    nbytes = (2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B + 4 * B * P
+              + kv_bytes * int(vpos.sum()) * HKV
+              + (0 if tree is None else 4 * tree.numel()))
+
+    def kernel():
+        return paged_verify_attention(*args, **kw)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kall, vall,
+                                              attn_mask=vmask,
+                                              enable_gqa=True)
+
+    record(name, PAGED_SRC, "src/repro/kernels/paged_attention/kernel.py:315",
+           got, ref, time_ms(kernel, flush=flush),
+           time_ms(lambda: paged_verify_reference(*args, **kw), flush=flush),
+           time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
+    log_kernel_time(name, kernel, flush, sdpa)
+
+
+def prefix_verify_records(gen, rn, flush, record) -> None:
     """Paged verify (B4) at the shapes the ``prefix_*`` passes give it
     (``PREFIX_VERIFY``), fp and int8 pools: one row at position 2048
     over tinyllama-1.1b's 9-page table of 256 (the 8 pages of a hit's
     preamble and the row's own), with a one-shot hit's 32-token tail or
     a chunked pass's 256-token chunk.  The 2048 cached keys are 16 key
-    tiles of 128, so the kernel's 3-stage pipeline wraps five times.
-    Each is held to the plain version elementwise and per row, with
-    three faults planted on the plain side that the row limit must
-    catch: the cache/block boundary and the causal diagonal one key
-    late, and the fourth key tile (the first to reuse a stage) missing.
-    The library call is one masked SDPA over the gathered cache plus
-    block."""
+    tiles of 128, so the kernel's 3-stage pipeline wraps five times; a
+    third fault drops key tile 3, the first to reuse a stage."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_verify_attention, paged_verify_reference)
-    from repro_torch.models.layers import PagedKV, _gather_dequant
-
     page, P, pos = PREFIX_PAGE, PREFIX_MAX_LEN // PREFIX_PAGE, PREFIX_LEN
     NP = PREFIX_REQUESTS * P + 1                 # the passes' pool
-    S = P * page
+    dev = gen.device
     table = (torch.randperm(NP - 1, generator=gen, device=dev)[:P]
              + 1).to(torch.int32)[None].contiguous()
     vpos = torch.tensor([pos], dtype=torch.int32, device=dev)
-    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
-    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
-                           device=dev, dtype=torch.int8) for _ in range(2)]
-    sc = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
-          for _ in range(2)]
-    pools = {False: ((kp, vp), {}, (gather_pages(kp, table),
-                                    gather_pages(vp, table)), 2 * 2 * HD),
-             True: (tuple(codes), dict(k_scale=sc[0], v_scale=sc[1]),
-                    _gather_dequant(PagedKV(*codes, *sc), table,
-                                    torch.bfloat16), 2 * (HD + 4))}
-    slots = torch.arange(S, device=dev)
-    tile = 128                                   # keys of a kernel tile
+    pools = {int8: verify_pool(gen, rn, NP, page, int8)
+             for int8 in (False, True)}
     for name, (Kb, int8) in PREFIX_VERIFY.items():
-        pool, scales, gathered, kv_bytes = pools[int8]
-        qv = rn(1, Kb, H, HD)
-        bk, bv = rn(1, Kb, HKV, HD), rn(1, Kb, HKV, HD)
-        args = (qv, *pool, bk, bv, table, vpos)
-        got = paged_verify_attention(*args, **scales)
-        torch.cuda.synchronize()
-        ref = paged_verify_reference(*args, **scales)
-        ar = torch.arange(Kb, device=dev)
-        causal = ar[None, :] <= ar[:, None]
-
-        def mask(cache, block):
-            return torch.cat([cache[None, :].expand(Kb, S), block],
-                             dim=-1)[None, None]
-
-        vmask = mask(slots < pos, causal)
-        faults = [("cache/block boundary +1 key", mask(slots < pos + 1,
-                                                       causal)),
-                  ("causal diagonal +1 key",
-                   mask(slots < pos, ar[None, :] <= ar[:, None] + 1)),
-                  ("the fourth key tile missing",
-                   mask((slots < pos) & ((slots < 3 * tile)
-                                         | (slots >= 4 * tile)), causal))]
-        qt = qv.transpose(1, 2)
-        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
-                      for c, b in zip(gathered, (bk, bv)))
-        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
-                          qt, kall, vall, vmask, faults)
-        pairs = Kb * pos + int(causal.sum())
-        nbytes = (2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 + 4 * P
-                  + kv_bytes * pos * HKV)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kall, vall, attn_mask=vmask, enable_gqa=True)
-
-        record(name,
-               "src/repro_torch/kernels/paged_attention/csrc/"
-               "paged_attention.cu",
-               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
-               time_ms(lambda: paged_verify_attention(*args, **scales),
-                       flush=flush),
-               time_ms(lambda: paged_verify_reference(*args, **scales),
-                       flush=flush),
-               time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
-        log_kernel_time(name,
-                        lambda: paged_verify_attention(*args, **scales),
-                        flush, sdpa)
+        paged_verify_record(record, flush, rn, name, pools[int8], table,
+                            vpos, Kb, lost_tile=3)
 
 
-def sausage_tree(K: int, W: int):
-    """The speculative engine's tree of depth K and width W as (1 + K*W,)
-    int32 ancestor bitmasks: node 0 sees itself; node ``1 + (i-1)*W +
-    w`` (candidate w at depth i) itself, node 0 and the chain (sibling
-    0) at every depth before i."""
-    import torch
-    chain = [1 + (i - 1) * W for i in range(1, K + 1)]
-    masks = [1]
-    for i in range(1, K + 1):
-        anc = 1
-        for d in range(1, i):
-            anc |= 1 << chain[d - 1]
-        masks += [anc | (1 << (chain[i - 1] + w)) for w in range(W)]
-    return torch.tensor(masks, dtype=torch.int32)
-
-
-def spec_verify_shape(int8: bool) -> tuple:
-    """The speculative tree passes' verify launch as its wrapper's
+def spec_verify_shape(tree: bool, int8: bool) -> tuple:
+    """A speculative pass's verify launch as its wrapper's
     ``launches_by_shape`` counts it, (B, Hkv, G, Kb, P, page, hd, int8):
-    8 rows of 1 + K*W = 13 tree nodes over tinyllama-1.1b's 3-page
-    tables of 256."""
-    return (N_REQUESTS, HKV, H // HKV, 1 + SPEC_K * SPEC_W, SPEC_P,
-            SPEC_PAGE, HD, int8)
+    8 rows of K + 1 = 5 tokens (flat) or 1 + K*W = 13 tree nodes over
+    tinyllama-1.1b's 3-page tables of 256."""
+    return (N_REQUESTS, HKV, H // HKV,
+            1 + SPEC_K * SPEC_W if tree else SPEC_K + 1, SPEC_P, SPEC_PAGE,
+            HD, int8)
 
 
-# the paged verify records at that shape -> int8 pool
-SPEC_VERIFY = {"paged_verify_attention_tree_spec": False,
-               "paged_verify_attention_tree_spec_int8": True}
+# the paged verify records at the speculative passes' shapes -> (tree
+# mask, int8 pool)
+SPEC_VERIFY = {"paged_verify_attention_flat_spec": (False, False),
+               "paged_verify_attention_tree_spec": (True, False),
+               "paged_verify_attention_tree_spec_int8": (True, True)}
 
 
-def spec_verify_records(dev, gen, rn, flush, record) -> None:
-    """Paged verify (B4) with a tree mask at the speculative tree passes'
-    shape (``spec_verify_shape``): 8 rows at positions 130-540 over
-    shuffled 3-page tables of 256 (pages past a row's block on the park
-    page), 13 nodes each under the engine's sausage mask of depth 4 and
-    width 3, fp and int8 pools.  Each is held to the plain version within
-    2e-2 and each score row within 2**-7 relative L2, with two faults
-    planted on the plain side that the row limit must catch: the
-    cache/block boundary one key late, and one tree bit cleared (each
-    node's lowest ancestor other than itself).  The library call is one
-    masked SDPA over the gathered cache plus block."""
+def spec_verify_records(gen, rn, flush, record) -> None:
+    """Paged verify (B4) at the speculative passes' shapes
+    (``spec_verify_shape``): 8 rows at positions 130-540 over shuffled
+    3-page tables of 256 (pages past a row's block on the park page),
+    the flat passes' K + 1 = 5 tokens a row under the causal mask, and
+    the tree passes' 13 nodes under the engine's sausage mask of depth 4
+    and width 3 (``sausage_tree``), fp and int8 pools."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import (
-        gather_pages, paged_verify_attention, paged_verify_reference)
-    from repro_torch.models.layers import PagedKV, _gather_dequant
+    from repro_torch.serve.speculative import sausage_tree
 
     B, page, P = N_REQUESTS, SPEC_PAGE, SPEC_P
-    Kb = 1 + SPEC_K * SPEC_W
-    S = P * page
     NP = B * P + 1
+    dev = gen.device
     vpos = torch.tensor([130, 200, 255, 256, 300, 400, 511, 540],
                         dtype=torch.int32, device=dev)
     ids = torch.randperm(NP - 1, generator=gen, device=dev)[:B * P] + 1
@@ -1024,68 +993,14 @@ def spec_verify_records(dev, gen, rn, flush, record) -> None:
     dead = (torch.arange(P, device=dev)[None, :] * page
             >= vpos[:, None] + SPEC_K + 1)
     table = torch.where(dead, torch.zeros_like(table), table).contiguous()
-    kp, vp = rn(NP, HKV, page, HD), rn(NP, HKV, page, HD)
-    codes = [torch.randint(-127, 128, (NP, HKV, page, HD), generator=gen,
-                           device=dev, dtype=torch.int8) for _ in range(2)]
-    sc = [torch.rand((NP, HKV, page), generator=gen, device=dev) / 64
-          for _ in range(2)]
-    pools = {False: ((kp, vp), {}, (gather_pages(kp, table),
-                                    gather_pages(vp, table)), 2 * 2 * HD),
-             True: (tuple(codes), dict(k_scale=sc[0], v_scale=sc[1]),
-                    _gather_dequant(PagedKV(*codes, *sc), table,
-                                    torch.bfloat16), 2 * (HD + 4))}
-    tree = sausage_tree(SPEC_K, SPEC_W).to(dev)[None].expand(
-        B, Kb).contiguous()
-    ar = torch.arange(Kb, device=dev)
-    vis = ((tree[:, :, None] >> ar[None, None, :]) & 1) == 1  # (B, Kb, Kb)
-    slots = torch.arange(S, device=dev)[None, None, :]
-    cols = slots < vpos[:, None, None]
-    anc = tree & ~(torch.ones_like(tree) << ar.to(torch.int32))
-    low = anc & -anc                          # lowest ancestor bit
-    cut = ((tree & ~low)[:, :, None] >> ar[None, None, :]) & 1 == 1
-
-    def mask(cache, block):
-        return torch.cat([cache.expand(B, Kb, S), block], dim=-1)[:, None]
-
-    vmask = mask(cols, vis)
-    faults = [("cache/block boundary +1 key",
-               mask(slots < vpos[:, None, None] + 1, vis)),
-              ("one tree bit cleared", mask(cols, cut))]
-    cache_keys = int(vpos.sum())
-    pairs = Kb * cache_keys + int(vis.sum())
-    for name, int8 in SPEC_VERIFY.items():
-        pool, scales, gathered, kv_bytes = pools[int8]
-        qv = rn(B, Kb, H, HD)
-        bk, bv = rn(B, Kb, HKV, HD), rn(B, Kb, HKV, HD)
-        args = (qv, *pool, bk, bv, table, vpos)
-        kw = dict(tree=tree, **scales)
-        got = paged_verify_attention(*args, **kw)
-        torch.cuda.synchronize()
-        ref = paged_verify_reference(*args, **kw)
-        qt = qv.transpose(1, 2)
-        kall, vall = (torch.cat([c, b.transpose(1, 2)], dim=2)
-                      for c, b in zip(gathered, (bk, bv)))
-        check_verify_rows(name, got.transpose(1, 2), ref.transpose(1, 2),
-                          qt, kall, vall, vmask, faults)
-        nbytes = (2 * 2 * qv.numel() + 2 * 2 * bk.numel() + 4 * B
-                  + 4 * tree.numel() + 4 * B * P
-                  + kv_bytes * cache_keys * HKV)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kall, vall, attn_mask=vmask, enable_gqa=True)
-
-        record(name,
-               "src/repro_torch/kernels/paged_attention/csrc/"
-               "paged_attention.cu",
-               "src/repro/kernels/paged_attention/kernel.py:315", got, ref,
-               time_ms(lambda: paged_verify_attention(*args, **kw),
-                       flush=flush),
-               time_ms(lambda: paged_verify_reference(*args, **kw),
-                       flush=flush),
-               time_ms(sdpa, flush=flush), nbytes, 4 * HD * H * pairs)
-        log_kernel_time(name, lambda: paged_verify_attention(*args, **kw),
-                        flush, sdpa)
+    pools = {int8: verify_pool(gen, rn, NP, page, int8)
+             for int8 in (False, True)}
+    mask = torch.from_numpy(sausage_tree(SPEC_K, SPEC_W)[1]).to(dev)
+    tree = mask[None].expand(B, mask.shape[0]).contiguous()
+    for name, (is_tree, int8) in SPEC_VERIFY.items():
+        Kb = spec_verify_shape(is_tree, int8)[3]
+        paged_verify_record(record, flush, rn, name, pools[int8], table,
+                            vpos, Kb, tree if is_tree else None)
 
 
 SCAN_D_IN, SCAN_N = 8192, 16        # jamba-v0.1-52b's Mamba scan
@@ -1788,7 +1703,7 @@ def _launch_counters() -> dict:
     ring routes count apart), and the launches of flash, gmm, the paged
     decode, the scan and the mLSTM at the shapes of their second
     records, and of the paged verify at the prefix passes' and the
-    speculative tree passes' shapes."""
+    speculative passes' shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1802,8 +1717,8 @@ def _launch_counters() -> dict:
                                       prefix_verify_shape(*kq))
               for name, kq in PREFIX_VERIFY.items()}
     counts.update({name: functools.partial(verify_shapes.__getitem__,
-                                           spec_verify_shape(int8))
-                   for name, int8 in SPEC_VERIFY.items()})
+                                           spec_verify_shape(*ti))
+                   for name, ti in SPEC_VERIFY.items()})
     return {**counts,
             "flash_attention": lambda: flash_attention.launches,
             "decode_attention": lambda: decode_attention.launches,
@@ -2017,11 +1932,12 @@ def serving_phase(dev) -> dict:
 # records whose launches are a route's or a shape's of a kernel body also
 # carry the body's launches: no engine verifies a ring yet, so that route
 # launches no time on the main path; the speculative tree passes verify
-# the tree route; the tree records at their shape, the windowed flash, the
-# down product, the long paged decode, the scan's and mLSTM's serving
-# records and the prefix passes' verify records count the launches at
-# their record's shape
+# the tree route; the speculative records at their shapes, the windowed
+# flash, the down product, the long paged decode, the scan's and mLSTM's
+# serving records and the prefix passes' verify records count the
+# launches at their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
+              "paged_verify_attention_flat_spec": "paged_verify_attention",
               "paged_verify_attention_tree_spec":
                   "paged_verify_attention_tree",
               "paged_verify_attention_tree_spec_int8":
@@ -3006,11 +2922,12 @@ def spec_pass(dev) -> dict:
     spec = dict(draft={target: SPEC_DRAFT}, spec_k=SPEC_K)
     tree = dict(spec, spec_tree=SPEC_W)
     paged = {"flash_attention", "paged_decode_attention"}
+    flat = paged | {"paged_verify_attention",
+                    "paged_verify_attention_flat_spec"}
     runs = [(0.0, [
         ("spec_plain_twin", sched(), paged),
-        ("spec_flat", sched(**spec), paged | {"paged_verify_attention"}),
-        ("spec_flat_shared_bank", sched(**spec, share_bank=True),
-         paged | {"paged_verify_attention"})]),
+        ("spec_flat", sched(**spec), flat),
+        ("spec_flat_shared_bank", sched(**spec, share_bank=True), flat)]),
         (SPEC_PERTURB, [
             ("spec_tree", sched(**tree),
              paged | {"paged_verify_attention_tree",
@@ -3134,22 +3051,107 @@ def spec_reference(dev) -> None:
         if not same:
             raise AssertionError(f"{label}: card and CPU disagree on the "
                                  "card's logits")
+    spec_planted_sibling(gpu, params, prompts)
     spec_depth_sweep(dev, prompts)
 
 
+def spec_planted_sibling(m, params, prompts) -> None:
+    """One greedy tree round on the card with a sibling hit planted.
+    Two ``SpecEngine``s (K=4, W=3) over ``m`` drafted by itself admit
+    ``prompts``; in the planted one's round the draft's top two
+    candidates swap at every depth, so the chain carries the runner-up
+    (whose k/v the draft writes at pos+1) and the draft's argmax sits at
+    sibling 1 of depth 1.  That round must commit the sibling and the
+    bonus after it on every row, the tokens of the unplanted twin's
+    round, repair the draft column at pos+1 on every row, and leave both
+    columns' k/v there within 2**-7 relative L2 of the twin's, a limit
+    the draft column's k/v before its repair (the runner-up's) must
+    leave."""
+    import torch
+    import repro_torch.serve.speculative as spec
+
+    def kv_at(eng, column, at):             # -> (layers, B, Hkv, 2 hd)
+        st = eng.state
+        caches, table = ((st.d_caches, st.d_table) if column == "draft"
+                         else (st.t_caches, st.t_table))
+        rows = torch.arange(at.shape[0], device=at.device)
+        pages = table[rows, (at // SPEC_PAGE).long()].long()
+        slot = (at % SPEC_PAGE).long()
+        return torch.stack([torch.cat([c.k[pages, :, slot],
+                                       c.v[pages, :, slot]], -1).float()
+                            for c in caches])
+
+    pp = (params, params)
+    engs = []
+    for _ in range(2):
+        eng = spec.SpecEngine(m, m, batch_size=2, max_len=768, k=SPEC_K,
+                              tree_width=SPEC_W, page_size=SPEC_PAGE)
+        engs.append((eng, [eng.admit(pp, t, max_new=8)[0] for t in prompts]))
+    (planted, pgens), (twin, tgens) = engs
+    at = planted.state.pos + 1
+    seen = {}
+    repair, top_w = planted._repair_d_fn, spec._top_w
+
+    def watched(dparams, tok, rpos, alive):
+        seen.update(rpos=rpos.clone(), alive=alive.clone(),
+                    before=kv_at(planted, "draft", rpos))
+        return repair(dparams, tok, rpos, alive)
+
+    planted._repair_d_fn = watched
+    spec._top_w = lambda logits, w: top_w(logits, w)[:, [1, 0,
+                                                         *range(2, w)]]
+    try:
+        planted.step(pp)
+    finally:
+        spec._top_w = top_w
+        del planted._repair_d_fn
+    twin.step(pp)
+    got = [[int(x) for x in g.tokens] for g in pgens]
+    twins = [[int(x) for x in g.tokens] for g in tgens]
+    want = [t[:len(x)] for t, x in zip(twins, got)]
+    errs = {c: row_error(kv_at(planted, c, at), kv_at(twin, c, at)).max()
+            .item() for c in ("target", "draft")}
+    fault = row_error(seen["before"], kv_at(twin, "draft", at)).amin(
+        dim=(0, 2)) if seen else None
+    log("reference spec planted sibling: " + json.dumps({
+        "tokens": got, "twin_tokens": twins,
+        "draft_repair_rows": seen["alive"].tolist() if seen else None,
+        "kv_rel_l2_vs_twin": errs, "row_limit": ROW_RTOL,
+        "unrepaired_draft_kv_rel_l2": None if fault is None
+        else fault.tolist()}))
+    if not seen or not bool(seen["alive"].all()) or not torch.equal(
+            seen["rpos"].long(), at.long()):
+        raise AssertionError("spec planted sibling: the draft repair did "
+                             "not run at pos+1 on every row")
+    if [len(t) for t in got] != [3] * len(prompts) or got != want:
+        raise AssertionError("spec planted sibling: the round did not "
+                             "commit the sibling and its bonus, the twin's "
+                             "tokens")
+    if not max(errs.values()) <= ROW_RTOL:
+        raise AssertionError(f"spec planted sibling: k/v at the sibling's "
+                             f"position {errs} off the twin's")
+    if not fault.min().item() > ROW_RTOL:
+        raise AssertionError("spec planted sibling: the limit does not "
+                             "catch an unrepaired draft column")
+
+
 SPEC_DEPTHS = (1, 2, 4, 8)   # depths of the aligned-draft sweep
+SPEC_MIN_ACCEPTED = 3.0      # its one-layer point: tokens a round, at least
+SPEC_MIN_AGREEMENT = 0.9     # and agreement with the plain engine
 
 
 def spec_depth_sweep(dev, prompts) -> None:
-    """Logged only: an aligned draft (the target's own weights) at
-    tinyllama-1.1b's width cut to 1-8 layers, two prompts and 24 new
-    tokens each through a ``SpecEngine`` (K=4, flat, greedy) and through
-    a plain paged ``StepEngine`` on the card: accepted tokens a round
-    and the streams' agreement.  The draft proposes through the decode
-    kernel (B3), the target scores through the verify kernel (B4); they
-    round apart in bf16, and with random weights the gap grows with
-    depth (``sharded_local_read``'s sweep measures the same growth for
-    another pair of routes)."""
+    """An aligned draft (the target's own weights) at tinyllama-1.1b's
+    width cut to 1-8 layers, two prompts and 24 new tokens each through
+    a ``SpecEngine`` (K=4, flat, greedy) and through a plain paged
+    ``StepEngine`` on the card: accepted tokens a round and the streams'
+    agreement.  At one layer the draft must be accepted at
+    ``SPEC_MIN_ACCEPTED`` tokens a round or more and the streams agree
+    on ``SPEC_MIN_AGREEMENT`` of their tokens; deeper, logged only: the
+    draft proposes through the decode kernel (B3), the target scores
+    through the verify kernel (B4), they round apart in bf16, and with
+    random weights the gap grows with depth (``sharded_local_read``'s
+    sweep measures the same growth for another pair of routes)."""
     from repro_torch.configs import get_arch, override
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import StepEngine
@@ -3172,6 +3174,13 @@ def spec_depth_sweep(dev, prompts) -> None:
         log(f"reference spec depth {depth}: accepted tokens a round "
             f"{spec.accepted_per_round:.3f} over {spec.stats['rounds']} "
             f"rounds, agreement with the plain engine {same:.4f}")
+        if depth == 1 and not (spec.accepted_per_round >= SPEC_MIN_ACCEPTED
+                               and same >= SPEC_MIN_AGREEMENT):
+            raise AssertionError(
+                f"spec depth 1: an aligned draft accepted "
+                f"{spec.accepted_per_round} tokens a round (at least "
+                f"{SPEC_MIN_ACCEPTED}) and agreed with the plain engine on "
+                f"{same} (at least {SPEC_MIN_AGREEMENT})")
         del m, p, spec, plain
 
 

@@ -251,6 +251,32 @@ def _top_w(logits, W: int):
                       stable=True).indices[:, :W]
 
 
+def sausage_tree(K: int, W: int):
+    """The sausage tree of depth K and width W over its ``1 + K*W``
+    nodes (node 0 the committed token, candidate w at depth i node
+    ``1 + (i-1)*W + w``, the chain its sibling 0) as numpy arrays: each
+    node's depth offset (int32), its ancestor bitmask (int32: itself,
+    node 0 and the chain at every shallower depth) and whether it
+    writes k/v (bool: node 0 and the chain; siblings park)."""
+    Kt = 1 + K * W
+    chain = [1 + (i - 1) * W for i in range(1, K + 1)]
+    offsets = np.concatenate(
+        [[0], np.repeat(np.arange(1, K + 1), W)]).astype(np.int32)
+    mask = np.zeros((Kt,), np.int32)
+    mask[0] = 1                                      # node 0 sees itself
+    writer = np.zeros((Kt,), bool)
+    writer[0] = True                                 # committed tok at pos
+    for i in range(1, K + 1):
+        anc = 1                                      # bit 0: committed tok
+        for d in range(1, i):
+            anc |= 1 << chain[d - 1]
+        for w in range(W):
+            j = chain[i - 1] + w
+            mask[j] = anc | (1 << j)
+        writer[chain[i - 1]] = True                  # chain k/v at pos+i
+    return offsets, mask, writer
+
+
 class SpecKey(NamedTuple):
     """Frozen cache key for ONE speculative-engine configuration — the
     SpecEngine counterpart of ``EngineKey``.  ``k`` is the engine's
@@ -557,25 +583,7 @@ class SpecEngine(SlotPool):
         # ---- sausage tree: W candidates per depth, one verify pass; its
         # depth offsets, ancestor bitmasks and writer mask, built once
         Kt = 1 + K * W
-
-        def chain(i):
-            return 1 + (i - 1) * W
-
-        offsets_np = np.concatenate(
-            [[0], np.repeat(np.arange(1, K + 1), W)]).astype(np.int32)
-        mask_np = np.zeros((Kt,), np.int32)
-        mask_np[0] = 1                               # node 0 sees itself
-        for i in range(1, K + 1):
-            anc = 1                                  # bit 0: committed tok
-            for d in range(1, i):
-                anc |= 1 << chain(d)
-            for w in range(W):
-                j = chain(i) + w
-                mask_np[j] = anc | (1 << j)
-        writer_np = np.zeros((Kt,), bool)
-        writer_np[0] = True                          # committed tok at pos
-        for i in range(1, K + 1):
-            writer_np[chain(i)] = True               # chain k/v at pos+i
+        offsets_np, mask_np, writer_np = sausage_tree(K, W)
         offsets = torch.from_numpy(offsets_np).to(dev)
         tree = torch.from_numpy(mask_np).to(dev).expand(B, Kt).contiguous()
         writer = torch.from_numpy(writer_np).to(dev)

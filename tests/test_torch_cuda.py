@@ -1485,8 +1485,9 @@ def test_spec_rounds_on_the_card(gen, tree_width):
     """Reduced tinyllama on the card, an aligned draft: each round
     launches the paged verify kernel once per target layer on its route
     (the causal body for a flat round, the tree route for a tree of
-    1 + 4*3 nodes), commits 1 to K+1 tokens a row, and the engine drains
-    with every page back."""
+    1 + 4*3 nodes), commits 1 to K+1 tokens a row, more than one a round
+    on average (the draft is accepted), and the engine drains with every
+    page back."""
     from repro_torch.kernels.paged_attention.ops import paged_verify_attention
     from repro_torch.serve.speculative import SpecEngine
     m, p = _reduced_lm("tinyllama-1.1b", {})
@@ -1505,5 +1506,5 @@ def test_spec_rounds_on_the_card(gen, tree_width):
             m.cfg.num_layers
         assert 1 <= sum(len(x.tokens) for x in gens) - done <= 2 * 5
     assert [len(x.tokens) for x in gens] == [12, 12]
-    assert eng.accepted_per_round >= 1.0 and eng.stats["rounds"] <= 11
+    assert eng.accepted_per_round > 1.0 and eng.stats["rounds"] <= 11
     assert eng.free_pages() == eng._d_pages.allocatable
