@@ -159,6 +159,31 @@ Phases, in order; any failure exits non-zero before the result lines:
                 step, with their graph captures and capture seconds,
                 which must take less wall time a step than the single
                 steps; ``generate_fused`` bitwise ``generate``.
+  6. supersub — the paper's Super-Sub workload and its reconfiguration
+                model on ``ContextSwitchEngine``:
+                ``cascade_reference``, the router classifier
+                (supersub-super cut to one layer, mean-pooled, a
+                (256, 4) head) on 64 sequences of 256 tokens of
+                ``HierarchicalTask`` (4 superclasses of 3 subclasses,
+                vocab 512), each row of pooled logits within REF_TOL
+                relative L2 of the CPU float32 path; ``cascade_pipelined``,
+                the likelihood router, a supersub-super generalist (12
+                classes) and four supersub-sub specialists (3 classes)
+                at published widths on two slots, 8 single-subclass
+                batches of 64 x 256: the pipelined cascade bitwise the
+                sequential one on a fresh engine, some specialist load
+                hidden, flash launched at the cascade's shape (also a
+                kernel record), static and dynamic accuracy logged;
+                ``context_delta``, a head-only delta over tinyllama-1.1b's
+                backbone (``base=``): exactly the head's bytes moved,
+                every backbone tensor the base slot's, logits bitwise a
+                full load's, both loads' ms logged; ``schedule_live``,
+                tinyllama-1.1b, supersub-super and supersub-sub on two
+                slots through ``run_schedule_live``, the paper's case 2
+                (two preloaded nets alternating) and case 3 (three nets,
+                dynamic), each faster dynamic than conventional, the
+                simulators' savings from the measured times logged
+                beside the measured ones.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -210,6 +235,10 @@ N_REQUESTS = 8
 CHUNK = 128                  # chunked-prefill width of the serving passes
 MULTI_STEP = 8               # fused decode steps a tick (multi_step passes)
 SPEC_K, SPEC_W = 4, 3        # speculative depth and tree width (13 nodes)
+# the Super-Sub cascade (supersub-super / supersub-sub: H=Hkv=8, hd=32):
+# batches of 64 sequences of 256 tokens, its flash record at that shape
+CASCADE_B, CASCADE_S, CASCADE_BATCHES = 64, 256, 8
+CASCADE_FLASH_SHAPE = (CASCADE_B, 8, 8, CASCADE_S, 32, 0)
 SPEC_PAGE, SPEC_P = 256, 3   # the speculative passes' pages: 768 slots
 
 
@@ -499,6 +528,25 @@ def kernel_phase(dev) -> list[dict]:
            nbytes, flops)
     log_kernel_time("flash_attention", lambda: flash_attention(q, k, v),
                     flush)
+
+    # flash at the Super-Sub cascade's batches (64 x 256 tokens, H=Hkv=8,
+    # hd=32), on the model's (B, S, H, hd) projections seen as (B, H, S,
+    # hd) views, as the attention layer passes them
+    B, S = CASCADE_B, CASCADE_S
+    q, k, v = (rn(B, S, 8, 32).transpose(1, 2) for _ in range(3))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    record("flash_attention_cascade",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", got,
+           mha_reference(q, k, v),
+           time_ms(lambda: flash_attention(q, k, v), flush=flush),
+           time_ms(lambda: mha_reference(q, k, v), flush=flush),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True), flush=flush),
+           2 * 4 * q.numel(), 4 * 32 * B * 8 * S * (S + 1) / 2)
+    log_kernel_time("flash_attention_cascade",
+                    lambda: flash_attention(q, k, v), flush)
 
     # windowed flash prefill at mixtral-8x7b's: one 4160-token prompt,
     # window 4096, on the model's (B, S, H, hd) projections seen as (B, H,
@@ -1702,8 +1750,8 @@ def _launch_counters() -> dict:
     """One launch count per kernel body or route (the int8 bodies and the
     ring routes count apart), and the launches of flash, gmm, the paged
     decode, the scan and the mLSTM at the shapes of their second
-    records, and of the paged verify at the prefix passes' and the
-    speculative passes' shapes."""
+    records (flash also at the Super-Sub cascade's), and of the paged
+    verify at the prefix passes' and the speculative passes' shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -1750,6 +1798,8 @@ def _launch_counters() -> dict:
             "gmm": lambda: gmm.launches,
             "flash_attention_window":
                 lambda: flash_attention.launches_by_shape[FLASH_WINDOW_SHAPE],
+            "flash_attention_cascade":
+                lambda: flash_attention.launches_by_shape[CASCADE_FLASH_SHAPE],
             "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE]}
 
 
@@ -1933,9 +1983,9 @@ def serving_phase(dev) -> dict:
 # carry the body's launches: no engine verifies a ring yet, so that route
 # launches no time on the main path; the speculative tree passes verify
 # the tree route; the speculative records at their shapes, the windowed
-# flash, the down product, the long paged decode, the scan's and mLSTM's
-# serving records and the prefix passes' verify records count the
-# launches at their record's shape
+# and the cascade's flash, the down product, the long paged decode, the
+# scan's and mLSTM's serving records and the prefix passes' verify
+# records count the launches at their record's shape
 ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
               "paged_verify_attention_flat_spec": "paged_verify_attention",
               "paged_verify_attention_tree_spec":
@@ -1944,6 +1994,7 @@ ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
                   "paged_verify_attention_tree",
               "verify_attention_ring": "verify_attention",
               "flash_attention_window": "flash_attention",
+              "flash_attention_cascade": "flash_attention",
               "gmm_down": "gmm",
               "paged_decode_attention_long": "paged_decode_attention",
               "ssm_scan_serving": "ssm_scan",
@@ -3184,6 +3235,400 @@ def spec_depth_sweep(dev, prompts) -> None:
         del m, p, spec, plain
 
 
+
+# ---------------------------------------------------------------------------
+# phase 6: the paper's Super-Sub workload and reconfiguration
+# ---------------------------------------------------------------------------
+
+def _counted(label, fn, used) -> dict:
+    """Run ``fn`` with every launch count zeroed just before it; read the
+    counts just after and require each of ``used`` above 0."""
+    import torch
+    from repro_torch import kernels
+    fns = _launch_counters()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = {n: count() for n, count in fns.items()}
+    for n in used:
+        if counts[n] <= 0:
+            raise AssertionError(f"{label}: kernel {n} was not launched")
+    log(f"{label} launches " + json.dumps({n: counts[n] for n in used}))
+    return counts
+
+
+def _bf16_arch(name: str, **kw):
+    from repro_torch.configs import get_arch, override
+    return override(get_arch(name), param_dtype="bfloat16", **kw)
+
+
+def _head(dev, d: int, classes: int, seed: int):
+    """A classifier head (d, classes), bf16, from ``seed``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.02 * torch.randn(d, classes, generator=g, device=dev)).to(
+        torch.bfloat16)
+
+
+def _cascade_task():
+    from repro_torch.train.data import HierarchicalTask
+    return HierarchicalTask(num_super=4, subs_per_super=3, vocab=512,
+                            seq_len=CASCADE_S)
+
+
+def _cascade_batches(task, dev, seed0: int) -> list:
+    """CASCADE_BATCHES batches of CASCADE_B sequences, each of one
+    subclass (``benchmarks/figS1_pipeline.py``'s), on the card; -> (tokens,
+    subclasses) pairs."""
+    import numpy as np
+    out = []
+    for b in range(CASCADE_BATCHES):
+        x, sub, _ = task.sample(CASCADE_B, seed=seed0 + b,
+                                subclasses=np.array([3 * (b % 4)]))
+        out.append((x.to(dev), sub))
+    return out
+
+
+def cascade_reference(dev, task) -> None:
+    """The cascade's router classifier: the supersub-super backbone at
+    full width cut to ``REF_LAYERS`` layer (as ``reference_phase`` cuts
+    the served models, for the reason given there), mean-pooled, with a
+    (256, 4) head, on 64 sequences of 256 tokens of the task: on the card
+    (bf16, the flash kernel at the cascade's shape) against the plain
+    path on the CPU in float32 on the same weights, each row of pooled
+    logits within ``REF_TOL`` relative L2."""
+    import torch
+    from repro_torch.configs import override
+    from repro_torch.core.cascade import classifier_logits
+    from repro_torch.models.model import build_model
+
+    cfg = _bf16_arch("supersub-super", num_layers=REF_LAYERS)
+    gpu = build_model(cfg, device=dev)
+    params = {"backbone": gpu.init(seed=21),
+              "head": _head(dev, cfg.d_model, task.num_super, 22)}
+    x = task.sample(CASCADE_B, seed=0)[0]
+    got = classifier_logits(gpu, params, x.to(dev)).cpu()
+    cpu = build_model(override(cfg, dtype="float32", param_dtype="float32"),
+                      cache_dtype=torch.float32, device="cpu")
+    want = classifier_logits(cpu, _tree(lambda t: t.float().cpu(), params),
+                             x)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"cascade_reference: shape {tuple(got.shape)}"
+                             f" (want {tuple(want.shape)}) or non-finite")
+    rel = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"cascade_reference ({REF_LAYERS} layer): worst row rel_l2="
+        f"{rel:.4e} (limit {REF_TOL}), argmax agreement {same:.4f}")
+    if not rel <= REF_TOL:
+        raise AssertionError(f"cascade_reference: a row's rel L2 {rel} > "
+                             f"{REF_TOL}")
+
+
+def _likelihood_super(task):
+    """The cascade's router as ``benchmarks/_members.py`` builds it, in
+    plain torch: the task's log-likelihood tables (pinned host memory),
+    each sequence's token counts against them, the subclass posteriors
+    summed per superclass."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cascade import CascadeMember
+    from repro_torch.launch.serve import _to_host
+    host = _to_host({
+        "logd": torch.from_numpy(np.log(task.dists + 1e-9).astype(
+            np.float32)),
+        "sup_of": torch.from_numpy(task.sub_of_super)})
+
+    def apply(p, x):
+        x = x.long()
+        c = torch.zeros(x.shape[0], task.vocab, device=x.device).scatter_add_(
+            1, x, torch.ones(x.shape, device=x.device))
+        return torch.zeros(x.shape[0], task.num_super,
+                           device=x.device).index_add_(
+            1, p["sup_of"], torch.softmax(c @ p["logd"].T, -1))
+    return CascadeMember("super", apply, lambda: host)
+
+
+def _classifier(dev, name, arch, classes, seed, covers=None):
+    """A cascade member at ``arch``'s published width: its backbone from
+    ``seed`` and a (d, classes) head, pinned in host memory."""
+    from repro_torch.core.cascade import CascadeMember, classifier_logits
+    from repro_torch.launch.serve import _to_host
+    from repro_torch.models.model import build_model
+    m = build_model(_bf16_arch(arch), device=dev)
+    host = _to_host({"backbone": m.init(seed=seed),
+                     "head": _head(dev, m.cfg.d_model, classes, seed + 1)})
+    return CascadeMember(name, lambda p, x: classifier_logits(m, p, x),
+                         lambda: host, covers=covers)
+
+
+def cascade_pipelined(dev, task) -> dict:
+    """One cascade at published width on ``ContextSwitchEngine(num_slots
+    =2)``: the likelihood router, the generalist (supersub-super, 12
+    classes) and four specialists (supersub-sub, 3 classes each), random
+    weights from distinct seeds.  ``dynamic_infer_pipelined`` over 8
+    single-subclass batches of 64 x 256 tokens must give, batch for
+    batch, the predictions of ``dynamic_infer`` on a fresh engine,
+    bitwise, and hide some specialist load behind execution; then
+    ``evaluate`` (static and dynamic accuracy) on 8 more batches, logged.
+    One batch through a scratch engine first pays the first calls, so
+    the two walls compare.  Counted: flash at the cascade's shape must
+    launch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cascade import SuperSubCascade
+    from repro_torch.core.context import ContextSwitchEngine
+
+    sup = _likelihood_super(task)
+    gen = _classifier(dev, "generalist", "supersub-super", task.num_sub, 31)
+    specs = [_classifier(dev, f"spec{g}", "supersub-sub",
+                         task.subs_per_super, 41 + 2 * g, covers=g)
+             for g in range(task.num_super)]
+    batches = [x for x, _ in _cascade_batches(task, dev, 0)]
+    runs = {}
+    warm = ContextSwitchEngine(num_slots=2, device=dev)   # first calls
+    SuperSubCascade(warm, sup, specs, gen, task.sub_of_super).dynamic_infer(
+        batches[0])
+    warm.shutdown()
+
+    def drive():
+        for mode in ("pipelined", "sequential"):
+            eng = ContextSwitchEngine(num_slots=2, device=dev)
+            cas = SuperSubCascade(eng, sup, specs, gen, task.sub_of_super)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (cas.dynamic_infer_pipelined(batches)
+                   if mode == "pipelined"
+                   else [cas.dynamic_infer(x) for x in batches])
+            torch.cuda.synchronize()
+            runs[mode] = (out, time.perf_counter() - t0, dict(eng.stats),
+                          eng.hidden_load_fraction())
+            if mode == "sequential":
+                accs = [cas.evaluate(x, sub, batch=CASCADE_B)
+                        for x, sub in _cascade_batches(task, dev, 100)]
+                runs["accuracy"] = {k: float(np.mean([a[k] for a in accs]))
+                                    for k in accs[0]}
+            eng.shutdown()
+
+    counts = _counted("cascade_pipelined", drive, ["flash_attention_cascade"])
+    (pipe, wall, st, frac), (seq, swall, sst, _) = (runs["pipelined"],
+                                                     runs["sequential"])
+    for i, (a, b) in enumerate(zip(pipe, seq)):
+        if a["super"] != b["super"] or not np.array_equal(a["sub"], b["sub"]):
+            raise AssertionError(f"cascade_pipelined: batch {i} differs "
+                                 "from the sequential cascade's")
+    log("cascade_pipelined " + json.dumps({
+        "batches": len(pipe), "equal_to_sequential": len(pipe) == len(seq),
+        "wall_s": wall, "loads": st["loads"],
+        "load_seconds": st["load_seconds"],
+        "hidden_load_seconds": st["hidden_load_seconds"],
+        "hidden_load_fraction": frac, "context_changes":
+            st["context_changes"], "sequential_wall_s": swall,
+        "sequential_loads": sst["loads"],
+        "superclasses": [r["super"] for r in pipe],
+        **runs["accuracy"]}))
+    if len(pipe) != len(batches) or not st["hidden_load_seconds"] > 0:
+        raise AssertionError(f"cascade_pipelined: {len(pipe)} results, "
+                             f"hidden load {st['hidden_load_seconds']} s")
+    return counts
+
+
+def _tiny_host(dev):
+    """tinyllama-1.1b at its published width: (model, bf16 weights from
+    seed 0 pinned in host memory)."""
+    from repro_torch.launch.serve import _to_host
+    from repro_torch.models.model import build_model
+    m = build_model(_bf16_arch("tinyllama-1.1b"), device=dev)
+    return m, _to_host(m.init(seed=0))
+
+
+def context_delta(dev, tiny) -> dict:
+    """Partial reconfiguration at tinyllama-1.1b's width: a base context
+    (the backbone and a (2048, 12) head) and a specialist registered with
+    ``base=`` whose weights are a head-only delta.  The delta load must
+    move exactly the head's bytes, every backbone tensor of its slot
+    must be the base slot's (same ``data_ptr``), and its pooled logits
+    on an (8, 256) batch must be bitwise those of a full-load twin of the
+    same weights.  Logs the delta load's ms beside the full load's."""
+    import torch
+    from repro_torch.core.cascade import classifier_logits
+    from repro_torch.core.context import (ContextDescriptor,
+                                          ContextSwitchEngine, _leaves)
+    from repro_torch.launch.serve import _to_host
+    m, backbone = tiny
+    d = m.cfg.d_model
+    base_head, head = (_to_host(_head(dev, d, 12, s)) for s in (61, 62))
+    x = torch.randint(0, m.cfg.vocab_size, (8, 256), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(63))
+    out, ms = {}, {}
+
+    def drive():
+        eng = ContextSwitchEngine(num_slots=3, device=dev)
+
+        def apply(p, t):
+            return classifier_logits(m, p, t)
+        for name, fn, base in (
+                ("base", lambda: {"backbone": backbone, "head": base_head},
+                 None),
+                ("spec", lambda: {"head": head}, "base"),
+                ("full", lambda: {"backbone": backbone, "head": head},
+                 None)):
+            eng.register(ContextDescriptor(name, apply, fn, base=base))
+        for name in ("base", "spec", "full"):
+            b0 = eng.stats["bytes_loaded"]
+            t0 = time.perf_counter()
+            slot = eng.preload(name, block=True).result()
+            ms[name] = 1e3 * (time.perf_counter() - t0)
+            ms[name + "_bytes"] = eng.stats["bytes_loaded"] - b0
+            if name == "spec":
+                base = eng._find_slot("base").buffers["backbone"]
+                shared = [a.data_ptr() == b.data_ptr() for a, b in zip(
+                    _leaves(slot.buffers["backbone"]), _leaves(base))]
+                if not (shared and all(shared)):
+                    raise AssertionError(
+                        f"context_delta: {shared.count(False)} backbone "
+                        "tensors of the delta slot are not the base's")
+                ms["shared_tensors"] = len(shared)
+        for name in ("spec", "full"):
+            eng.switch(name)
+            out[name] = eng.run(x)
+        eng.shutdown()
+
+    counts = _counted("context_delta", drive, ["flash_attention"])
+    log("context_delta " + json.dumps({
+        "delta_load_ms": ms["spec"], "full_load_ms": ms["full"],
+        "base_load_ms": ms["base"], "delta_bytes": ms["spec_bytes"],
+        "head_bytes": head.nbytes, "full_bytes": ms["full_bytes"],
+        "backbone_tensors_shared": ms["shared_tensors"],
+        "logits_bitwise_full_load": torch.equal(out["spec"],
+                                                out["full"])}))
+    if ms["spec_bytes"] != head.nbytes:
+        raise AssertionError(f"context_delta: the delta moved "
+                             f"{ms['spec_bytes']} bytes, the head is "
+                             f"{head.nbytes}")
+    if not torch.equal(out["spec"], out["full"]):
+        raise AssertionError("context_delta: the delta context's logits "
+                             "differ from the full load's")
+    return counts
+
+
+def schedule_live(dev, tiny) -> dict:
+    """The paper's reconfiguration case studies, live: ``forward`` of
+    tinyllama-1.1b, supersub-super and supersub-sub (published widths)
+    on one (8, 256) batch, three contexts on two slots.  Each context's
+    load and run is timed (median of 3); then ``run_schedule_live``
+    drives case 2 (tinyllama-1.1b and supersub-super alternating x3,
+    both preloaded) and case 3 (the three nets cycled twice, the two
+    small ones run R times, R about tinyllama's load over a run of
+    supersub-sub), each ``dynamic=True`` against ``dynamic=False``.
+    Dynamic must take less time than conventional in both; the
+    simulators' savings from the measured times are logged beside the
+    measured ones."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.core.context import ContextDescriptor, ContextSwitchEngine
+    from repro_torch.core.scheduler import (Run, run_schedule_live,
+                                            simulate_conventional,
+                                            simulate_dynamic,
+                                            simulate_preloaded, time_saving)
+    from repro_torch.launch.serve import _to_host
+    from repro_torch.models.model import build_model
+    nets = {"tinyllama-1.1b": tiny}
+    for i, name in enumerate(("supersub-super", "supersub-sub")):
+        m = build_model(_bf16_arch(name), device=dev)
+        nets[name] = (m, _to_host(m.init(seed=71 + i)))
+    x = torch.randint(0, 512, (8, 256), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(72))
+    inputs = {n: (x,) for n in nets}
+    res = {}
+
+    def engine():
+        eng = ContextSwitchEngine(num_slots=2, device=dev)
+        for n, (m, host) in nets.items():
+            eng.register(ContextDescriptor(
+                n, lambda p, t, m=m: m.forward(p, t), lambda h=host: h))
+        return eng
+
+    def drive():
+        eng = engine()
+        loads, execs = {}, {}
+        for n in nets:
+            lt, et = [], []
+            for _ in range(3):
+                eng.deactivate()
+                eng.evict(n)
+                t0 = time.perf_counter()
+                eng.preload(n, block=True)
+                lt.append(time.perf_counter() - t0)
+                eng.switch(n)
+                eng.run(x)                          # warm
+                t0 = time.perf_counter()
+                eng.run(x)
+                et.append(time.perf_counter() - t0)
+            loads[n], execs[n] = statistics.median(lt), statistics.median(et)
+        eng.shutdown()
+        tiny_n, a, b = list(nets)
+        reps = max(1, min(50, math.ceil(loads[tiny_n] / execs[b])))
+        cases = {
+            "case2": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a])] * 3,
+            "case3": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a], reps),
+                      Run(b, execs[b], reps)] * 2}
+        for case, sched in cases.items():
+            out = {}
+            for dynamic in (True, False):
+                eng = engine()
+                if dynamic and case == "case2":     # preloaded, off the clock
+                    for n in (tiny_n, a):
+                        eng.preload(n, block=True)
+                out[dynamic] = run_schedule_live(eng, sched, inputs,
+                                                 dynamic=dynamic)
+                out[(dynamic, "loads")] = eng.stats["loads"]
+                eng.shutdown()
+            conv = simulate_conventional(sched, loads)
+            ours = (simulate_preloaded(sched, loads) if case == "case2"
+                    else simulate_dynamic(sched, loads, num_slots=2))
+            res[case] = {
+                "schedule": [(r.net, r.repeat) for r in sched],
+                "dynamic_s": out[True]["total"],
+                "conventional_s": out[False]["total"],
+                "dynamic_visible_stalls_s": out[True]["visible_stalls"],
+                "conventional_visible_stalls_s":
+                    out[False]["visible_stalls"],
+                "loads_dynamic": out[(True, "loads")],
+                "loads_conventional": out[(False, "loads")],
+                "measured_saving": time_saving(out[False]["total"],
+                                               out[True]["total"]),
+                "predicted_saving": time_saving(conv, ours),
+                "predicted_dynamic_s": ours,
+                "predicted_conventional_s": conv}
+        res["load_s"], res["exec_s"] = loads, execs
+
+    counts = _counted("schedule_live", drive, ["flash_attention"])
+    log("schedule_live " + json.dumps(res))
+    for case in ("case2", "case3"):
+        r = res[case]
+        if not r["dynamic_s"] < r["conventional_s"]:
+            raise AssertionError(
+                f"schedule_live {case}: dynamic {r['dynamic_s']} s is not "
+                f"below conventional {r['conventional_s']} s")
+    return counts
+
+
+def supersub_phase(dev) -> dict:
+    """Phase 6: the cascade's reference check, then the counted passes
+    (``cascade_pipelined``, ``context_delta``, ``schedule_live``); ->
+    their launch counts, summed."""
+    task = _cascade_task()
+    cascade_reference(dev, task)
+    tiny = _tiny_host(dev)
+    totals = cascade_pipelined(dev, task)
+    for more in (context_delta(dev, tiny), schedule_live(dev, tiny)):
+        for n in totals:
+            totals[n] += more[n]
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3214,6 +3659,10 @@ def main() -> int:
     spec_reference(dev)
     totals = serving_phase(dev)
     profile_phase(dev)
+    t0 = time.perf_counter()
+    for n, c in supersub_phase(dev).items():
+        totals[n] += c
+    log(f"supersub phase seconds: {time.perf_counter() - t0:.1f}")
     for rec in records:
         rec["launches"] = totals[rec["name"]]
         if rec["name"] in ROUTE_BODY:

@@ -8,6 +8,8 @@ R; layer ``r*P + i`` of the port takes ``blocks[f"b{i}"][r]``, the order
 in which the JAX model's layer scan runs them.  Every leaf keeps its
 dtype (bfloat16 included).  Both packages then compute on the same
 weights, so the port's own init need not reproduce JAX's PRNG.
+``tree_from_numpy`` carries any other nested dict of arrays across (a
+classifier's head, a likelihood member's tables).
 This module imports neither JAX nor the JAX package: it sees numpy only.
 """
 from __future__ import annotations
@@ -30,6 +32,14 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_from_numpy(tree, device=None):
+    """A nested dict of numpy arrays -> the same dict of tensors on
+    ``device``, every dtype kept (bfloat16 included): a cascade head, or
+    a likelihood member's tables."""
+    dev = resolve_device(device)
+    return _map(lambda a: _tensor(a, dev), tree)
 
 
 def params_from_jax(tree: dict, device=None) -> dict:

@@ -19,17 +19,20 @@ Mapping here (see DESIGN.md §2):
     ready event, no device data movement
 
 PyTorch runs eagerly, so a context's apply function is called directly:
-there is no executable cache to fill at registration.  The JAX package's
-non-volatile ``ContextStore`` (checkpoint-backed contexts) is not ported
-yet.
+there is no executable cache to fill at registration.  A non-volatile
+context store (``ContextStore``, files under a directory) plays the role
+of the FeFET's retention: contexts survive process restarts.
 """
 from __future__ import annotations
 
 import enum
+import hashlib
+import os
+import pickle
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
@@ -49,12 +52,22 @@ class ContextState(enum.Enum):
 @dataclass
 class ContextDescriptor:
     """A registered configuration: how to compute and where weights come
-    from.  The JAX package's partial reconfiguration (``base``: load only
-    a delta over a resident context, used by its Super-Sub cascade) is
-    not ported yet."""
+    from.
+
+    ``base`` enables *partial reconfiguration* (the paper's Fig 1(b)
+    analogue at weight-tensor granularity): ``weights_fn`` then returns
+    only the leaves that DIFFER from the base context; the loader copies
+    just the delta and assembles the slot from the base's resident
+    tensors + the delta.  Super-Sub cascades with a shared backbone load
+    their specialists this way (head-only deltas).  The JAX package's
+    ``shardings`` and ``donate_params`` have no counterpart: this eager
+    engine places a context's tensors on its one device, and there is no
+    compiled executable whose inputs could be donated."""
     name: str
     apply_fn: Callable                    # (params, *inputs) -> outputs
-    weights_fn: Callable[[], Any]         # -> host weight tree
+    weights_fn: Callable[[], Any]         # -> host weight tree (or delta)
+    base: Optional[str] = None            # delta-load on top of this context
+    meta: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -90,6 +103,17 @@ def _nbytes(tree) -> int:
     return sum(x.nbytes for x in _leaves(tree) if hasattr(x, "nbytes"))
 
 
+def _overlay(base, delta):
+    """Merge a (possibly partial) delta tree over a base tree: dict nodes
+    merge key-wise, anything else in the delta replaces the base."""
+    if isinstance(delta, dict) and isinstance(base, dict):
+        out = dict(base)
+        for k, v in delta.items():
+            out[k] = _overlay(base[k], v) if k in base else v
+        return out
+    return delta
+
+
 class ContextSwitchEngine:
     """Dual-slot (by default) context-switching executor.
 
@@ -100,6 +124,7 @@ class ContextSwitchEngine:
     """
 
     def __init__(self, num_slots: int = 2, device=None,
+                 store: "ContextStore | None" = None,
                  policy: ReconfigPolicy | None = None,
                  telemetry: Telemetry | None = None):
         assert num_slots >= 2, "dynamic reconfiguration needs >= 2 slots"
@@ -110,6 +135,7 @@ class ContextSwitchEngine:
         self.policy = policy
         self.slots = [ContextSlot(i) for i in range(num_slots)]
         self.device = resolve_device(device)
+        self.store = store
         self._cuda = self.device.type == "cuda"
         # loads copy on their own stream, behind the compute stream's work
         self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
@@ -295,7 +321,27 @@ class ContextSwitchEngine:
             self._load_started_at = t0
             self._load_hidden_accum = 0.0
         try:
+            base = None
+            if desc.base is not None:
+                # partial reconfiguration: only the delta crosses the link;
+                # unchanged tensors are the base slot's own (no device
+                # copy).  They are safe to share: the base slot turned
+                # READY only after this loader thread had synchronized its
+                # ``copied`` event (``_copy_in``), so they are complete.  A
+                # base the policy evicts later stays alive through this
+                # slot's references; ``bytes_resident`` counts the merged
+                # tree, as the JAX engine does.
+                with self._lock:
+                    base_slot = self._find_slot(desc.base)
+                    if base_slot is None:
+                        raise RuntimeError(
+                            f"delta context {desc.name!r} needs base "
+                            f"{desc.base!r} resident")
+                    base = base_slot.buffers
             bufs = self._copy_in(desc.weights_fn(), slot)
+            wire_bytes = _nbytes(bufs)        # what crossed host->device
+            if base is not None:
+                bufs = _overlay(base, bufs)
         except BaseException:
             with self._lock:                 # failed load never wedges a slot
                 slot.state = ContextState.EMPTY
@@ -312,12 +358,12 @@ class ContextSwitchEngine:
         dt = now - t0
         with self._lock:
             slot.buffers = bufs
-            slot.bytes_resident = nbytes = _nbytes(bufs)
+            slot.bytes_resident = _nbytes(bufs)
             slot.state = ContextState.READY
             self.policy.complete(desc.name)
             self.stats["loads"] += 1
             self.stats["load_seconds"] += dt
-            self.stats["bytes_loaded"] += nbytes
+            self.stats["bytes_loaded"] += wire_bytes
             # overlap accounting: execution time inside [t0, now] counts
             # this load as *hidden* reconfiguration.  Runs that completed
             # during the window accumulated their clamped overlap in
@@ -335,7 +381,7 @@ class ContextSwitchEngine:
             # so a hidden-load fraction recomputed from exported spans
             # reproduces the engine's number (tested to < 1%).
             self._trace.span(f"load:{desc.name}", f"ctxslot{slot.idx}",
-                             t0, now, args={"bytes": nbytes,
+                             t0, now, args={"bytes": wire_bytes,
                                             "hidden_s": round(hidden, 6)})
         return slot
 
@@ -500,6 +546,15 @@ class ContextSwitchEngine:
                                  t0, now)
         return out
 
+    def run_async(self, *inputs):
+        """Call the active context's program without waiting for the
+        compute stream and without the overlap accounting (the JAX
+        engine's asynchronously dispatched run)."""
+        slot = self.active
+        if slot is None:
+            raise RuntimeError("no ACTIVE context; call switch() first")
+        return self._contexts[slot.name].apply_fn(slot.buffers, *inputs)
+
     # --------------------------------------------------------------- misc
     def hidden_load_fraction(self) -> float:
         """Share of reconfiguration time hidden behind execution (the
@@ -529,3 +584,94 @@ class ContextSwitchEngine:
     def shutdown(self):
         self._loader.shutdown(wait=True)
 
+
+
+# ---------------------------------------------------------------------------
+# Non-volatile context store (FeFET retention analogue)
+# ---------------------------------------------------------------------------
+
+def _raw(t: torch.Tensor) -> bytes:
+    return t.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.blake2b(_raw(t), digest_size=16).hexdigest()
+
+
+def _skeleton(tree, path: str, leaves: dict):
+    """``tree`` with each tensor replaced by its "/"-joined path, which
+    keys the tensor (on the CPU, contiguous) in ``leaves``."""
+    def sub(k):
+        return f"{path}/{k}" if path else str(k)
+    if isinstance(tree, dict):
+        for k in tree:
+            if not isinstance(k, str) or "/" in k:
+                raise ValueError(f"context store keys are strings without "
+                                 f"'/', got {k!r} under {path!r}")
+        return {k: _skeleton(v, sub(k), leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_skeleton(v, sub(i), leaves)
+                          for i, v in enumerate(tree))
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"context store leaves are tensors, got "
+                        f"{type(tree).__name__} at {path!r}")
+    leaves[path] = tree.detach().cpu().contiguous()
+    return path
+
+
+def _load_tree(path: str):
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        skeleton, leaves, digests = obj["tree"], obj["leaves"], obj["digests"]
+    except (RuntimeError, EOFError, KeyError, TypeError,
+            pickle.UnpicklingError) as e:
+        raise IOError(f"context file {path}: unreadable ({e})") from e
+    if set(leaves) != set(digests):
+        raise IOError(f"context file {path}: leaves and digests differ")
+    for k, t in leaves.items():
+        if _digest(t) != digests[k]:
+            raise IOError(f"context file {path}: digest mismatch at {k}")
+    try:
+        return _map(leaves.__getitem__, skeleton)
+    except (KeyError, TypeError) as e:
+        raise IOError(f"context file {path}: tree names a missing leaf "
+                      f"({e})") from e
+
+
+class ContextStore:
+    """Persist contexts to disk; reload without recompute (non-volatility).
+
+    One file ``ctx_<name>`` under ``root`` per context, in the port's own
+    format (it does not read the JAX package's msgpack + zstandard files):
+    a ``torch.save`` of the tree's tensors keyed by their "/"-joined path,
+    a blake2b digest of each tensor's bytes, and the tree's skeleton
+    (dicts, lists and tuples with each tensor's path in its place).  A
+    save is atomic (a temporary file, fsync, ``os.replace``); a load reads
+    on the CPU with ``weights_only=True``, checks every digest and raises
+    ``IOError`` on a mismatch or an unreadable file.  Dtypes are kept,
+    bfloat16 included."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.root, f"ctx_{name}")
+
+    def save(self, name: str, weights) -> str:
+        leaves: dict[str, torch.Tensor] = {}
+        skeleton = _skeleton(weights, "", leaves)
+        path = self._path(name)
+        os.makedirs(self.root, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            torch.save({"tree": skeleton, "leaves": leaves,
+                        "digests": {k: _digest(t)
+                                    for k, t in leaves.items()}}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)                   # atomic commit
+        return path
+
+    def weights_fn(self, name: str) -> Callable[[], Any]:
+        path = self._path(name)
+        return lambda: _load_tree(path)

@@ -25,6 +25,7 @@ or ``layers.PagedKV`` pools) and are updated in place.
 
 Execution modes:
   * ``forward``           — logits over the full sequence
+  * ``hidden``            — the final normed states over the full sequence
   * ``prefill``           — builds the row cache, returns last-position logits
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
@@ -277,6 +278,17 @@ class LM:
         x, _ = self._run(params, x, "forward",
                          positions=self._positions(x))
         return self._head(params, x)
+
+    def hidden(self, params, tokens):
+        """Final hidden states (B, S, d) before the head, in the
+        activation dtype: the Super-Sub classifiers pool them.  The JAX
+        package's ``hidden`` also returns the MoE aux loss, a training
+        term; ``_run`` drops it, so only the states come back."""
+        x = self._embed_in(params, tokens)
+        x, _ = self._run(params, x, "forward",
+                         positions=self._positions(x))
+        return layers.rmsnorm(x, params["final_norm"].to(x.dtype),
+                              self.cfg.norm_eps)
 
     def prefill(self, params, tokens, max_len: int):
         """Populate a fresh row cache.  Returns (last-position logits

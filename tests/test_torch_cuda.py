@@ -1508,3 +1508,96 @@ def test_spec_rounds_on_the_card(gen, tree_width):
     assert [len(x.tokens) for x in gens] == [12, 12]
     assert eng.accepted_per_round > 1.0 and eng.stats["rounds"] <= 11
     assert eng.free_pages() == eng._d_pages.allocatable
+
+
+def _classifier_host(m, classes, seed):
+    """A cascade classifier's weights in host memory: ``m``'s backbone
+    from ``seed`` and a (d, classes) head."""
+    g = torch.Generator().manual_seed(seed)
+    return {"backbone": m.init(seed=seed, device="cpu"),
+            "head": 0.02 * torch.randn(m.cfg.d_model, classes, generator=g)}
+
+
+def test_delta_load_on_the_card_shares_the_base(gen, tmp_path):
+    """A head-only delta over a resident base: only the head crosses the
+    link, every backbone tensor of the delta slot is the base slot's
+    (same ``data_ptr``), its logits are bitwise a full load's of the same
+    weights, the flash kernel runs in them; a bf16 context read back
+    from a ``ContextStore`` serves the same logits."""
+    from repro_torch.core.cascade import classifier_logits
+    from repro_torch.core.context import (ContextDescriptor, ContextStore,
+                                          ContextSwitchEngine, _leaves)
+    m, _ = _reduced_lm("supersub-super", {"param_dtype": "bfloat16"})
+    base = _classifier_host(m, 12, seed=1)
+    head = {"head": 0.02 * torch.randn(m.cfg.d_model, 12,
+                                       generator=torch.Generator()
+                                       .manual_seed(2))}
+    store = ContextStore(str(tmp_path))
+    store.save("full", {**base, **head})
+    eng = ContextSwitchEngine(num_slots=3, device="cuda", store=store)
+
+    def apply(p, x):
+        return classifier_logits(m, p, x)
+
+    for name, fn, b in (("base", lambda: base, None),
+                        ("spec", lambda: head, "base"),
+                        ("full", store.weights_fn("full"), None)):
+        eng.register(ContextDescriptor(name, apply, fn, base=b))
+    eng.preload("base", block=True)
+    b0 = eng.stats["bytes_loaded"]
+    spec = eng.preload("spec", block=True).result()
+    assert eng.stats["bytes_loaded"] - b0 == head["head"].nbytes
+    base_bufs = eng._find_slot("base").buffers
+    assert spec.buffers["head"].is_cuda
+    for a, b in zip(_leaves(spec.buffers["backbone"]),
+                    _leaves(base_bufs["backbone"])):
+        assert a.data_ptr() == b.data_ptr()
+    x = torch.randint(0, m.cfg.vocab_size, (4, 40), generator=torch
+                      .Generator().manual_seed(3)).cuda()
+    out = {}
+    for name in ("spec", "full"):
+        eng.preload(name, block=True)
+        eng.switch(name)
+        kernels.reset_launch_counts()
+        out[name] = eng.run(x)
+        assert flash_attention.launches == m.cfg.num_layers
+    assert torch.equal(out["spec"], out["full"])
+    assert torch.equal(eng.run_async(x), out["full"])
+    eng.shutdown()
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_cascade_pipelined_equals_sequential_on_the_card(gen, slots):
+    """Reduced transformer members on the card: the pipelined cascade's
+    predictions are bitwise the sequential ones (the same kernels on the
+    same buffers), and every member pass runs the flash kernel."""
+    from repro_torch.core.cascade import (CascadeMember, SuperSubCascade,
+                                          classifier_logits)
+    from repro_torch.core.context import ContextSwitchEngine
+    from repro_torch.train.data import HierarchicalTask
+    m, _ = _reduced_lm("supersub-super", {"param_dtype": "bfloat16"})
+    task = HierarchicalTask(num_super=4, subs_per_super=3,
+                            vocab=m.cfg.vocab_size, seq_len=48, seed=0)
+
+    def member(name, classes, seed, covers=None):
+        host = _classifier_host(m, classes, seed)
+        return CascadeMember(name, lambda p, x: classifier_logits(m, p, x),
+                             lambda: host, covers=covers)
+
+    sup, gen_m = member("super", 4, 1), member("generalist", 12, 2)
+    specs = [member(f"spec{g}", 3, 10 + g, covers=g) for g in range(4)]
+    batches = [task.sample(16, seed=b, subclasses=[3 * (b % 4)])[0].cuda()
+               for b in range(6)]
+    runs = []
+    for pipelined in (False, True):
+        eng = ContextSwitchEngine(num_slots=slots, device="cuda")
+        cas = SuperSubCascade(eng, sup, specs, gen_m, task.sub_of_super)
+        kernels.reset_launch_counts()
+        runs.append(cas.dynamic_infer_pipelined(batches) if pipelined
+                    else [cas.dynamic_infer(x) for x in batches])
+        assert flash_attention.launches == 2 * len(batches) * \
+            m.cfg.num_layers
+        eng.shutdown()
+    for a, b in zip(*runs):
+        assert a["super"] == b["super"]
+        assert (a["sub"] == b["sub"]).all()
