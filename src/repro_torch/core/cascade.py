@@ -96,22 +96,33 @@ class SuperSubCascade:
         so it hides behind real execution (engine stats show
         ``hidden_load_seconds > 0``).
 
-        Batch i's specialist is preloaded after batch i-1's has run and
-        the select is back on the super net, so two slots suffice: the
-        super net keeps one, the specialists take turns in the other.
-        (The JAX package issues that preload before the drain, which on
-        two slots evicts the specialist the drain still needs.)"""
+        Batch i's specialist is preloaded before batch i-1's specialist
+        pass when that load cannot evict the specialist the pass still
+        needs: with more than two slots, or when both batches need the
+        same member.  The load then hides behind the drain and the next
+        super pass, as in the JAX package.  On two slots otherwise the
+        preload waits until the drain is done and the select is back on
+        the super net: the super net keeps one slot and the specialists
+        take turns in the other, so the load hides behind the next super
+        pass only.  (The JAX package always preloads before the drain,
+        which on two slots evicts the specialist the drain needs.)"""
         results: list[dict] = []
         in_flight: Optional[tuple[Any, int]] = None   # (batch, super_pred)
+        spare_slot = len(self.engine.slots) > 2
         self.engine.preload(self.super_net.name, block=True)
         self.engine.switch(self.super_net.name)
         for x in batches:
             sp = self._super_pass(x)
+            member = self.specialists.get(sp, self.generalist)
+            early = (in_flight is None or spare_slot or member is
+                     self.specialists.get(in_flight[1], self.generalist))
+            if early:                         # streams behind the drain too
+                self.engine.preload(member.name)
             if in_flight is not None:         # drain the previous batch
                 results.append(self._specialist_pass(*in_flight))
                 self.engine.switch(self.super_net.name)
-            member = self.specialists.get(sp, self.generalist)
-            self.engine.preload(member.name)  # streams behind the next pass
+            if not early:                     # streams behind the next pass
+                self.engine.preload(member.name)
             in_flight = (x, sp)
         if in_flight is not None:             # flush
             results.append(self._specialist_pass(*in_flight))

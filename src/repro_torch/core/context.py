@@ -32,7 +32,7 @@ import pickle
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
@@ -62,12 +62,14 @@ class ContextDescriptor:
     their specialists this way (head-only deltas).  The JAX package's
     ``shardings`` and ``donate_params`` have no counterpart: this eager
     engine places a context's tensors on its one device, and there is no
-    compiled executable whose inputs could be donated."""
+    compiled executable whose inputs could be donated.
+
+    Without ``weights_fn`` the weights come from the engine's
+    ``ContextStore``: the file saved under the context's name."""
     name: str
     apply_fn: Callable                    # (params, *inputs) -> outputs
-    weights_fn: Callable[[], Any]         # -> host weight tree (or delta)
+    weights_fn: Optional[Callable[[], Any]] = None  # -> host tree (or delta)
     base: Optional[str] = None            # delta-load on top of this context
-    meta: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -172,7 +174,11 @@ class ContextSwitchEngine:
 
     # ------------------------------------------------------------- registry
     def register(self, desc: ContextDescriptor):
-        """Register a context (its weights load on the first preload)."""
+        """Register a context (its weights load on the first preload).  A
+        descriptor without ``weights_fn`` loads from ``store``."""
+        if desc.weights_fn is None and self.store is None:
+            raise ValueError(f"context {desc.name!r} has no weights_fn "
+                             "and the engine has no store")
         with self._lock:
             self._contexts[desc.name] = desc
 
@@ -338,7 +344,9 @@ class ContextSwitchEngine:
                             f"delta context {desc.name!r} needs base "
                             f"{desc.base!r} resident")
                     base = base_slot.buffers
-            bufs = self._copy_in(desc.weights_fn(), slot)
+            weights_fn = (desc.weights_fn if desc.weights_fn is not None
+                          else self.store.weights_fn(desc.name))
+            bufs = self._copy_in(weights_fn(), slot)
             wire_bytes = _nbytes(bufs)        # what crossed host->device
             if base is not None:
                 bufs = _overlay(base, bufs)
@@ -649,7 +657,8 @@ class ContextStore:
     save is atomic (a temporary file, fsync, ``os.replace``); a load reads
     on the CPU with ``weights_only=True``, checks every digest and raises
     ``IOError`` on a mismatch or an unreadable file.  Dtypes are kept,
-    bfloat16 included."""
+    bfloat16 included.  An engine given ``store=`` loads a context
+    registered without ``weights_fn`` from its file here."""
 
     def __init__(self, root: str):
         self.root = root

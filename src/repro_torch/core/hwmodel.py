@@ -1,8 +1,10 @@
 """The paper's hardware numbers (Fig 5, Supplementary) and derived models.
 
-These constants are transcribed from the paper and drive (a) the Fig 5
-benchmark tables, (b) the critical-path composition model (Fig 5c), and
-(c) calibration of the discrete-event scheduler's load/switch times.
+These constants are transcribed from the paper.  The JAX package's
+benchmarks read them for (a) the Fig 5 tables, (b) the critical-path
+composition model (Fig 5c), and (c) calibration of the discrete-event
+scheduler's load/switch times; no module of this package calls them
+yet (the counterparts of those benchmarks are not ported).
 
 Nothing here executes on device — it is the calibrated analytic model that
 replaces SPICE/VTR.  Standard library only; the values are the JAX

@@ -6,7 +6,8 @@ by a fixed numpy draw) and reduced transformer classifiers (2 layers,
 d 64, JAX weights bridged into the port) run through both packages'
 cascades; predictions must be equal, and the classifiers' pooled logits
 within ``atol=5e-4, rtol=1e-3`` in float32.  The port's pipelined
-cascade runs on two slots (the card's phase does too)."""
+cascade runs on two slots (the card's phase does too) and on three,
+where it hides more of each specialist load."""
 import time
 
 import jax
@@ -119,13 +120,15 @@ def _jax_members(task, delay=0.0):
     return sup, gen, specs
 
 
-def _port_members(task, delay=0.0):
+def _port_members(task, delay=0.0, run_delay=0.0):
     """The same members in plain torch; tables carried across with
-    ``tree_from_numpy``."""
+    ``tree_from_numpy``.  ``delay`` slows each load, ``run_delay`` each
+    pass of a member."""
     logd, noisy = _tables(task)
     sup_of = task.sub_of_super
 
     def counts(x):
+        time.sleep(run_delay)
         x = torch.as_tensor(x).long()
         return torch.zeros(x.shape[0], task.vocab).scatter_add_(
             1, x, torch.ones(x.shape))
@@ -216,6 +219,26 @@ def test_pipelined_hides_specialist_load_on_two_slots(task):
     assert len(out) == 4
     assert eng.stats["hidden_load_seconds"] > 0.0, dict(eng.stats)
     eng.shutdown()
+
+
+def test_pipelined_hides_more_load_with_a_spare_slot(task):
+    """On three slots batch i's specialist load is issued before batch
+    i-1's specialist pass, so it hides behind that pass and the next
+    super pass; on two slots behind the super pass only."""
+    batches = _single_superclass_batches(task, 6, 300)
+    hidden, out = {}, {}
+    for slots in (2, 3):
+        sup, gen, specs = _port_members(task, delay=0.1, run_delay=0.05)
+        eng = _engine(slots)
+        out[slots] = SuperSubCascade(eng, sup, specs, gen, task.sub_of_super
+                                     ).dynamic_infer_pipelined(batches)
+        hidden[slots] = eng.stats["hidden_load_seconds"]
+        eng.shutdown()
+    for a, b in zip(out[2], out[3]):
+        assert a["super"] == b["super"]
+        np.testing.assert_array_equal(a["sub"], b["sub"])
+    assert len({o["super"] for o in out[3]}) > 1      # specialists change
+    assert hidden[3] >= hidden[2] > 0.0, hidden
 
 
 def test_unknown_superclass_falls_back_to_generalist(task, jtask):

@@ -116,7 +116,9 @@ def test_delta_without_resident_base_fails_and_frees_its_slot():
 
 def test_context_store_bf16_round_trip_across_restart(tmp_path):
     """FeFET non-volatility analogue: a bf16 context saved by one engine
-    is reloaded by a new engine bit for bit, lists and nesting kept."""
+    is reloaded by a new engine bit for bit, lists and nesting kept; a
+    descriptor without ``weights_fn`` loads from the engine's store, and
+    one without a store to load from is refused."""
     g = torch.Generator().manual_seed(1)
     w = {"embed": torch.randn(16, 8, generator=g).to(torch.bfloat16),
          "blocks": [{"w": torch.randn(8, 8, generator=g).to(torch.bfloat16)},
@@ -140,8 +142,7 @@ def test_context_store_bf16_round_trip_across_restart(tmp_path):
     first.shutdown()
 
     eng = _engine(slots=2, store=store)      # a "restarted" process
-    assert eng.store is store
-    eng.register(ContextDescriptor("ctx", apply, store.weights_fn("ctx")))
+    eng.register(ContextDescriptor("ctx", apply))   # loads from the store
     slot = eng.preload("ctx", block=True).result()
     eng.switch("ctx")
     got = eng.run(x)
@@ -152,6 +153,10 @@ def test_context_store_bf16_round_trip_across_restart(tmp_path):
                            b.view(torch.uint8) if b.dim() else b)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     eng.shutdown()
+    bare = _engine(slots=2)
+    with pytest.raises(ValueError, match="no weights_fn"):
+        bare.register(ContextDescriptor("ctx", apply))
+    bare.shutdown()
 
 
 def test_context_store_refuses_corrupted_files(tmp_path):

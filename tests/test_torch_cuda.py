@@ -1541,7 +1541,7 @@ def test_delta_load_on_the_card_shares_the_base(gen, tmp_path):
 
     for name, fn, b in (("base", lambda: base, None),
                         ("spec", lambda: head, "base"),
-                        ("full", store.weights_fn("full"), None)):
+                        ("full", None, None)):         # from the store
         eng.register(ContextDescriptor(name, apply, fn, base=b))
     eng.preload("base", block=True)
     b0 = eng.stats["bytes_loaded"]
