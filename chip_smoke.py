@@ -183,9 +183,35 @@ Phases, in order; any failure exits non-zero before the result lines:
                 slots through ``run_schedule_live``, the paper's case 2
                 (two preloaded nets alternating) and case 3 (three nets,
                 dynamic), each faster dynamic than conventional (the
-                median of three alternating pairs), the
+                median of five alternating pairs), the
                 simulators' savings from the measured times logged
                 beside the measured ones.
+  7. training — B1's backward kernel (``flash_attention_bwd.cu``) at
+                tinyllama-1.1b's training batch (8 x 512), the Super-Sub
+                members' (32 x 24, H=Hkv=8, hd=32) and a windowed GQA
+                shape (2 x 640, H=8, Hkv=2, hd=128, window 256) against
+                its plain versions: dQ, dK and dV each within 2**-7
+                relative L2 of the float32 backward of mha_reference and
+                each element within 2e-2 + 2**-7 |plain|, each row within
+                2**-7 of max(its norm, the rms row norm) of the plain
+                backward that reads the forward kernel's output, a limit
+                shown to catch D left out, the GQA sum cut to one head
+                and a dropped window; two launches bit for bit; timed
+                beside the plain backward and SDPA's backward through
+                autograd.  ``train_tinyllama``: repro_torch.launch.train
+                in process, tinyllama-1.1b at published widths (22
+                layers) from llama's N(0, 0.02) init, 8 x 512, 20 steps,
+                a checkpoint every 10: the loss must fall by 1.0 (the
+                last 5 steps' mean against step 1); with the step-20
+                checkpoint removed the same command resumes from step 10,
+                and steps 11-20 must repeat bit for bit (loss, gradient
+                norm, lr); seconds a step, tokens/s and peak device
+                memory logged.  ``train_cascade``:
+                repro_torch.train.cascade at the Super-Sub members'
+                published widths (router, generalist, three specialists,
+                200 steps each, 3 x 3 classes, sub-strength 0.5),
+                evaluated on every subclass: dynamic accuracy above
+                static, both above chance.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -452,29 +478,9 @@ def bound_ms(nbytes: float, flops: float,
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-# ---------------------------------------------------------------------------
-# phase 2: kernels
-# ---------------------------------------------------------------------------
-
-def kernel_phase(dev) -> list[dict]:
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         mha_reference)
-    from repro_torch.kernels.verify_attention.ops import (verify_attention,
-                                                          verify_reference)
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        l2.zero_()
-
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    out = []
-
+def recorder(out: list):
+    """-> ``record(...)``: checks one kernel record against its limits,
+    logs it and appends it to ``out``."""
     def record(name, source, replaces, got, ref, t_k, t_p, t_l, nbytes,
                flops, peak=BF16_FLOPS, tol=TOL, rtol=0.0, outputs=None):
         """One kernel record; ``got``/``ref`` may be tuples of outputs
@@ -511,6 +517,32 @@ def kernel_phase(dev) -> list[dict]:
                                  f"{limit}")
         out.append(rec)
         return rec
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         mha_reference)
+    from repro_torch.kernels.verify_attention.ops import (verify_attention,
+                                                          verify_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        l2.zero_()
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    out = []
+    record = recorder(out)
 
     # flash prefill: B=4, S=512
     B, S = 4, 512
@@ -1755,7 +1787,8 @@ def _launch_counters() -> dict:
     records (flash also at the Super-Sub cascade's), and of the paged
     verify at the prefix passes' and the speculative passes' shapes."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_backward)
     from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
@@ -1802,7 +1835,13 @@ def _launch_counters() -> dict:
                 lambda: flash_attention.launches_by_shape[FLASH_WINDOW_SHAPE],
             "flash_attention_cascade":
                 lambda: flash_attention.launches_by_shape[CASCADE_FLASH_SHAPE],
-            "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE]}
+            "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE],
+            "flash_attention_backward":
+                lambda: flash_attention_backward.launches,
+            **{name: functools.partial(
+                flash_attention_backward.launches_by_shape.__getitem__,
+                shape) for name, shape in BWD_SHAPES.items()
+               if name != "flash_attention_backward"}}
 
 
 def run_pass(dev, label, server, cfgs, reqs, make_sched, used,
@@ -2006,7 +2045,9 @@ ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
                   "paged_verify_attention_int8",
               "paged_verify_attention_chunk": "paged_verify_attention",
               "paged_verify_attention_chunk_int8":
-                  "paged_verify_attention_int8"}
+                  "paged_verify_attention_int8",
+              "flash_attention_backward_cascade": "flash_attention_backward",
+              "flash_attention_backward_window": "flash_attention_backward"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -3467,7 +3508,7 @@ def context_delta(dev, tiny) -> dict:
     import torch
     from repro_torch.core.cascade import classifier_logits
     from repro_torch.core.context import (ContextDescriptor,
-                                          ContextSwitchEngine, _leaves)
+                                          ContextSwitchEngine, tree_leaves)
     from repro_torch.launch.serve import _to_host
     m, backbone = tiny
     d = m.cfg.d_model
@@ -3497,7 +3538,8 @@ def context_delta(dev, tiny) -> dict:
             if name == "spec":
                 base = eng._find_slot("base").buffers["backbone"]
                 shared = [a.data_ptr() == b.data_ptr() for a, b in zip(
-                    _leaves(slot.buffers["backbone"]), _leaves(base))]
+                    tree_leaves(slot.buffers["backbone"]),
+                    tree_leaves(base))]
                 if not (shared and all(shared)):
                     raise AssertionError(
                         f"context_delta: {shared.count(False)} backbone "
@@ -3527,7 +3569,7 @@ def context_delta(dev, tiny) -> dict:
 
 
 # the order of each (dynamic, conventional) pair of live schedule runs
-LIVE_ORDERS = ((True, False), (False, True), (True, False))
+LIVE_ORDERS = ((True, False), (False, True)) * 2 + ((True, False),)
 
 
 def schedule_live(dev, tiny) -> dict:
@@ -3539,12 +3581,12 @@ def schedule_live(dev, tiny) -> dict:
     both preloaded) and case 3 (the three nets cycled twice, the two
     small ones run R times, R about tinyllama's load over a run of
     supersub-sub), each ``dynamic=True`` against ``dynamic=False`` in
-    three pairs of alternating order (``LIVE_ORDERS``): the runs are
+    five pairs of alternating order (``LIVE_ORDERS``): the runs are
     host-bound and a single pair's totals differ by about as much as
     case 3 can save.  Dynamic's median total must be below
     conventional's in both cases; every run's total is logged, and the
     simulators' savings from the measured times beside the measured
-    ones (of the median runs)."""
+    ones (of the median runs), and each run's device allocations."""
     import math
     import statistics
     import torch
@@ -3603,9 +3645,14 @@ def schedule_live(dev, tiny) -> dict:
                     if dynamic and case == "case2":  # preloaded, off clock
                         for n in (tiny_n, a):
                             eng.preload(n, block=True)
+                    allocs = torch.cuda.memory_stats().get(
+                        "num_device_alloc", 0)
                     r = run_schedule_live(eng, sched, inputs,
                                           dynamic=dynamic)
-                    runs[dynamic].append({**r, "loads": eng.stats["loads"]})
+                    runs[dynamic].append({
+                        **r, "loads": eng.stats["loads"],
+                        "device_allocs": torch.cuda.memory_stats().get(
+                            "num_device_alloc", 0) - allocs})
                     eng.shutdown()
             # each mode's run of median total
             out = {d: sorted(rs, key=lambda r: r["total"])[len(rs) // 2]
@@ -3624,6 +3671,11 @@ def schedule_live(dev, tiny) -> dict:
                 "conventional_runs_s": [r["total"] for r in runs[False]],
                 "loads_dynamic": out[True]["loads"],
                 "loads_conventional": out[False]["loads"],
+                # cudaMalloc calls of each run (the caching allocator's)
+                "device_allocs_dynamic": [r["device_allocs"]
+                                          for r in runs[True]],
+                "device_allocs_conventional": [r["device_allocs"]
+                                               for r in runs[False]],
                 "measured_saving": time_saving(out[False]["total"],
                                                out[True]["total"]),
                 "predicted_saving": time_saving(conv, ours),
@@ -3653,6 +3705,257 @@ def supersub_phase(dev) -> dict:
     for more in (context_delta(dev, tiny), schedule_live(dev, tiny)):
         for n in totals:
             totals[n] += more[n]
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+BWD_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_bwd.cu")
+# B1's backward records, (B, H, Hkv, S, hd, window), causal: tinyllama-1.1b's
+# training batch (8 x 512), the Super-Sub members' (32 x 24, H=Hkv=8,
+# hd=32) and a small windowed GQA shape that no training pass launches
+BWD_SHAPES = {"flash_attention_backward": (8, H, HKV, 512, HD, 0),
+              "flash_attention_backward_cascade": (32, 8, 8, 24, 32, 0),
+              "flash_attention_backward_window": (2, 8, 2, 640, 128, 256)}
+# dQ, dK and dV each within BWD_RTOL relative L2 of the float32 backward of
+# mha_reference on the same bf16 inputs (the kernel rounds its outputs to
+# bf16, 2**-9, and takes D from the forward's bf16 output), each element
+# within TOL + BWD_RTOL |plain|; and each row within ROW_RTOL x max(the
+# row's norm, the rms row norm) of the plain backward that reads the same
+# forward output (D = rowsum(dO O) of the kernel's O, as the kernel does):
+# the floor holds rows whose true gradient is about 0 (query 0 of a causal
+# row sees one key, P = 1 and dS = 0) to the tensor's scale
+BWD_RTOL = 2.0 ** -7
+TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--steps", "20",
+              "--batch", "8", "--seq", "512", "--checkpoint-every", "10",
+              "--log-every", "1", "--init-std", "0.02", "--lr", "3e-4",
+              "--seed", "0"]
+# the loss must fall: the mean of the last 5 steps' losses at least this
+# much below the first step's (written before the first run; a run of 20
+# steps from llama's N(0, 0.02) init took 10.85 to 7.51 on the card)
+TRAIN_LOSS_MARGIN = 1.0
+CASCADE_TRAIN_ARGS = ["--full", "--steps", "200", "--sub-strength", "0.5"]
+
+
+def _bwd_faulty(q, k, v, do, out, window, fault):
+    """The plain backward (float32 formulas, D from ``out``) with one
+    planted fault: ``window`` drops the window mask, ``gqa`` keeps only the
+    first query head of each group in dK and dV, ``no_d`` leaves D out."""
+    import torch
+    B, Hq, S, hd = q.shape
+    G = Hq // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(G, 1) for t in (k, v))
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf) / hd ** 0.5
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window and fault != "window":
+        mask &= (i[:, None] - i[None, :]) < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    dsum = 0.0 if fault == "no_d" else (dof * out.float()).sum(-1,
+                                                                 keepdim=True)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dof, vf) - dsum)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) / hd ** 0.5
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) / hd ** 0.5
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dk, dv = (t.reshape(B, -1, G, S, hd) for t in (dk, dv))
+    if fault == "gqa":
+        dk, dv = dk[:, :, :1], dv[:, :, :1]
+    return dq, dk.sum(2), dv.sum(2)
+
+
+def _bwd_row_ratio(got, ref):
+    """Each row's L2 error over ROW_RTOL x max(its norm, the rms row norm)
+    -> the largest such ratio (at most 1 within the limit)."""
+    ref = ref.float()
+    norm = ref.norm(dim=-1)
+    floor = norm.pow(2).mean().sqrt()
+    err = (got.float() - ref).norm(dim=-1)
+    return (err / (ROW_RTOL * norm.clamp_min(floor.item()))).max().item()
+
+
+def flash_backward_records(dev, gen, rn, flush, record) -> None:
+    """B1's backward at ``BWD_SHAPES`` against its plain versions (see
+    BWD_RTOL), with each planted fault of ``_bwd_faulty`` that the shape
+    can show (a window fault only where there is a window, a group fault
+    only where a group has more than one head) shown to leave the row
+    limit; deterministic (a second launch bit for bit the first); timed
+    beside the plain backward and SDPA's backward through autograd."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        _launch, flash_attention_backward, mha_backward_reference)
+    for name, (B, Hq, Hkv, S, hd, W) in BWD_SHAPES.items():
+        q, k, v, do = (rn(B, n, S, hd) for n in (Hq, Hkv, Hkv, Hq))
+        lse = torch.empty(B, Hq, S, device=dev)
+        out = _launch(q, k, v, causal=True, window=W, scale=hd ** -0.5,
+                      lse=lse)
+
+        def bwd():
+            return flash_attention_backward(q, k, v, out, do, lse, window=W)
+        got = bwd()
+        again = bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two launches differ")
+        ref = mha_backward_reference(q.float(), k.float(), v.float(),
+                                     do.float(), window=W)
+        same_o = mha_backward_reference(q.float(), k.float(), v.float(),
+                                        do.float(), window=W, out=out)
+        labels = ("dq", "dk", "dv")
+        rels = [((g.float() - r).norm() / r.norm()).item()
+                for g, r in zip(got, ref)]
+        rows = [_bwd_row_ratio(g, r) for g, r in zip(got, same_o)]
+        log(f"kernel {name}: relative L2 " + ", ".join(
+            f"{n} {e:.3e}" for n, e in zip(labels, rels))
+            + f" (limit {BWD_RTOL:.3e}); worst row / its limit " + ", ".join(
+                f"{n} {r:.3f}" for n, r in zip(labels, rows)))
+        if not (max(rels) <= BWD_RTOL and max(rows) <= 1.0):
+            raise AssertionError(f"{name}: relative L2 {rels} or rows "
+                                 f"{rows} past the limits")
+        faults = ["no_d"] + (["window"] if W else []) + (
+            ["gqa"] if Hq > Hkv else [])
+        for fault in faults:
+            bad = _bwd_faulty(q, k, v, do, out, W, fault)
+            moved = [_bwd_row_ratio(b, r) for b, r in zip(bad, same_o)]
+            log(f"kernel {name}: fault '{fault}' moves the worst row to "
+                + ", ".join(f"{n} {r:.3f}" for n, r in zip(labels, moved))
+                + " times its limit")
+            if not max(moved) > 1.0:
+                raise AssertionError(f"{name}: the row limit does not catch "
+                                     f"the fault '{fault}'")
+        i = torch.arange(S, device=dev)
+        wmask = (i[None, :] <= i[:, None]) & (
+            (i[:, None] - i[None, :] < W) if W else True)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=wmask if W else None, is_causal=not W,
+            enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, do,
+                                       retain_graph=True)
+        pairs = sum(min(t + 1, W) if W else t + 1 for t in range(S))
+        record(name, BWD_SRC,
+               "src/repro/kernels/flash_attention/kernel.py:85", got, ref,
+               time_ms(bwd, flush=flush),
+               time_ms(lambda: mha_backward_reference(q, k, v, do, window=W),
+                       iters=5, flush=flush),
+               time_ms(library, flush=flush),
+               2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+               2.5 * 4 * hd * B * Hq * pairs, tol=TOL, rtol=BWD_RTOL)
+        log_kernel_time(name, bwd, flush, library)
+        del q, k, v, do, out, lse, leaves, lib_out
+
+
+def train_tinyllama(dev) -> dict:
+    """``repro_torch.launch.train`` in process: tinyllama-1.1b at its
+    published widths, all 22 layers, from llama's N(0, 0.02) init, batch 8
+    x 512, 20 steps, a checkpoint every 10 (about 13.2 GB each).  The loss
+    must fall by ``TRAIN_LOSS_MARGIN``; then the step-20 checkpoint is
+    removed and the same command resumes from step 10 and runs 11-20,
+    whose losses and gradient norms must equal the uninterrupted run's
+    bit for bit (the backward kernel has no atomics).  Logs seconds a
+    step, tokens/s, peak device memory and the checkpoints' cost.
+    Counted: flash and its backward must launch."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.launch import train as launch_train
+    ck = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = TRAIN_ARGS + ["--checkpoint-dir", str(ck)]
+    res = {}
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        for run in ("whole", "resumed"):
+            t0 = time.perf_counter()
+            launch_train.main(argv + ["--metrics-out", str(ck / run)])
+            res[run + "_s"] = time.perf_counter() - t0
+            res[run] = json.loads((ck / run).read_text())
+            if run == "whole":
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                os.remove(ck / "step_00000020.ckpt")
+
+    try:
+        counts = _counted("train_tinyllama", drive,
+                          ["flash_attention", "flash_attention_backward"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    whole, resumed = res["whole"], res["resumed"]
+    losses = [m["loss"] for m in whole]
+    # each step's seconds from the logged running means
+    secs = [b["sec_per_step"] * b["step"] - a["sec_per_step"] * a["step"]
+            for a, b in zip(whole, whole[1:])]
+    steady = sorted(secs)[len(secs) // 2]
+    keys = ("loss", "grad_norm", "lr")
+    out = {"losses": losses, "grad_norms": [m["grad_norm"] for m in whole],
+           "step_seconds": [whole[0]["sec_per_step"]] + secs,
+           "resumed_steps": [m["step"] for m in resumed],
+           "resumed_losses": [m["loss"] for m in resumed],
+           "resume_bitwise": [[m[k] for k in keys] for m in whole[10:]]
+           == [[m[k] for k in keys] for m in resumed],
+           "resume_max_loss_diff": max(abs(a["loss"] - b["loss"])
+                                       for a, b in zip(whole[10:], resumed)),
+           "whole_run_s": res["whole_s"], "resumed_run_s": res["resumed_s"],
+           "median_step_s": steady, "tokens_per_s": 8 * 512 / steady,
+           "peak_device_gb": res["peak_gb"]}
+    log("train_tinyllama " + json.dumps(out))
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    if not (len(losses) == 20 and last5 <= first - TRAIN_LOSS_MARGIN):
+        raise AssertionError(f"train_tinyllama: the loss went {first} -> "
+                             f"{last5} (last 5 mean), not {TRAIN_LOSS_MARGIN}"
+                             " lower")
+    if out["resumed_steps"] != list(range(11, 21)) or not out[
+            "resume_bitwise"]:
+        raise AssertionError("train_tinyllama: the resumed steps 11-20 differ "
+                             "from the uninterrupted run's: " + json.dumps(
+                                 out["resumed_losses"]))
+    return counts
+
+
+def train_cascade(dev) -> dict:
+    """``repro_torch.train.cascade`` in process at the Super-Sub members'
+    published widths: router, generalist and three specialists, 200 steps
+    each, 3 superclasses x 3 subclasses, then the dynamic cascade on two
+    slots, evaluated on 27 single-subclass batches of 64 (every subclass
+    three times).  Dynamic accuracy must be above static, both above
+    chance.  Counted: the backward kernel at the members' shape."""
+    from repro_torch.train import cascade
+    res = {}
+
+    def drive():
+        res.update(cascade.main(CASCADE_TRAIN_ARGS))
+
+    counts = _counted("train_cascade", drive,
+                      ["flash_attention_backward_cascade"])
+    log("train_cascade " + json.dumps(res))
+    if not (res["dynamic_acc"] > res["static_acc"] > res["chance"]):
+        raise AssertionError(f"train_cascade: dynamic {res['dynamic_acc']},"
+                             f" static {res['static_acc']}, chance "
+                             f"{res['chance']}")
+    return counts
+
+
+def training_phase(dev, records: list) -> dict:
+    """Phase 7: B1's backward records (appended to ``records``), then
+    tinyllama-1.1b's training with its resume, then the Super-Sub members
+    trained and cascaded; -> the two passes' launch counts, summed."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    flash_backward_records(dev, gen, rn, l2.zero_, recorder(records))
+    del l2
+    totals = train_tinyllama(dev)
+    for n, c in train_cascade(dev).items():
+        totals[n] += c
     return totals
 
 
@@ -3690,6 +3993,10 @@ def main() -> int:
     for n, c in supersub_phase(dev).items():
         totals[n] += c
     log(f"supersub phase seconds: {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    for n, c in training_phase(dev, records).items():
+        totals[n] += c
+    log(f"training phase seconds: {time.perf_counter() - t0:.1f}")
     for rec in records:
         rec["launches"] = totals[rec["name"]]
         if rec["name"] in ROUTE_BODY:

@@ -9,7 +9,8 @@ in which the JAX model's layer scan runs them.  Every leaf keeps its
 dtype (bfloat16 included).  Both packages then compute on the same
 weights, so the port's own init need not reproduce JAX's PRNG.
 ``tree_from_numpy`` carries any other nested dict of arrays across (a
-classifier's head, a likelihood member's tables).
+classifier's head, a likelihood member's tables); ``train_state_from_jax``
+a JAX training state (parameters, AdamW moments and count, step).
 This module imports neither JAX nor the JAX package: it sees numpy only.
 """
 from __future__ import annotations
@@ -70,3 +71,22 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def train_state_from_jax(state: dict, device=None) -> dict:
+    """A JAX train state (``{"params", "opt": {"m", "v", "count"}, "step"}``,
+    numpy leaves) -> the port's (``repro_torch.train.trainer.init_state``'s
+    layout): params and both moments through ``params_from_jax`` (the
+    moments are params-shaped), count and step as int32 () tensors.  Both
+    packages then take the same step from the same state."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {"params": params_from_jax(state["params"], dev),
+           "opt": {"m": params_from_jax(opt["m"], dev),
+                   "v": params_from_jax(opt["v"], dev),
+                   "count": _tensor(np.asarray(opt["count"], np.int32),
+                                    dev)},
+           "step": _tensor(np.asarray(state["step"], np.int32), dev)}
+    if "ef" in state:
+        out["ef"] = params_from_jax(state["ef"], dev)
+    return out

@@ -36,7 +36,7 @@ def classifier_logits(model, params, tokens):
     mean-pooled over the sequence, times a (d, classes) head ->
     (B, classes) float32.  ``params`` is ``{"backbone": LM params,
     "head": (d, classes)}``."""
-    h = model.hidden(params["backbone"], tokens)
+    h, _ = model.hidden(params["backbone"], tokens)
     return h.mean(1).float() @ params["head"].float()
 
 

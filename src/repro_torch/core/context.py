@@ -82,27 +82,27 @@ class ContextSlot:
     copied: Optional[torch.cuda.Event] = None   # CUDA: load copy finished
 
 
-def _leaves(tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of each of
+    ``rest``), keeping the structure: nested dicts, lists and tuples."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def _nbytes(tree) -> int:
-    return sum(x.nbytes for x in _leaves(tree) if hasattr(x, "nbytes"))
+    return sum(x.nbytes for x in tree_leaves(tree) if hasattr(x, "nbytes"))
 
 
 def _overlay(base, delta):
@@ -114,6 +114,44 @@ def _overlay(base, delta):
             out[k] = _overlay(base[k], v) if k in base else v
         return out
     return delta
+
+
+_ALIGN = 256                 # bytes: each tensor's offset in a slot's block
+
+
+def _block_plan(leaves) -> tuple[list, int]:
+    """Where each of ``leaves`` lies in one device block: -> ([(dtype,
+    shape, contiguous strides, offset in elements of its dtype)], block
+    bytes), each tensor at a multiple of ``_ALIGN`` bytes."""
+    views, n = [], 0
+    for t in leaves:
+        stride, acc = [], 1
+        for d in reversed(t.shape):
+            stride.append(acc)
+            acc *= d
+        views.append((t.dtype, tuple(t.shape), tuple(reversed(stride)),
+                      n // t.element_size()))
+        n += -(-t.nbytes // _ALIGN) * _ALIGN
+    return views, n
+
+
+_COPY_STREAMS: dict = {}
+_COPY_STREAMS_LOCK = threading.Lock()
+
+
+def _copy_stream(device) -> "torch.cuda.Stream":
+    """The one load stream of a card, shared by every engine on it.  Slot
+    buffers are allocated on it, and the caching allocator keeps a freed
+    block for reuse on the stream it was allocated on: a stream of each
+    engine's own would leave every new engine's loads to ``cudaMalloc``
+    afresh, beside the runs they overlap, while the dead streams' blocks
+    pile up in the cache until an allocation retry frees them under a
+    device-wide sync."""
+    with _COPY_STREAMS_LOCK:
+        stream = _COPY_STREAMS.get(device)
+        if stream is None:
+            stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
 
 
 class ContextSwitchEngine:
@@ -140,13 +178,14 @@ class ContextSwitchEngine:
         self.store = store
         self._cuda = self.device.type == "cuda"
         # loads copy on their own stream, behind the compute stream's work
-        self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
-                             else None)
+        self._copy_stream = _copy_stream(self.device) if self._cuda else None
         self._compute_stream = (torch.cuda.current_stream(self.device)
                                 if self._cuda else None)
         self._contexts: dict[str, ContextDescriptor] = {}
         self._pending: dict[str, Future] = {}
         self._deferred: dict[str, Future] = {}    # waiting for a free slot
+        # context -> (its pinned host tensors' addresses, _block_plan)
+        self._plans: dict[str, tuple] = {}
         self._lock = threading.RLock()
         # one configuration port, like the FPGA's single config interface:
         self._loader = ThreadPoolExecutor(max_workers=1,
@@ -400,23 +439,42 @@ class ContextSwitchEngine:
         not pinned are pinned first), so they overlap the compute stream's
         steps; the slot's ``copied`` event is recorded after the last one
         and this loader thread -- never the compute thread -- waits on it,
-        so the load's measured time is the copy's.  Buffers are marked as
-        used by the compute stream, so freeing an evicted slot never hands
-        its memory to a new load while queued steps still read it."""
+        so the load's measured time is the copy's.  The tensors are views
+        of one device block a load, marked as used by the compute stream,
+        so freeing an evicted slot never hands its memory to a new load
+        while queued steps still read it."""
         if not self._cuda:
-            return _map(lambda t: t.to(self.device), host)
-
-        def one(t):
-            if t.device.type == "cpu" and not t.is_pinned():
-                t = t.pin_memory()
-            d = t.to(self.device, non_blocking=True)
-            d.record_stream(self._compute_stream)
-            return d
-
+            return tree_map(lambda t: t.to(self.device), host)
+        # one device block for the whole tree and one multi-tensor copy,
+        # and as few Python calls as the loader can make: it holds the GIL
+        # for them beside the compute thread's eager launches.  A context
+        # whose host tensors were all pinned at its last load, at the same
+        # addresses, reuses that load's plan and skips ``is_pinned`` (a
+        # driver query a tensor; were such an address pageable by now,
+        # its copy would only run synchronously)
+        leaves = tree_leaves(host)
+        ptrs = [t.data_ptr() for t in leaves]
+        plan = self._plans.get(slot.name)
+        if plan is not None and plan[0] == ptrs:
+            srcs = leaves
+        else:
+            srcs = [t.pin_memory() if t.device.type == "cpu"
+                    and not t.is_pinned() else t for t in leaves]
+            plan = (ptrs, *_block_plan(srcs))
+            if all(a is b for a, b in zip(srcs, leaves)):
+                self._plans[slot.name] = plan
+        _, views, n = plan
         with torch.cuda.stream(self._copy_stream):
-            bufs = _map(one, host)
+            block = torch.empty(n, dtype=torch.uint8, device=self.device)
+            block.record_stream(self._compute_stream)
+            typed = {dt: block.view(dt) for dt in {v[0] for v in views}}
+            dsts = [typed[dt].as_strided(shape, stride, off)
+                    for dt, shape, stride, off in views]
+            torch._foreach_copy_(dsts, srcs, non_blocking=True)
             slot.copied = torch.cuda.Event()
             slot.copied.record(self._copy_stream)
+        it = iter(dsts)
+        bufs = tree_map(lambda _: next(it), host)
         slot.copied.synchronize()
         return bufs
 
@@ -598,12 +656,17 @@ class ContextSwitchEngine:
 # Non-volatile context store (FeFET retention analogue)
 # ---------------------------------------------------------------------------
 
-def _raw(t: torch.Tensor) -> bytes:
-    return t.reshape(-1).view(torch.uint8).numpy().tobytes()
-
-
 def _digest(t: torch.Tensor) -> str:
-    return hashlib.blake2b(_raw(t), digest_size=16).hexdigest()
+    """blake2b of a CPU contiguous tensor's bytes (read in place)."""
+    return hashlib.blake2b(t.reshape(-1).view(torch.uint8).numpy(),
+                           digest_size=16).hexdigest()
+
+
+def _digests(leaves: dict) -> dict:
+    """``_digest`` of every leaf, on a few threads (hashlib releases the
+    GIL over large buffers: a training state holds gigabytes)."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(zip(leaves, ex.map(_digest, leaves.values())))
 
 
 def _skeleton(tree, path: str, leaves: dict):
@@ -614,51 +677,79 @@ def _skeleton(tree, path: str, leaves: dict):
     if isinstance(tree, dict):
         for k in tree:
             if not isinstance(k, str) or "/" in k:
-                raise ValueError(f"context store keys are strings without "
+                raise ValueError(f"stored trees' keys are strings without "
                                  f"'/', got {k!r} under {path!r}")
         return {k: _skeleton(v, sub(k), leaves) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_skeleton(v, sub(i), leaves)
                           for i, v in enumerate(tree))
     if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"context store leaves are tensors, got "
+        raise TypeError(f"stored trees' leaves are tensors, got "
                         f"{type(tree).__name__} at {path!r}")
     leaves[path] = tree.detach().cpu().contiguous()
     return path
 
 
-def _load_tree(path: str):
+def save_tree(path: str, tree, extra: dict | None = None) -> str:
+    """Write ``tree`` (nested dicts, lists and tuples of tensors) to one
+    file in the port's format, atomically: a ``torch.save`` of the
+    tensors keyed by their "/"-joined path, a blake2b digest of each
+    tensor's bytes, the tree's skeleton (each tensor's path in its place)
+    and ``extra`` (plain Python values: a checkpoint's step and cursor),
+    into a temporary file, fsync'd, then ``os.replace``d.  Dtypes are
+    kept, bfloat16 included."""
+    leaves: dict[str, torch.Tensor] = {}
+    skeleton = _skeleton(tree, "", leaves)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save({"tree": skeleton, "leaves": leaves,
+                    "digests": _digests(leaves), "extra": extra or {}}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)                       # atomic commit
+    return path
+
+
+def load_tree(path: str) -> tuple[Any, dict]:
+    """A file of ``save_tree`` -> (tree of CPU tensors, extra).  Reads with
+    ``weights_only=True``, checks every digest; raises ``IOError`` on a
+    mismatch, a truncated or unreadable file, or a skeleton that names a
+    missing tensor."""
     try:
         obj = torch.load(path, map_location="cpu", weights_only=True)
         skeleton, leaves, digests = obj["tree"], obj["leaves"], obj["digests"]
-    except (RuntimeError, EOFError, KeyError, TypeError,
+        extra = obj.get("extra", {})
+    except (RuntimeError, EOFError, KeyError, TypeError, AttributeError,
             pickle.UnpicklingError) as e:
-        raise IOError(f"context file {path}: unreadable ({e})") from e
+        raise IOError(f"file {path}: unreadable ({e})") from e
     if set(leaves) != set(digests):
-        raise IOError(f"context file {path}: leaves and digests differ")
-    for k, t in leaves.items():
-        if _digest(t) != digests[k]:
-            raise IOError(f"context file {path}: digest mismatch at {k}")
+        raise IOError(f"file {path}: leaves and digests differ")
+    got = _digests(leaves)
+    for k in leaves:
+        if got[k] != digests[k]:
+            raise IOError(f"file {path}: digest mismatch at {k}")
     try:
-        return _map(leaves.__getitem__, skeleton)
+        return tree_map(leaves.__getitem__, skeleton), extra
     except (KeyError, TypeError) as e:
-        raise IOError(f"context file {path}: tree names a missing leaf "
-                      f"({e})") from e
+        raise IOError(f"file {path}: tree names a missing leaf ({e})") from e
 
 
 class ContextStore:
     """Persist contexts to disk; reload without recompute (non-volatility).
 
     One file ``ctx_<name>`` under ``root`` per context, in the port's own
-    format (it does not read the JAX package's msgpack + zstandard files):
-    a ``torch.save`` of the tree's tensors keyed by their "/"-joined path,
-    a blake2b digest of each tensor's bytes, and the tree's skeleton
-    (dicts, lists and tuples with each tensor's path in its place).  A
-    save is atomic (a temporary file, fsync, ``os.replace``); a load reads
-    on the CPU with ``weights_only=True``, checks every digest and raises
-    ``IOError`` on a mismatch or an unreadable file.  Dtypes are kept,
-    bfloat16 included.  An engine given ``store=`` loads a context
-    registered without ``weights_fn`` from its file here."""
+    format (``save_tree``; it does not read the JAX package's msgpack +
+    zstandard files): a ``torch.save`` of the tree's tensors keyed by
+    their "/"-joined path, a blake2b digest of each tensor's bytes, and
+    the tree's skeleton (dicts, lists and tuples with each tensor's path
+    in its place).  A save is atomic (a temporary file, fsync,
+    ``os.replace``); a load (``load_tree``) reads on the CPU with
+    ``weights_only=True``, checks every digest and raises ``IOError`` on
+    a mismatch or an unreadable file.  Dtypes are kept, bfloat16
+    included.  The trainer's checkpoints use the same format.  An engine
+    given ``store=`` loads a context registered without ``weights_fn``
+    from its file here."""
 
     def __init__(self, root: str):
         self.root = root
@@ -667,20 +758,8 @@ class ContextStore:
         return os.path.join(self.root, f"ctx_{name}")
 
     def save(self, name: str, weights) -> str:
-        leaves: dict[str, torch.Tensor] = {}
-        skeleton = _skeleton(weights, "", leaves)
-        path = self._path(name)
-        os.makedirs(self.root, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            torch.save({"tree": skeleton, "leaves": leaves,
-                        "digests": {k: _digest(t)
-                                    for k, t in leaves.items()}}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)                   # atomic commit
-        return path
+        return save_tree(self._path(name), weights)
 
     def weights_fn(self, name: str) -> Callable[[], Any]:
         path = self._path(name)
-        return lambda: _load_tree(path)
+        return lambda: load_tree(path)[0]

@@ -14,6 +14,13 @@ to the plain version (the CPU tests), a CUDA tensor goes to the kernel,
 and a CUDA card that is not sm_90 (or an input the kernel does not take)
 raises.  There is no fallback from a CUDA tensor to the plain version.
 Sources compile on first use (``_build``).
+
+Gradients: flash attention has a backward kernel (a
+``torch.autograd.Function`` on the card).  No other kernel has one yet:
+on a CUDA tensor with grad enabled and an input that requires grad,
+every other wrapper raises ``MissingBackwardKernel`` rather than return
+a tensor that silently carries no gradient (``require_no_grad``).  On
+the CPU autograd differentiates every plain version.
 """
 from __future__ import annotations
 
@@ -25,6 +32,25 @@ import torch
 from repro_torch.kernels import _build
 
 _CHECKED: set[int] = set()
+
+
+class MissingBackwardKernel(NotImplementedError):
+    """A gradient was asked of a kernel that has no backward kernel yet."""
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise ``MissingBackwardKernel`` when autograd would need the
+    gradient of kernel ``name`` (grad enabled and a tensor input that
+    requires it): its launch writes a fresh tensor with no ``grad_fn``,
+    so the loss would silently miss that path's gradient.  Called on the
+    CUDA path of every wrapper whose kernel has no backward."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise MissingBackwardKernel(
+            f"{name}: the backward kernel of {name} is not ported yet, so "
+            f"it cannot be differentiated on the card (run under "
+            f"torch.no_grad(), or on the CPU, where its plain version is "
+            f"differentiable)")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -221,14 +247,16 @@ def check_verify_operands(q, blk_k, blk_v, tree) -> None:
 def _counted() -> tuple:
     """Every wrapper that counts its launches."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_backward)
     from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.verify_attention.ops import verify_attention
-    return (flash_attention, decode_attention, verify_attention,
+    return (flash_attention, flash_attention_backward, decode_attention,
+            verify_attention,
             paged_decode_attention, paged_verify_attention,
             paged_decode_partial, ssm_scan, mlstm_chunk, gmm)
 

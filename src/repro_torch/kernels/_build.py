@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> source, relative to the kernels package
 SOURCES = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "paged_attention": "paged_attention/csrc/paged_attention.cu",
     "paged_partial": "paged_attention/csrc/paged_partial.cu",

@@ -37,6 +37,7 @@ def decode_attention(q, k, v, pos, *, ring: bool = False,
     pos = pos.expand(B).contiguous()
     if K.on_cpu(q, k, v, pos):
         return decode_reference(q, k, v, pos, scale=scale)
+    K.require_no_grad("decode_attention", q, k, v)
     Hkv, S = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)

@@ -37,6 +37,14 @@
 // bytes and its products run serialized; on the card it still beat
 // 64-key tiles at mixtral's 4160-token prefill (0.331 against 0.382 ms
 // of kernel time).
+//
+// For training, the kernel also writes each row's log-sum-exp L (natural
+// log, f32, (B, H, S)) through an optional pointer: the backward
+// (flash_attention_bwd.cu) recomputes P from it.  Chosen over a pass in
+// the backward that recomputes L: the consumer holds each row's running
+// max and sum in registers at its end, so L costs one store a row, where
+// a recompute would read Q and K once more.  Serving passes null, and
+// its launches do the same work as before.
 #include "hopper.cuh"
 
 namespace {
@@ -65,8 +73,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-             long long osb, long long osh, long long oss, int H, int Hkv,
-             int S, int causal, int window, float scale_log2) {
+             float* __restrict__ lse, long long osb, long long osh,
+             long long oss, int H, int Hkv, int S, int causal, int window,
+             float scale_log2) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -294,13 +303,25 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(ob + row * oss + (j / 4) * 8 + cq) =
             hopper::pack_bf16(o[j] * inv[r], o[j + 1] * inv[r]);
     }
+    // L = ln 2 (m + log2 l): m is the row's max in the scaled log2 domain
+    // and l its sum of 2^(s - m); the four lanes of a quad hold the same
+    if (lse != nullptr && cq == 0) {
+      float* lb = lse + ((long long)b * H + h) * S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S)
+          lb[row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                               : INFINITY;
+      }
+    }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int S, int causal, int window, float scale,
-           const long long* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int Hkv, int S, int causal, int window,
+           float scale, const long long* st, cudaStream_t stream) {
   using C = Cfg<HD>;
   const CUtensorMapSwizzle swz = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                           : CU_TENSOR_MAP_SWIZZLE_128B;
@@ -321,7 +342,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (rc != cudaSuccess) return (int)rc;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   flash_kernel<HD><<<grid, THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, (bf16*)out, st[9], st[10], st[11], H, Hkv, S, causal,
+      mq, mk, mv, (bf16*)out, lse, st[9], st[10], st[11], H, Hkv, S, causal,
       window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -331,24 +352,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // q (B, H, S, hd), k/v (B, Hkv, S, hd), out (B, H, S, hd): bf16 views
 // whose last dimension is contiguous, 16-byte aligned, with the other
 // strides (elements, multiples of 8) in `strides` as (sb, sh, ss) for q,
-// k, v, out in turn.  hd one of 32, 64, 128, 256; H % Hkv == 0.  Returns a
+// k, v, out in turn.  hd one of 32, 64, 128, 256; H % Hkv == 0.  lse:
+// null, or (B, H, S) f32 that takes each row's log-sum-exp.  Returns a
 // cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int H,
-                                    int Hkv, int S, int hd, int causal,
-                                    int window, float scale,
+                                    const void* v, void* out, void* lse,
+                                    int B, int H, int Hkv, int S, int hd,
+                                    int causal, int window, float scale,
                                     const long long* strides, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (hd) {
-    case 32: return launch<32>(q, k, v, out, B, H, Hkv, S, causal, window,
+    case 32: return launch<32>(q, k, v, out, l, B, H, Hkv, S, causal, window,
                                scale, strides, s);
-    case 64: return launch<64>(q, k, v, out, B, H, Hkv, S, causal, window,
+    case 64: return launch<64>(q, k, v, out, l, B, H, Hkv, S, causal, window,
                                scale, strides, s);
-    case 128: return launch<128>(q, k, v, out, B, H, Hkv, S, causal, window,
-                                 scale, strides, s);
-    case 256: return launch<256>(q, k, v, out, B, H, Hkv, S, causal, window,
-                                 scale, strides, s);
+    case 128: return launch<128>(q, k, v, out, l, B, H, Hkv, S, causal,
+                                 window, scale, strides, s);
+    case 256: return launch<256>(q, k, v, out, l, B, H, Hkv, S, causal,
+                                 window, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

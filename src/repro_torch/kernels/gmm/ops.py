@@ -57,6 +57,7 @@ def gmm(x, w) -> torch.Tensor:
     1."""
     if K.on_cpu(x, w):
         return gmm_reference(x, w)
+    K.require_no_grad("gmm", x, w)
     E, C, D = x.shape
     if w.shape[:2] != (E, D):
         raise ValueError(f"gmm: w {tuple(w.shape)} does not match x "

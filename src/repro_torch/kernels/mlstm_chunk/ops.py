@@ -93,6 +93,7 @@ def mlstm_chunk(q, k, v, li, lf, chunk: int = DEFAULT_CHUNK):
     q, k, v, li, lf = (K.f32_operand(t) for t in (q, k, v, li, lf))
     if K.on_cpu(q, k, v, li, lf):
         return mlstm_chunk_reference(q, k, v, li, lf, c)
+    K.require_no_grad("mlstm_chunk", q, k, v, li, lf)
     if c > MAX_CHUNK or L < 1:
         raise ValueError(f"mlstm_chunk: kernel takes a chunk of at most "
                          f"{MAX_CHUNK}, got {c}")

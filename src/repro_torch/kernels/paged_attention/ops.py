@@ -94,6 +94,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
         return paged_decode_reference(q, k_pages, v_pages, page_table, pos,
                                       scale=scale, k_scale=k_scale,
                                       v_scale=v_scale)
+    K.require_no_grad("paged_decode_attention", q, k_pages, v_pages, *scales)
     Hkv = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
@@ -151,6 +152,8 @@ def paged_verify_attention(q, k_pages, v_pages, blk_k, blk_v, page_table,
                                       page_table, pos, scale=scale,
                                       k_scale=k_scale, v_scale=v_scale,
                                       tree=tree)
+    K.require_no_grad("paged_verify_attention", q, k_pages, v_pages, blk_k,
+                      blk_v, *scales)
     Hkv = k_pages.shape[1]
     q, blk_k, blk_v, tree, G, width = K.verify_padded(
         "paged_verify_attention", q, blk_k, blk_v, tree, Hkv)
@@ -208,6 +211,7 @@ def paged_decode_partial(q, k_pages, v_pages, page_table, pos, base: int,
         return paged_decode_partial_reference(
             q, k_pages, v_pages, page_table, pos, base, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
+    K.require_no_grad("paged_decode_partial", q, k_pages, v_pages, *scales)
     Hkv = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)

@@ -79,6 +79,7 @@ def ssm_scan(u, dt, Bm, Cm, A, D, init_state=None):
     state = () if init_state is None else (init_state,)
     if K.on_cpu(u, dt, Bm, Cm, A, D, *state):
         return selective_scan_reference(u, dt, Bm, Cm, A, D, init_state)
+    K.require_no_grad("ssm_scan", u, dt, Bm, Cm, A, D, *state)
     if u.shape[1] < 1:
         raise ValueError(f"ssm_scan: kernel takes L >= 1, got {u.shape[1]}")
     return with_state_padding(_launch, u, dt, Bm, Cm, A, D, init_state)

@@ -42,6 +42,7 @@ def verify_attention(q, k, v, blk_k, blk_v, pos, *, ring: bool = False,
                 *(() if tree is None else (tree,))):
         return verify_reference(q, k, v, blk_k, blk_v, pos, ring=ring,
                                 scale=scale, tree=tree)
+    K.require_no_grad("verify_attention", q, k, v, blk_k, blk_v)
     global _fn
     q, blk_k, blk_v, tree, G, width = K.verify_padded(
         "verify_attention", q, blk_k, blk_v, tree, Hkv)

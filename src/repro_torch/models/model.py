@@ -26,6 +26,8 @@ or ``layers.PagedKV`` pools) and are updated in place.
 Execution modes:
   * ``forward``           — logits over the full sequence
   * ``hidden``            — the final normed states over the full sequence
+                            and the MoE aux loss (training; both take
+                            ``remat``)
   * ``prefill``           — builds the row cache, returns last-position logits
   * ``decode_step``       — one token against the row cache
   * ``decode_step_pages`` — one token against the shared page pool
@@ -46,6 +48,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.env import resolve_device, torch_dtype
@@ -241,30 +244,50 @@ class LM:
             return layers.attention_decode(ap, h, pos, cache, cfg)
         return layers.attention_verify(ap, h, pos, cache, cfg, wmask=wmask)
 
-    def _run(self, params, x, mode, caches=None, **kw):
-        """Every layer in order: x + mixer(norm1(x)), then x +
-        ffn(norm2(x)) unless the layer has no FFN.  -> (x, the mixers'
-        caches, one per layer).  The MoE aux loss is a training term and
-        is dropped here, as the JAX package's serving modes drop it."""
+    def _layer(self, i, p, x, mode, cache, **kw):
+        """Layer ``i``: x + mixer(norm1(x)), then x + ffn(norm2(x)) unless
+        the layer has no FFN -> (x, the mixer's cache, the MoE aux loss:
+        a () f32 tensor where the FFN is MoE, else None)."""
         cfg = self.cfg
+        h = layers.rmsnorm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+        a, c = self._mixer(i, p, h, mode, cache, **kw)
+        x = x + a
+        if "norm2" not in p:                       # xLSTM: no FFN
+            return x, c, None
+        h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
+        if "moe" in p:
+            f, aux = moe_mod.moe_apply(p["moe"], h2, cfg, self.mesh,
+                                       self.moe_strategy)
+            return x + f, c, aux
+        f = layers.mlp({k: w.to(x.dtype) for k, w in p["mlp"].items()}, h2)
+        return x + f, c, None
+
+    def _run(self, params, x, mode, caches=None, remat: bool = False,
+             **kw):
+        """Every layer in order -> (x, the mixers' caches, one per layer,
+        aux).  In forward mode aux is the MoE aux loss summed over the
+        layers, a () f32 tensor (0 without MoE), as the JAX package's
+        ``_run_blocks`` carries it; the serving modes drop it (None), as
+        JAX's do.  ``remat`` (forward mode) runs each layer under
+        ``torch.utils.checkpoint``: its activations are recomputed in the
+        backward pass instead of kept, as JAX's ``jax.checkpoint`` over the
+        scanned blocks does."""
         out = []
+        aux = None
+        if mode == "forward":
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(params["blocks"]):
-            h = layers.rmsnorm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
-            a, c = self._mixer(i, p, h, mode,
-                               None if caches is None else caches[i], **kw)
-            out.append(c)
-            x = x + a
-            if "norm2" not in p:                   # xLSTM: no FFN
-                continue
-            h2 = layers.rmsnorm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
-            if "moe" in p:
-                f, _ = moe_mod.moe_apply(p["moe"], h2, cfg, self.mesh,
-                                         self.moe_strategy)
+            cache = None if caches is None else caches[i]
+            if remat and mode == "forward":
+                x, c, a = torch.utils.checkpoint.checkpoint(
+                    self._layer, i, p, x, mode, cache, use_reentrant=False,
+                    **kw)
             else:
-                f = layers.mlp({k: w.to(x.dtype)
-                                for k, w in p["mlp"].items()}, h2)
-            x = x + f
-        return x, out
+                x, c, a = self._layer(i, p, x, mode, cache, **kw)
+            out.append(c)
+            if aux is not None and a is not None:
+                aux = aux + a
+        return x, out, aux
 
     def _positions(self, x):
         B, S = x.shape[:2]
@@ -272,23 +295,26 @@ class LM:
                             device=x.device).expand(B, S)
 
     # ---------------------------------------------------------------- modes
-    def forward(self, params, tokens):
-        """Logits (B, S, V) f32 over the whole sequence."""
+    def forward(self, params, tokens, remat: bool = False):
+        """Logits (B, S, V) f32 over the whole sequence (the MoE aux loss,
+        a training term, is ``hidden``'s).  ``remat`` checkpoints each
+        layer (``_run``)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "forward",
-                         positions=self._positions(x))
+        x, _, _ = self._run(params, x, "forward", remat=remat,
+                            positions=self._positions(x))
         return self._head(params, x)
 
-    def hidden(self, params, tokens):
+    def hidden(self, params, tokens, remat: bool = False):
         """Final hidden states (B, S, d) before the head, in the
-        activation dtype: the Super-Sub classifiers pool them.  The JAX
-        package's ``hidden`` also returns the MoE aux loss, a training
-        term; ``_run`` drops it, so only the states come back."""
+        activation dtype, and the MoE aux loss (a () f32 tensor, 0 for a
+        model without MoE), as the JAX package's ``hidden``: the trainer's
+        loss and the Super-Sub classifiers pool the states.  ``remat``
+        checkpoints each layer (``_run``)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "forward",
-                         positions=self._positions(x))
+        x, _, aux = self._run(params, x, "forward", remat=remat,
+                              positions=self._positions(x))
         return layers.rmsnorm(x, params["final_norm"].to(x.dtype),
-                              self.cfg.norm_eps)
+                              self.cfg.norm_eps), aux
 
     def prefill(self, params, tokens, max_len: int):
         """Populate a fresh row cache.  Returns (last-position logits
@@ -296,9 +322,9 @@ class LM:
         S = max_len, or a ring's min(max_len, window) -- or a recurrent
         layer's state)."""
         x = self._embed_in(params, tokens)
-        x, caches = self._run(params, x, "prefill",
-                              positions=self._positions(x),
-                              max_len=max_len)
+        x, caches, _ = self._run(params, x, "prefill",
+                                 positions=self._positions(x),
+                                 max_len=max_len)
         return self._head(params, x[:, -1:]), caches
 
     def decode_step(self, params, caches, tokens, pos, commit=None):
@@ -307,8 +333,8 @@ class LM:
         (recurrent states only where ``commit``, a () bool tensor, is
         True, when given); returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "decode", caches, pos=pos,
-                         commit=commit)
+        x, _, _ = self._run(params, x, "decode", caches, pos=pos,
+                            commit=commit)
         return self._head(params, x), caches
 
     def verify_step(self, params, caches, tokens, pos, wmask=None,
@@ -323,7 +349,8 @@ class LM:
         optional) keeps False tokens' k/v out of an attention cache; the
         logits are None when ``need_logits`` is False."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "verify", caches, pos=pos, wmask=wmask)
+        x, _, _ = self._run(params, x, "verify", caches, pos=pos,
+                            wmask=wmask)
         return (self._head(params, x) if need_logits else None), caches
 
     def prefill_chunk(self, params, caches, tokens, pos, slots, wmask=None,
@@ -445,9 +472,9 @@ class LM:
         (``layers.attention_decode_pages_sharded``).  ``commit`` as in
         ``decode_step``.  Returns (logits (B, 1, V), caches)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "decode", caches, pos=pos,
-                         tables=tables, wmask=live, shard=shard,
-                         commit=commit)
+        x, _, _ = self._run(params, x, "decode", caches, pos=pos,
+                            tables=tables, wmask=live, shard=shard,
+                            commit=commit)
         return self._head(params, x), caches
 
     def verify_step_pages(self, params, caches, tokens, pos, tables,
@@ -466,9 +493,9 @@ class LM:
         tables = torch.as_tensor(tables, device=self.device)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         x = self._embed_in(params, tokens)
-        x, _ = self._run(params, x, "verify", caches, pos=pos,
-                         tables=tables, wmask=wmask, offsets=offsets,
-                         tree=tree, shard=shard)
+        x, _, _ = self._run(params, x, "verify", caches, pos=pos,
+                            tables=tables, wmask=wmask, offsets=offsets,
+                            tree=tree, shard=shard)
         return (self._head(params, x) if need_logits else None), caches
 
     # chunked admission is the verify pass pointed at the page pool

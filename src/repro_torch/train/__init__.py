@@ -1,1 +1,2 @@
-"""Data sources of the port (the paper's Super-Sub task)."""
+"""Training of the port: data sources, AdamW, the train step and
+``Trainer``, checkpoints, and the Super-Sub cascade's members."""

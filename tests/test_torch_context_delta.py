@@ -13,7 +13,7 @@ from repro.core.context import ContextDescriptor as JaxDesc  # noqa: E402
 from repro.core.context import ContextSwitchEngine as JaxEngine  # noqa: E402
 from repro_torch.core.context import (ContextDescriptor,  # noqa: E402
                                       ContextState, ContextStore,
-                                      ContextSwitchEngine, _leaves)
+                                      ContextSwitchEngine, tree_leaves)
 
 
 def _engine(slots=3, **kw):
@@ -79,12 +79,12 @@ def test_delta_load_assembles_exactly_a_full_load():
     b0 = eng.stats["bytes_loaded"]
     spec = eng.preload("spec", block=True).result()
     delta_bytes = eng.stats["bytes_loaded"] - b0
-    assert delta_bytes == sum(t.nbytes for t in _leaves(delta))
+    assert delta_bytes == sum(t.nbytes for t in tree_leaves(delta))
     full_slot = eng.preload("spec-full", block=True).result()
     assert spec.bytes_resident == full_slot.bytes_resident
     assert spec.buffers.keys() == full_slot.buffers.keys()
     assert spec.buffers["norm"].keys() == full_slot.buffers["norm"].keys()
-    for a, b in zip(_leaves(spec.buffers), _leaves(full_slot.buffers)):
+    for a, b in zip(tree_leaves(spec.buffers), tree_leaves(full_slot.buffers)):
         assert torch.equal(a, b)
     base = eng._find_slot("base").buffers
     assert spec.buffers["backbone"] is base["backbone"]
@@ -147,7 +147,7 @@ def test_context_store_bf16_round_trip_across_restart(tmp_path):
     eng.switch("ctx")
     got = eng.run(x)
     assert isinstance(slot.buffers["blocks"], list)
-    for a, b in zip(_leaves(slot.buffers), _leaves(w)):
+    for a, b in zip(tree_leaves(slot.buffers), tree_leaves(w)):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.view(torch.uint8) if a.dim() else a,
                            b.view(torch.uint8) if b.dim() else b)

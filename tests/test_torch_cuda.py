@@ -25,8 +25,12 @@ recaptures over reloaded weights, and syncs nothing.  The prefix cache:
 the page copy is a byte copy, a chunked hit (C = page) is bit for bit
 the cold chunked stream (bf16, int8, local reads), and fused prefix
 engines, one alone and two over a shared bank, are bit for bit their
-single-step twins with one capture each.  Every test here is
-marked ``cuda`` and skips without a card.  This file imports neither JAX nor
+single-step twins with one capture each.  Training: flash attention's
+backward kernel through autograd against the float32 backward of
+``mha_reference`` (each gradient within 2**-7 relative L2, bit for bit
+run to run), every wrapper without a backward kernel refusing a gradient
+by name, and one train step on the card against the same step on the
+CPU.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -39,7 +43,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, decode_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    flash_attention, mha_reference)
+    flash_attention, flash_attention_backward, mha_backward_reference,
+    mha_reference)
 from repro_torch.kernels.gmm.ops import (  # noqa: E402
     expert_mlp, expert_mlp_reference, gmm, gmm_reference)
 from repro_torch.kernels.mlstm_chunk.ops import (  # noqa: E402
@@ -1526,7 +1531,7 @@ def test_delta_load_on_the_card_shares_the_base(gen, tmp_path):
     from a ``ContextStore`` serves the same logits."""
     from repro_torch.core.cascade import classifier_logits
     from repro_torch.core.context import (ContextDescriptor, ContextStore,
-                                          ContextSwitchEngine, _leaves)
+                                          ContextSwitchEngine, tree_leaves)
     m, _ = _reduced_lm("supersub-super", {"param_dtype": "bfloat16"})
     base = _classifier_host(m, 12, seed=1)
     head = {"head": 0.02 * torch.randn(m.cfg.d_model, 12,
@@ -1549,8 +1554,8 @@ def test_delta_load_on_the_card_shares_the_base(gen, tmp_path):
     assert eng.stats["bytes_loaded"] - b0 == head["head"].nbytes
     base_bufs = eng._find_slot("base").buffers
     assert spec.buffers["head"].is_cuda
-    for a, b in zip(_leaves(spec.buffers["backbone"]),
-                    _leaves(base_bufs["backbone"])):
+    for a, b in zip(tree_leaves(spec.buffers["backbone"]),
+                    tree_leaves(base_bufs["backbone"])):
         assert a.data_ptr() == b.data_ptr()
     x = torch.randint(0, m.cfg.vocab_size, (4, 40), generator=torch
                       .Generator().manual_seed(3)).cuda()
@@ -1601,3 +1606,149 @@ def test_cascade_pipelined_equals_sequential_on_the_card(gen, slots):
     for a, b in zip(*runs):
         assert a["super"] == b["super"]
         assert (a["sub"] == b["sub"]).all()
+
+
+# ---------------------------------------------------------------------------
+# training: B1's backward, the named no-backward errors, a train step
+# ---------------------------------------------------------------------------
+
+BWD_RTOL = 2.0 ** -7   # relative L2 of each gradient (chip_smoke.py's limit)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,hd,window", [
+    (2, 8, 2, 200, 64, 0), (1, 4, 4, 130, 32, 0), (2, 6, 3, 97, 128, 40),
+    (1, 4, 2, 70, 256, 0), (2, 4, 1, 64, 80, 0), (1, 20, 1, 33, 64, 9)])
+def test_flash_backward_matches_plain(gen, B, H, Hkv, S, hd, window):
+    """Autograd through ``flash_attention`` on the card (the forward
+    kernel keeping its row log-sum-exps, then the backward kernel) against
+    the float32 backward of ``mha_reference``, on the model's (B, S, H, hd)
+    layout seen as (B, H, S, hd) views; head width 80 runs padded to 128,
+    a group of 20 in one launch.  Twice, bit for bit."""
+    kernels.reset_launch_counts()
+    q, k, v = (_rn(gen, B, S, n, hd) for n in (H, Hkv, Hkv))
+    do = _rn(gen, B, S, H, hd)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*(t.transpose(1, 2) for t in leaves),
+                              window=window)
+        out.transpose(1, 2).backward(do)
+        grads.append([t.grad for t in leaves])
+    ref = [t.transpose(1, 2) for t in mha_backward_reference(
+        *(t.transpose(1, 2).float() for t in (q, k, v, do)), window=window)]
+    torch.cuda.synchronize()
+    for a, b, r in zip(*grads, ref):
+        assert torch.equal(a, b)
+        assert ((a.float() - r).norm() / r.norm()).item() <= BWD_RTOL
+    assert flash_attention_backward.launches == 2
+
+
+def test_flash_backward_is_the_functions_gradient(gen):
+    """``flash_attention`` with grad needed is a ``torch.autograd.Function``
+    whose backward launches the kernel; without it, the serving launch."""
+    q, k, v = (_rn(gen, 1, 2, 16, 64) for _ in range(3))
+    q.requires_grad_()
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None and "Flash" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+def _no_backward_calls(gen):
+    """One call of each wrapper without a backward kernel, on the card,
+    with its first tensor input requiring grad."""
+    B, H, Hkv, hd, S = 2, 8, 2, 64, 64
+    q = _rn(gen, B, H, hd).requires_grad_()
+    k, v = _rn(gen, B, Hkv, S, hd), _rn(gen, B, Hkv, S, hd)
+    pos = torch.tensor([3, 40], dtype=torch.int32, device="cuda")
+    page, P = 16, 4
+    kp, vp = (_rn(gen, B * P + 1, Hkv, page, hd) for _ in range(2))
+    table = (torch.arange(B * P, device="cuda", dtype=torch.int32)
+             + 1).reshape(B, P)
+    qv = _rn(gen, B, 4, H, hd).requires_grad_()
+    bk, bv = _rn(gen, B, 4, Hkv, hd), _rn(gen, B, 4, Hkv, hd)
+    x = _rn(gen, 2, 8, 64).requires_grad_()
+    w = _rn(gen, 2, 64, 32)
+    d_in, N, L = 16, 4, 8
+    u = torch.randn(1, L, d_in, device="cuda", requires_grad=True)
+    f32 = lambda *s: torch.randn(s, device="cuda")  # noqa: E731
+    mq = torch.randn(1, 2, 32, 16, device="cuda", requires_grad=True)
+    return {
+        "decode_attention": lambda: decode_attention(q, k, v, pos),
+        "verify_attention": lambda: verify_attention(qv, k, v, bk, bv, pos),
+        "paged_decode_attention": lambda: paged_decode_attention(
+            q, kp, vp, table, pos),
+        "paged_verify_attention": lambda: paged_verify_attention(
+            qv, kp, vp, bk, bv, table, pos),
+        "paged_decode_partial": lambda: paged_decode_partial(
+            q, kp, vp, table, pos, 0),
+        "gmm": lambda: gmm(x, w),
+        "ssm_scan": lambda: ssm_scan(u, f32(1, L, d_in).abs(),
+                                     f32(1, L, N), f32(1, L, N),
+                                     -f32(d_in, N).abs(), f32(d_in)),
+        "mlstm_chunk": lambda: mlstm_chunk(mq, f32(1, 2, 32, 16),
+                                           f32(1, 2, 32, 16), f32(1, 2, 32),
+                                           f32(1, 2, 32), 16),
+    }
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "verify_attention",
+                                  "paged_decode_attention",
+                                  "paged_verify_attention",
+                                  "paged_decode_partial", "gmm", "ssm_scan",
+                                  "mlstm_chunk"])
+def test_wrappers_without_a_backward_refuse_a_gradient(gen, name):
+    """A gradient asked of a kernel with no backward kernel raises its
+    named error (rather than return a tensor with no ``grad_fn``); the
+    same call under ``torch.no_grad()`` launches as serving does."""
+    call = _no_backward_calls(gen)[name]
+    with pytest.raises(kernels.MissingBackwardKernel,
+                       match=f"backward kernel of {name}"):
+        call()
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One ``make_train_step`` step of reduced tinyllama-1.1b (2 layers,
+    llama's N(0, 0.02) init, eps=1.0) on the card (bf16 activations, the
+    flash kernel and its backward) against the same step on the CPU in
+    float32, from the same state and batch: loss and gradient norm within
+    2e-2 relative, every parameter after the step within 1e-5 (at eps=1.0
+    the update is lr times the clipped gradient, lr 1e-3)."""
+    from repro_torch.configs import get_arch, override, reduced
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          RunConfig)
+    from repro_torch.models.model import build_model
+    from repro_torch.train import trainer as ttr
+    from repro_torch.core.context import tree_leaves, tree_map
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    rc = RunConfig(optimizer=OptimizerConfig(lr=1e-3, total_steps=10,
+                                             warmup_steps=1, eps=1.0),
+                   parallel=ParallelConfig())
+    cpu = build_model(override(cfg, dtype="float32"),
+                      cache_dtype=torch.float32, device="cpu")
+    card = build_model(cfg, device="cuda")
+    state = ttr.init_state(cpu, 0, rc, init_std=0.02)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64),
+                           generator=torch.Generator().manual_seed(1))
+    want, wm = ttr.make_train_step(cpu, rc)(state, {"tokens": tokens})
+    got, gm = ttr.make_train_step(card, rc)(
+        tree_map(lambda t: t.cuda(), state), {"tokens": tokens.cuda()})
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 2e-2 * abs(float(wm[k]))
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    assert flash_attention_backward.launches > 0
+
+
+def test_card_refuses_to_train_a_family_without_backward_kernels(gen):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.train import trainer as ttr
+    for name in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"):
+        m = build_model(reduced(get_arch(name)), device="cuda")
+        with pytest.raises(kernels.MissingBackwardKernel):
+            ttr.make_train_step(m, RunConfig())
