@@ -188,8 +188,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                 beside the measured ones.
   7. training — B1's backward kernel (``flash_attention_bwd.cu``) at
                 tinyllama-1.1b's training batch (8 x 512), the Super-Sub
-                members' (32 x 24, H=Hkv=8, hd=32) and a windowed GQA
-                shape (2 x 640, H=8, Hkv=2, hd=128, window 256) against
+                members' (32 x 24, H=Hkv=8, hd=32), a windowed GQA
+                shape (2 x 640, H=8, Hkv=2, hd=128, window 256) and hd
+                256 (1 x 256, H=4, Hkv=2; its CUDA-core body) against
                 its plain versions: dQ, dK and dV each within 2**-7
                 relative L2 of the float32 backward of mha_reference and
                 each element within 2e-2 + 2**-7 |plain|, each row within
@@ -1493,10 +1494,12 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 
 
 # the instructions each library's SASS must hold: wgmma (HGMMA) and TMA
-# loads (UTMALDG) in the flash, gmm and verify bodies; mma.sync (HMMA) and
-# cp.async (LDGSTS) in the decode body (the row and paged decode and the
-# shard partial) and the mLSTM's 3xTF32 products; cp.async in the scan
+# loads (UTMALDG) in the flash (forward and backward), gmm and verify
+# bodies; mma.sync (HMMA) and cp.async (LDGSTS) in the decode body (the row
+# and paged decode and the shard partial) and the mLSTM's 3xTF32 products;
+# cp.async in the scan
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
+            "flash_attention_bwd": ("HGMMA", "UTMALDG"),
             "gmm": ("HGMMA", "UTMALDG"),
             "paged_attention": ("HGMMA", "UTMALDG", "HMMA", "LDGSTS"),
             "verify_attention": ("HGMMA", "UTMALDG"),
@@ -2047,7 +2050,8 @@ ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
               "paged_verify_attention_chunk_int8":
                   "paged_verify_attention_int8",
               "flash_attention_backward_cascade": "flash_attention_backward",
-              "flash_attention_backward_window": "flash_attention_backward"}
+              "flash_attention_backward_window": "flash_attention_backward",
+              "flash_attention_backward_hd256": "flash_attention_backward"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -3716,10 +3720,12 @@ BWD_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
            "flash_attention_bwd.cu")
 # B1's backward records, (B, H, Hkv, S, hd, window), causal: tinyllama-1.1b's
 # training batch (8 x 512), the Super-Sub members' (32 x 24, H=Hkv=8,
-# hd=32) and a small windowed GQA shape that no training pass launches
+# hd=32), a small windowed GQA shape that no training pass launches, and
+# hd 256, whose body stays on the CUDA cores (no training pass either)
 BWD_SHAPES = {"flash_attention_backward": (8, H, HKV, 512, HD, 0),
               "flash_attention_backward_cascade": (32, 8, 8, 24, 32, 0),
-              "flash_attention_backward_window": (2, 8, 2, 640, 128, 256)}
+              "flash_attention_backward_window": (2, 8, 2, 640, 128, 256),
+              "flash_attention_backward_hd256": (1, 4, 2, 256, 256, 0)}
 # dQ, dK and dV each within BWD_RTOL relative L2 of the float32 backward of
 # mha_reference on the same bf16 inputs (the kernel rounds its outputs to
 # bf16, 2**-9, and takes D from the forward's bf16 output), each element
@@ -3777,6 +3783,33 @@ def _bwd_row_ratio(got, ref):
     return (err / (ROW_RTOL * norm.clamp_min(floor.item()))).max().item()
 
 
+def backward_case(dev, rn, shape) -> dict:
+    """One record of ``BWD_SHAPES``, (B, H, Hkv, S, hd, window), causal:
+    its inputs (q, k, v, do, the forward kernel's out and lse), the
+    kernel's call ``fn`` and ``sdpa``, SDPA's backward through autograd
+    over the same mask (a yardstick, unused by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        _launch, flash_attention_backward)
+    B, Hq, Hkv, S, hd, W = shape
+    q, k, v, do = (rn(B, n, S, hd) for n in (Hq, Hkv, Hkv, Hq))
+    lse = torch.empty(B, Hq, S, device=dev)
+    out = _launch(q, k, v, causal=True, window=W, scale=hd ** -0.5, lse=lse)
+    i = torch.arange(S, device=dev)
+    wmask = (i[None, :] <= i[:, None]) & (
+        (i[:, None] - i[None, :] < W) if W else True)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=wmask if W else None, is_causal=not W,
+        enable_gqa=True)
+    return {"q": q, "k": k, "v": v, "do": do, "out": out, "lse": lse,
+            "fn": lambda: flash_attention_backward(q, k, v, out, do, lse,
+                                                   window=W),
+            "sdpa": lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                retain_graph=True)}
+
+
 def flash_backward_records(dev, gen, rn, flush, record) -> None:
     """B1's backward at ``BWD_SHAPES`` against its plain versions (see
     BWD_RTOL), with each planted fault of ``_bwd_faulty`` that the shape
@@ -3785,17 +3818,13 @@ def flash_backward_records(dev, gen, rn, flush, record) -> None:
     limit; deterministic (a second launch bit for bit the first); timed
     beside the plain backward and SDPA's backward through autograd."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import (
-        _launch, flash_attention_backward, mha_backward_reference)
-    for name, (B, Hq, Hkv, S, hd, W) in BWD_SHAPES.items():
-        q, k, v, do = (rn(B, n, S, hd) for n in (Hq, Hkv, Hkv, Hq))
-        lse = torch.empty(B, Hq, S, device=dev)
-        out = _launch(q, k, v, causal=True, window=W, scale=hd ** -0.5,
-                      lse=lse)
-
-        def bwd():
-            return flash_attention_backward(q, k, v, out, do, lse, window=W)
+    from repro_torch.kernels.flash_attention.ops import mha_backward_reference
+    for name, shape in BWD_SHAPES.items():
+        B, Hq, Hkv, S, hd, W = shape
+        case = backward_case(dev, rn, shape)
+        q, k, v, do, out, lse = (case[n] for n in ("q", "k", "v", "do",
+                                                    "out", "lse"))
+        bwd = case["fn"]
         got = bwd()
         again = bwd()
         torch.cuda.synchronize()
@@ -3827,28 +3856,17 @@ def flash_backward_records(dev, gen, rn, flush, record) -> None:
             if not max(moved) > 1.0:
                 raise AssertionError(f"{name}: the row limit does not catch "
                                      f"the fault '{fault}'")
-        i = torch.arange(S, device=dev)
-        wmask = (i[None, :] <= i[:, None]) & (
-            (i[:, None] - i[None, :] < W) if W else True)
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(
-            *leaves, attn_mask=wmask if W else None, is_causal=not W,
-            enable_gqa=True)
-
-        def library():
-            return torch.autograd.grad(lib_out, leaves, do,
-                                       retain_graph=True)
         pairs = sum(min(t + 1, W) if W else t + 1 for t in range(S))
         record(name, BWD_SRC,
                "src/repro/kernels/flash_attention/kernel.py:85", got, ref,
                time_ms(bwd, flush=flush),
                time_ms(lambda: mha_backward_reference(q, k, v, do, window=W),
                        iters=5, flush=flush),
-               time_ms(library, flush=flush),
+               time_ms(case["sdpa"], flush=flush),
                2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
                2.5 * 4 * hd * B * Hq * pairs, tol=TOL, rtol=BWD_RTOL)
-        log_kernel_time(name, bwd, flush, library)
-        del q, k, v, do, out, lse, leaves, lib_out
+        log_kernel_time(name, bwd, flush, case["sdpa"])
+        del q, k, v, do, out, lse, case
 
 
 def train_tinyllama(dev) -> dict:

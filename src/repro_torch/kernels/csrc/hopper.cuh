@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (flash
-// prefill, verify, the grouped matmul): shared-memory addresses,
-// mbarriers, TMA tile loads, wgmma descriptors and products, and the host
-// side of a TMA descriptor.  Raw PTX, no library.
+// prefill and its backward, verify, the grouped matmul): shared-memory
+// addresses, mbarriers, TMA tile loads, wgmma descriptors and products,
+// and the host side of a TMA descriptor.  Raw PTX, no library.
 //
 // The layouts the products read are the canonical wgmma ones that a TMA
 // load with a 128-byte (or 64-byte) swizzle writes:
@@ -216,6 +216,20 @@ __device__ __forceinline__ void wgmma_wait() {
 //   wgmma_rs_nN:     A from registers (four bf16 pairs per thread, the
 //                    layout of the accumulator's 16 columns), B MN-major.
 template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -382,7 +396,8 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<TB>(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
   else if constexpr (N == 128) wgmma_ss_n128<TB>(d, da, db, scale_d);
   else wgmma_ss_n256<TB>(d, da, db, scale_d);
 }
@@ -455,11 +470,24 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode_once = [&]() {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                  const_cast<void*>(base), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode_once();
+  // cuTensorMapEncodeTiled needs the device's context current on this
+  // thread, and a thread that has made no runtime call yet has none
+  // (autograd's worker thread, when the caching allocator served its
+  // allocations).  Since CUDA 12.0 cudaSetDevice makes the primary
+  // context current: then once more.
+  int dev = 0;
+  if (r == CUDA_ERROR_INVALID_CONTEXT && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaSetDevice(dev) == cudaSuccess)
+    r = encode_once();
+  return r == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

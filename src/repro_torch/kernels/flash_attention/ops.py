@@ -119,11 +119,11 @@ def _launch_bwd(q, k, v, out, dout, lse, *, causal: bool, window: int,
                          f"{tuple(out.shape)}, dout {tuple(dout.shape)}")
     K.check_cuda_input("lse", lse, torch.float32, (B, H, S))
     views = [_tma_view(t) for t in (q, k, v, out, dout)]
+    # contiguous outputs, dK and dV in one allocation
     dq = torch.empty((B, H, S, hd), dtype=torch.bfloat16, device=q.device)
-    dk = torch.empty((B, Hkv, S, hd), dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty_like(dk)
+    dk, dv = torch.empty((2, B, Hkv, S, hd), dtype=torch.bfloat16,
+                         device=q.device)
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    views += [_tma_view(t) for t in (dq, dk, dv)]
     if _bwd_fn is None:
         _bwd_fn = K.c_function("flash_attention_bwd",
                                "flash_attention_bwd_bf16",
@@ -131,7 +131,8 @@ def _launch_bwd(q, k, v, out, dout, lse, *, causal: bool, window: int,
                                + [K.F, ctypes.POINTER(ctypes.c_longlong),
                                   K.P])
     strides = [s for _, st in views for s in st]
-    rc = _bwd_fn(*(t.data_ptr() for t, _ in views[:5]), lse.data_ptr(),
+    strides += [H * S * hd, S * hd, hd] + [Hkv * S * hd, S * hd, hd] * 2
+    rc = _bwd_fn(*(t.data_ptr() for t, _ in views), lse.data_ptr(),
                  dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), B, H, Hkv, S, hd, int(causal), int(window),
                  float(scale), (ctypes.c_longlong * 24)(*strides),
