@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
                 in the SASS of the flash, gmm, paged and verify libraries,
                 of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
-                paged, partial and mLSTM libraries, and of cp.async in the
-                scan library (nonzero).
+                paged, partial and mLSTM libraries, of cp.async in the
+                scan library and of the exponential unit (MUFU.EX2) in
+                the scan's backward (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -212,7 +213,29 @@ Phases, in order; any failure exits non-zero before the result lines:
                 published widths (router, generalist, three specialists,
                 200 steps each, 3 x 3 classes, sub-strength 0.5),
                 evaluated on every subclass: dynamic accuracy above
-                static, both above chance.
+                static, both above chance.  B8's backward kernel
+                (``ssm_scan_bwd.cu``) at jamba-v0.1-52b's training batch
+                (B=4, L=512, d_in=8192, N=16, a cotangent of y alone)
+                and at N=12 (padded) with d_in=1000, L=100, a carried
+                state and a final-state cotangent, against its plain
+                reverse loop: each of the seven gradients within 1e-4
+                relative L2 and each element within 1e-4 of its largest
+                plain value, limits shown to catch the carry dropped at
+                a chunk boundary, one channel tile left out of dB, D
+                left out of du and a_t one step late; two launches bit
+                for bit; timed beside the plain backward, its bound the
+                bytes or the exponentials.  ``train_jamba`` and
+                ``train_mixtral``: ``Trainer`` in process on
+                jamba-v0.1-52b (Mamba + MLP, Mamba + 16-expert MoE) and
+                mixtral-8x7b (two attention + 8-expert MoE layers) at
+                published widths cut to two layers, 4 x 512, 10 steps
+                from llama's N(0, 0.02) init, no checkpoint: the loss
+                must fall by 0.5 (the last 3 steps' mean against step
+                1), a fresh init of the same seed must repeat the first
+                3 steps bit for bit, the scan's backward (jamba) and
+                flash's (mixtral) must launch; the reckoned and the
+                measured peak memory, seconds a step and tokens/s
+                logged.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -222,6 +245,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1497,7 +1521,8 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 # loads (UTMALDG) in the flash (forward and backward), gmm and verify
 # bodies; mma.sync (HMMA) and cp.async (LDGSTS) in the decode body (the row
 # and paged decode and the shard partial) and the mLSTM's 3xTF32 products;
-# cp.async in the scan
+# cp.async in the scan; the exponential unit (ex2.approx) in the scan's
+# backward
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "flash_attention_bwd": ("HGMMA", "UTMALDG"),
             "gmm": ("HGMMA", "UTMALDG"),
@@ -1506,7 +1531,8 @@ SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "decode_attention": ("HMMA", "LDGSTS"),
             "paged_partial": ("HMMA", "LDGSTS"),
             "mlstm_chunk": ("HMMA", "LDGSTS"),
-            "ssm_scan": ("LDGSTS",)}
+            "ssm_scan": ("LDGSTS",),
+            "ssm_scan_bwd": ("MUFU.EX2",)}
 
 
 def sass_counts() -> None:
@@ -1796,7 +1822,7 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
     from repro_torch.kernels.verify_attention.ops import verify_attention
     verify_shapes = paged_verify_attention.launches_by_shape
     counts = {name: functools.partial(verify_shapes.__getitem__,
@@ -1841,6 +1867,10 @@ def _launch_counters() -> dict:
             "gmm_down": lambda: gmm.launches_by_shape[GMM_DOWN_SHAPE],
             "flash_attention_backward":
                 lambda: flash_attention_backward.launches,
+            "ssm_scan_backward": lambda: ssm_scan_backward.launches,
+            "ssm_scan_backward_padded":
+                lambda: ssm_scan_backward.launches_by_shape[
+                    scan_bwd_shape("ssm_scan_backward_padded")],
             **{name: functools.partial(
                 flash_attention_backward.launches_by_shape.__getitem__,
                 shape) for name, shape in BWD_SHAPES.items()
@@ -2051,7 +2081,8 @@ ROUTE_BODY = {"paged_verify_attention_tree": "paged_verify_attention",
                   "paged_verify_attention_int8",
               "flash_attention_backward_cascade": "flash_attention_backward",
               "flash_attention_backward_window": "flash_attention_backward",
-              "flash_attention_backward_hd256": "flash_attention_backward"}
+              "flash_attention_backward_hd256": "flash_attention_backward",
+              "ssm_scan_backward_padded": "ssm_scan_backward"}
 MOE_DEPTH = {"mixtral-8x7b": 4, "jamba-v0.1-52b": 8}   # layers served
 LONG_PROMPT = 4160           # > mixtral's 4096-token window: wraps its ring
 # the shapes of the windowed flash and down-product records, as counted
@@ -2083,6 +2114,14 @@ def hybrid_prompts() -> list:
         reqs.append((name, rng.integers(0, get_arch(name).vocab_size,
                                         (1, S))))
     return reqs
+
+
+def scan_bwd_shape(name: str) -> tuple:
+    """(B, L, d_in, N) of a ``SCAN_BWD_SHAPES`` record as the backward
+    counts it (``launches_by_shape``: N padded to the kernel's)."""
+    from repro_torch.kernels.ssm_scan.ops import kernel_state_size
+    B, L, d_in, N = SCAN_BWD_SHAPES[name][:4]
+    return (B, L, d_in, kernel_state_size(N))
 
 
 def scan_serving_shape() -> tuple:
@@ -3959,21 +3998,306 @@ def train_cascade(dev) -> dict:
     return counts
 
 
+SCAN_BWD_SRC = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu"
+# the MoE and hybrid training passes: published widths, the first
+# MOE_TRAIN_LAYERS layers (jamba-v0.1-52b: Mamba + MLP, Mamba + 16-expert
+# MoE; mixtral-8x7b: two attention + 8-expert MoE layers), batch x 512
+# tokens (80 GB holds 4: the reckoned peak, moe_train_state_gb, is 76.5 GB
+# for jamba), llama's N(0, 0.02) init, lr MOE_TRAIN_LR after 2 warmup
+# steps: at d_model 4096 a step of lr moves a head logit by about 4096 lr,
+# and 1e-3 drove both losses up on an H100 80GB HBM3 (11.9 -> 11.6
+# jamba, 11.2 -> 15.5 mixtral, the last 3 steps' mean); 1.5e-4 moves it
+# as far as train_tinyllama's 3e-4 at 2048
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 512, 10
+MOE_TRAIN_BATCH = {"jamba-v0.1-52b": 4, "mixtral-8x7b": 4}
+MOE_TRAIN_LR, MOE_TRAIN_WARMUP = 1.5e-4, 2
+MOE_REPEAT_STEPS = 3         # steps run twice from the same state: bitwise
+# the loss must fall: the mean of the last 3 steps' losses at least this
+# much below the first step's (written before the first run)
+MOE_LOSS_MARGIN = 0.5
+# B8's backward records, (B, L, d_in, N, init_state, final-state
+# cotangent): jamba-v0.1-52b's training pass (its scans take a cotangent
+# of y alone, from a zero state), and a small shape that no training pass
+# launches: N 12 (padded to 16), d_in and L off the kernel's tiles, a
+# carried state and a final-state cotangent
+SCAN_BWD_SHAPES = {
+    "ssm_scan_backward": (MOE_TRAIN_BATCH["jamba-v0.1-52b"], MOE_TRAIN_SEQ,
+                          SCAN_D_IN, SCAN_N, False, False),
+    "ssm_scan_backward_padded": (2, 100, 1000, 12, True, True)}
+# each of the seven gradients within SCAN_BWD_RTOL relative L2 of the
+# plain backward (torch.exp, torch's sums) on the same inputs, and each
+# element within SCAN_BWD_RTOL x the largest plain value of its gradient:
+# the kernel's ex2.approx and its summation orders move a gradient by
+# about 1e-6 relative
+SCAN_BWD_RTOL = 1e-4
+SCAN_BWD_FAULTS = ("carry dropped at a chunk boundary",
+                   "a channel tile left out of dB",
+                   "the D term dropped from du",
+                   "a_t taken one step late")
+
+
+def scan_bwd_inputs(dev, gen, shape) -> tuple:
+    """One record of ``SCAN_BWD_SHAPES``: (u, dt, Bm, Cm, A, D,
+    init_state, dy, dstate), f32, drawn as ``scan_cases`` draws them."""
+    import torch
+    B, L, d_in, N, init, ds = shape
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+    u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+    dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+    A, D = -torch.exp(rn(d_in, N) * 0.5), rn(d_in)
+    return (u, dt, Bm, Cm, A, D, rn(B, d_in, N) if init else None,
+            rn(B, L, d_in), rn(B, d_in, N) if ds else None)
+
+
+def scan_bwd_faulty(args, fault):
+    """The plain backward (``selective_scan_backward_reference``'s
+    formulas) with one of ``SCAN_BWD_FAULTS`` planted: the carry a_{t+1}
+    g_{t+1} into step t = L/2 - 1 dropped; dB without the first 32
+    channels' share (the kernel's tile at N = 16); du without D dy; the
+    carry into step t - 1 taken as a_{t-1} g_t (a_t one step late)."""
+    import torch
+    u, dt, Bm, Cm, A, D, s0, dy, ds = args
+    B, L, d_in = u.shape
+    s = torch.zeros_like(A).expand(B, -1, -1) if s0 is None else s0
+    states = [s]
+    for t in range(L):
+        s = torch.exp(dt[:, t, :, None] * A) * s + \
+            dt[:, t, :, None] * Bm[:, t, None, :] * u[:, t, :, None]
+        states.append(s)
+    carry = torch.zeros_like(s) if ds is None else ds
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA = torch.zeros_like(A)
+    keep = torch.ones(d_in, device=u.device)
+    if fault == SCAN_BWD_FAULTS[1]:
+        keep[:32] = 0.0
+    for t in reversed(range(L)):
+        dt_t = dt[:, t, :, None]
+        a = torch.exp(dt_t * A)
+        if fault == SCAN_BWD_FAULTS[0] and t == L // 2 - 1:
+            carry = torch.zeros_like(carry)
+        g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
+        a_prev = a * states[t]
+        Dterm = 0.0 if fault == SCAN_BWD_FAULTS[2] else D * dy[:, t]
+        du[:, t] = Dterm + dt[:, t] * (g * Bm[:, t, None, :]).sum(-1)
+        ddt[:, t] = (g * (A * a_prev + Bm[:, t, None, :]
+                          * u[:, t, :, None])).sum(-1)
+        dB[:, t] = (g * (keep * dt[:, t] * u[:, t])[..., None]).sum(1)
+        dC[:, t] = (dy[:, t, :, None] * states[t + 1]).sum(1)
+        dA += (g * dt_t * a_prev).sum(0)
+        if fault == SCAN_BWD_FAULTS[3]:
+            a = torch.exp(dt[:, max(t - 1, 0), :, None] * A)
+        carry = a * g
+    return du, ddt, dB, dC, dA, (dy * u).sum((0, 1)), carry
+
+
+def scan_bwd_ratio(got, ref) -> float:
+    """The largest error over its limit of the seven gradients: relative
+    L2 over ``SCAN_BWD_RTOL``, or an element's error over ``SCAN_BWD_RTOL``
+    x the plain gradient's largest value (at most 1 within the limits)."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        elem = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel / SCAN_BWD_RTOL, elem / SCAN_BWD_RTOL)
+    return worst
+
+
+def scan_backward_records(dev, flush, record) -> None:
+    """B8's backward at ``SCAN_BWD_SHAPES`` against its plain version on
+    the same inputs (``SCAN_BWD_RTOL``), each planted fault of
+    ``SCAN_BWD_FAULTS`` (at the first shape) shown to leave the limits;
+    deterministic (a second launch bit for bit the first); timed beside
+    the plain backward.  No single library call computes it.  The bound
+    is the larger of the bytes (each input read once, each gradient
+    written once) over the HBM rate and the function's exponentials (one
+    a_t per (row, step, channel, state)) at ``EXP_PER_S``."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import (
+        selective_scan_backward_reference, ssm_scan_backward)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for name, shape in SCAN_BWD_SHAPES.items():
+        B, L, d_in, N = shape[:4]
+        args = scan_bwd_inputs(dev, gen, shape)
+        got = ssm_scan_backward(*args)
+        again = ssm_scan_backward(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two launches differ")
+        ref = selective_scan_backward_reference(*args)
+        labels = ("du", "ddt", "dB", "dC", "dA", "dD", "dinit")
+        log(f"kernel {name}: relative L2 " + ", ".join(
+            f"{n} {float((g - r).norm() / r.norm()):.3e}"
+            for n, g, r in zip(labels, got, ref))
+            + f" (limit {SCAN_BWD_RTOL:.1e}); worst error/limit "
+            f"{scan_bwd_ratio(got, ref):.3f}")
+        if not scan_bwd_ratio(got, ref) <= 1.0:
+            raise AssertionError(f"{name}: past the limits")
+        if name == "ssm_scan_backward":
+            for fault in SCAN_BWD_FAULTS:
+                moved = scan_bwd_ratio(scan_bwd_faulty(args, fault), ref)
+                log(f"kernel {name}: fault '{fault}' moves the worst "
+                    f"error to {moved:.1f} times its limit")
+                if not moved > 1.0:
+                    raise AssertionError(f"{name}: the limits do not catch "
+                                         f"the fault '{fault}'")
+        states = 1 + sum(t is not None for t in (args[6], args[8]))
+        nbytes = 4 * (5 * B * L * d_in + 4 * B * L * N + 2 * d_in * N
+                      + 2 * d_in + states * B * d_in * N)
+        tols = tuple(SCAN_BWD_RTOL * float(r.abs().max()) for r in ref)
+        fn = functools.partial(ssm_scan_backward, *args)
+        record(name, SCAN_BWD_SRC, "src/repro/kernels/ssm_scan/kernel.py:64",
+               tuple(got), tuple(ref), time_ms(fn, flush=flush),
+               time_ms(lambda: selective_scan_backward_reference(*args),
+                       iters=3, flush=flush),
+               None, nbytes, B * L * d_in * N, peak=EXP_PER_S, tol=tols,
+               outputs=labels)
+        log_kernel_time(name, fn, flush)
+        del args, got, again, ref
+
+
+def moe_train_state_gb(cfg, batch: int) -> dict:
+    """The reckoned peak device memory (GB) of ``train_moe_family`` before
+    it runs, an upper bound: f32 parameters, AdamW's two moments and the
+    gradients (16 bytes a parameter); the bf16 weight copies that the
+    products keep for the backward (2); one expert slice's full-size
+    gradient beside the largest expert tensor's running sum (autograd's
+    select backward); each MoE layer's kept expert activations (4 (T, F)
+    bf16 a expert); the f32 logits, their log-sum-exp and gradient (3 (T,
+    V) f32)."""
+    from repro_torch.core.context import tree_leaves
+    from repro_torch.models.model import LM
+    m = LM(cfg, device="cpu")
+    sizes = [math.prod(spec.shape) for spec in tree_leaves(m.param_specs())]
+    n, big = sum(sizes), max(sizes)
+    T = batch * MOE_TRAIN_SEQ
+    moe_layers = sum(m.kind(i)[1] == "moe" for i in range(cfg.num_layers))
+    acts = moe_layers * cfg.moe.num_experts * 4 * T * cfg.moe.d_ff_expert * 2
+    out = {"params": n, "state_gb": 12 * n / 1e9, "grads_gb": 4 * n / 1e9,
+           "bf16_weights_gb": 2 * n / 1e9, "expert_grad_gb": 4 * big / 1e9,
+           "moe_activations_gb": acts / 1e9,
+           "logits_gb": 3 * 4 * T * cfg.vocab_size / 1e9}
+    out["peak_gb"] = sum(v for k, v in out.items() if k.endswith("_gb"))
+    return out
+
+
+def train_moe_family(dev, name: str, used: list) -> dict:
+    """``Trainer`` in process on ``name`` at its published widths, cut to
+    its first ``MOE_TRAIN_LAYERS`` layers: ``MOE_TRAIN_STEPS`` steps of
+    ``MOE_TRAIN_BATCH`` x 512 tokens from llama's N(0, 0.02) init, no
+    checkpoint written; then, from a fresh init of the same seed, the
+    first ``MOE_REPEAT_STEPS`` steps again, whose loss, gradient norm and
+    lr must equal the first run's bit for bit.  The loss must fall by
+    ``MOE_LOSS_MARGIN``.  Logs the reckoned and the measured peak device
+    memory, seconds a step and tokens/s.  Counted: each of ``used`` must
+    launch."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch, override
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          RunConfig)
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import SyntheticTokens
+    from repro_torch.train.trainer import Trainer
+    label = "train_" + name.split("-")[0]
+    batch = MOE_TRAIN_BATCH[name]
+    cfg = override(get_arch(name), num_layers=MOE_TRAIN_LAYERS)
+    plan = moe_train_state_gb(cfg, batch)
+    gc.collect()                       # the earlier passes' cached blocks
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"{label} reckoned " + json.dumps(plan)
+        + f" against {free / 1e9:.1f} of {total / 1e9:.1f} GB free, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated")
+    ck = ROOT / "build" / f"chip_smoke_{label}"
+    shutil.rmtree(ck, ignore_errors=True)
+    rc = RunConfig(optimizer=OptimizerConfig(lr=MOE_TRAIN_LR,
+                                             total_steps=MOE_TRAIN_STEPS,
+                                             warmup_steps=MOE_TRAIN_WARMUP),
+                   parallel=ParallelConfig(), checkpoint_dir=str(ck),
+                   log_every=1)
+    model = build_model(cfg, device=dev)
+    data = SyntheticTokens(cfg.vocab_size, MOE_TRAIN_SEQ, batch, seed=0,
+                           device=dev)
+    res = {}
+
+    def drive():
+        for run, steps in (("whole", MOE_TRAIN_STEPS),
+                           ("repeat", MOE_REPEAT_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(model, rc, data)
+            state = trainer.init_or_restore(0, init_std=0.02)
+            t0 = time.perf_counter()
+            trainer.train(state, steps, checkpoint=False)
+            torch.cuda.synchronize()
+            res[run + "_s"] = time.perf_counter() - t0
+            res[run] = trainer.metrics_log
+            res[run + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del state, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    try:
+        counts = _counted(label, drive, used)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    whole, repeat = res["whole"], res["repeat"]
+    losses = [m["loss"] for m in whole]
+    secs = [b["sec_per_step"] * b["step"] - a["sec_per_step"] * a["step"]
+            for a, b in zip(whole, whole[1:])]
+    steady = sorted(secs)[len(secs) // 2]
+    keys = ("loss", "grad_norm", "lr")
+    out = {"layers": MOE_TRAIN_LAYERS, "batch": batch,
+           "seq": MOE_TRAIN_SEQ, "params": plan["params"],
+           "losses": losses, "grad_norms": [m["grad_norm"] for m in whole],
+           "step_seconds": [whole[0]["sec_per_step"]] + secs,
+           "repeat_losses": [m["loss"] for m in repeat],
+           "repeat_bitwise": [[m[k] for k in keys] for m in whole[:len(
+               repeat)]] == [[m[k] for k in keys] for m in repeat],
+           "whole_run_s": res["whole_s"], "median_step_s": steady,
+           "tokens_per_s": batch * MOE_TRAIN_SEQ / steady,
+           "peak_device_gb": res["whole_peak_gb"],
+           "reckoned_peak_gb": plan["peak_gb"]}
+    log(f"{label} " + json.dumps(out))
+    first, last3 = losses[0], sum(losses[-3:]) / 3
+    if not (len(losses) == MOE_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and last3 <= first - MOE_LOSS_MARGIN):
+        raise AssertionError(f"{label}: the loss went {first} -> {last3} "
+                             f"(last 3 mean), not {MOE_LOSS_MARGIN} lower")
+    if len(repeat) != MOE_REPEAT_STEPS or not out["repeat_bitwise"]:
+        raise AssertionError(f"{label}: the repeated first steps differ: "
+                             + json.dumps(out["repeat_losses"]))
+    return counts
+
+
 def training_phase(dev, records: list) -> dict:
-    """Phase 7: B1's backward records (appended to ``records``), then
-    tinyllama-1.1b's training with its resume, then the Super-Sub members
-    trained and cascaded; -> the two passes' launch counts, summed."""
+    """Phase 7: B1's and B8's backward records (appended to ``records``),
+    then tinyllama-1.1b's training with its resume, the Super-Sub members
+    trained and cascaded, and jamba-v0.1-52b and mixtral-8x7b trained
+    at published widths, two layers each; -> the passes' launch counts,
+    summed."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(7)
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    flash_backward_records(dev, gen, rn, l2.zero_, recorder(records))
+    record = recorder(records)
+    flash_backward_records(dev, gen, rn, l2.zero_, record)
+    scan_backward_records(dev, l2.zero_, record)
     del l2
     totals = train_tinyllama(dev)
     for n, c in train_cascade(dev).items():
         totals[n] += c
+    for name, used in (("jamba-v0.1-52b", ["ssm_scan", "ssm_scan_backward"]),
+                       ("mixtral-8x7b", ["flash_attention",
+                                         "flash_attention_backward"])):
+        for n, c in train_moe_family(dev, name, used).items():
+            totals[n] += c
     return totals
 
 

@@ -37,6 +37,7 @@ SOURCES = {
     "paged_partial": "paged_attention/csrc/paged_partial.cu",
     "verify_attention": "verify_attention/csrc/verify_attention.cu",
     "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
+    "ssm_scan_bwd": "ssm_scan/csrc/ssm_scan_bwd.cu",
     "mlstm_chunk": "mlstm_chunk/csrc/mlstm_chunk.cu",
     "gmm": "gmm/csrc/gmm.cu",
 }

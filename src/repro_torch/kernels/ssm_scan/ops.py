@@ -1,18 +1,26 @@
-"""Public wrapper of the selective-scan kernel.
+"""Public wrappers of the selective-scan kernel and its backward.
 
 A CPU tensor runs the plain version (``ref.selective_scan_reference``); a
-CUDA tensor launches ``csrc/ssm_scan.cu`` or raises.
+CUDA tensor launches ``csrc/ssm_scan.cu`` or raises.  Where a gradient is
+needed (grad enabled and an input that requires it), the CUDA path is a
+``torch.autograd.Function``: its forward launches the same kernel, its
+backward launches ``csrc/ssm_scan_bwd.cu`` (``ssm_scan_backward``; on the
+CPU autograd differentiates the plain version).
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels.ssm_scan.ref import selective_scan_reference
+from repro_torch.kernels.ssm_scan.ref import (
+    selective_scan_backward_reference, selective_scan_reference)
 
 _fn = None
+_bwd_fn = None
+_ws_fn = None
 
 STATE_SIZES = (8, 16, 32, 64)   # the kernel's template instantiations of N
 
@@ -31,7 +39,10 @@ def with_state_padding(body, u, dt, Bm, Cm, A, D, init_state=None):
     zero-padded to ``kernel_state_size``, the final state cropped back.
     A zero column of ``A``, ``Bm`` and ``init_state`` keeps its state at 0
     (exp(0) s + dt * 0 * u) and a zero column of ``Cm`` reads nothing, so
-    y and the kept state are exact."""
+    y and the kept state are exact.  So are the gradients through it (the
+    pad and the crop are ordinary differentiable ops): a padded column's
+    gradient g stays 0 (no cotangent reaches it), so it adds nothing to
+    du or ddt, and its own gradients are cropped unread."""
     N = A.shape[1]
     size = kernel_state_size(N)
     if size == N:
@@ -71,23 +82,137 @@ def _launch(u, dt, Bm, Cm, A, D, init_state):
     return y, s
 
 
+def _launch_bwd(u, dt, Bm, Cm, A, D, init_state, dy, dstate):
+    global _bwd_fn, _ws_fn
+    B, L, d_in = u.shape
+    N = A.shape[1]
+    for name, t, shape in (("u", u, (B, L, d_in)), ("dt", dt, (B, L, d_in)),
+                           ("Bm", Bm, (B, L, N)), ("Cm", Cm, (B, L, N)),
+                           ("A", A, (d_in, N)), ("D", D, (d_in,)),
+                           ("dy", dy, (B, L, d_in))):
+        K.check_cuda_input(name, t, torch.float32, shape)
+    for name, t in (("init_state", init_state), ("dstate", dstate)):
+        if t is not None:
+            K.check_cuda_input(name, t, torch.float32, (B, d_in, N))
+    if _bwd_fn is None:
+        _ws_fn = K.c_function("ssm_scan_bwd", "ssm_scan_bwd_workspace",
+                              [K.I] * 4)
+        _ws_fn.restype = ctypes.c_longlong
+        _bwd_fn = K.c_function("ssm_scan_bwd", "ssm_scan_bwd_f32",
+                               [K.P] * 17 + [K.I] * 4
+                               + [ctypes.c_longlong, K.P])
+    n_ws = _ws_fn(B, L, d_in, N)
+    if n_ws < 0:
+        raise ValueError(f"ssm_scan_backward: kernel takes N in "
+                         f"{STATE_SIZES}, got N={N}")
+    dev = u.device
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    du, ddt = torch.empty((2, B, L, d_in), dtype=torch.float32, device=dev)
+    dB, dC = torch.empty((2, B, L, N), dtype=torch.float32, device=dev)
+    dA = torch.empty((d_in, N), dtype=torch.float32, device=dev)
+    dD = torch.empty((d_in,), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, d_in, N), dtype=torch.float32, device=dev)
+    opt = [None if t is None else t.data_ptr() for t in (init_state, dy,
+                                                          dstate)]
+    rc = _bwd_fn(u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 A.data_ptr(), D.data_ptr(), *opt, ws.data_ptr(),
+                 du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dA.data_ptr(), dD.data_ptr(), ds0.data_ptr(), B, L, d_in, N,
+                 n_ws, K.stream_ptr(u))
+    K.check_launch("ssm_scan_backward", rc)
+    ssm_scan_backward.launches += 1
+    ssm_scan_backward.launches_by_shape[(B, L, d_in, N)] += 1
+    return du, ddt, dB, dC, dA, dD, ds0
+
+
+def ssm_scan_backward(u, dt, Bm, Cm, A, D, init_state=None, dy=None,
+                      dstate=None):
+    """The gradients (du, ddt, dBm, dCm, dA, dD, d init_state) of
+    ``ssm_scan(u, dt, Bm, Cm, A, D, init_state)`` for cotangents ``dy``
+    (B, L, d_in) of y and ``dstate`` (B, d_in, N) of the final state
+    (either may be None: zeros), each f32 in its input's shape (d
+    init_state also where ``init_state`` is None).  On the CPU the plain
+    version (``ref.selective_scan_backward_reference``); on the card the
+    backward kernel, which recomputes the states from the inputs, N
+    zero-padded as the forward pads it.  Deterministic on the card: no
+    atomics, every sum in one order."""
+    opt = tuple(t for t in (init_state, dy, dstate) if t is not None)
+    if K.on_cpu(u, dt, Bm, Cm, A, D, *opt):
+        return selective_scan_backward_reference(u, dt, Bm, Cm, A, D,
+                                                 init_state, dy, dstate)
+    N = A.shape[1]
+    size = kernel_state_size(N)
+    u, dt, Bm, Cm, A, D = (K.f32_operand(t) for t in (u, dt, Bm, Cm, A, D))
+    dy = torch.zeros_like(u) if dy is None else K.f32_operand(dy)
+    Bm, Cm, A = (K.f32_operand(K.pad_last(t, size)) for t in (Bm, Cm, A))
+    init_state, dstate = (None if t is None
+                          else K.f32_operand(K.pad_last(t, size))
+                          for t in (init_state, dstate))
+    grads = _launch_bwd(u, dt, Bm, Cm, A, D, init_state, dy, dstate)
+    if size == N:
+        return grads
+    du, ddt, dB, dC, dA, dD, ds0 = grads
+    return (du, ddt, dB[..., :N], dC[..., :N], dA[..., :N], dD,
+            ds0[..., :N])
+
+
+class _ScanFunction(torch.autograd.Function):
+    """B8 with a gradient on the card: the forward kernel, then the
+    backward kernel from the saved inputs.  Takes f32 inputs at a kernel
+    state size (``ssm_scan`` casts and ``with_state_padding`` pads and
+    crops outside it, as ordinary differentiable ops).  Either output's
+    gradient may be None."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bm, Cm, A, D, init_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, Bm, Cm, A, D, init_state)
+        return _launch(u, dt, Bm, Cm, A, D, init_state)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        u, dt, Bm, Cm, A, D, init_state = ctx.saved_tensors
+        grads = ssm_scan_backward(u, dt, Bm, Cm, A, D, init_state, dy,
+                                  dstate)
+        return grads[:6] + (None if init_state is None else grads[6],)
+
+
+def _launch_with_grad(u, dt, Bm, Cm, A, D, init_state):
+    return _ScanFunction.apply(u, dt, Bm, Cm, A, D, init_state)
+
+
 def ssm_scan(u, dt, Bm, Cm, A, D, init_state=None):
     """u/dt: (B, L, d_in); Bm/Cm: (B, L, N); A: (d_in, N); D: (d_in,);
     ``init_state``: (B, d_in, N) or None (zeros) -> (y (B, L, d_in) f32,
     final state (B, d_in, N) f32).  Any L >= 1 and N up to 64 (8, 16, 32
-    and 64 are instantiated; other sizes run zero-padded)."""
+    and 64 are instantiated; other sizes run zero-padded).  With a
+    gradient needed, differentiable on the card through the backward
+    kernel."""
     state = () if init_state is None else (init_state,)
     if K.on_cpu(u, dt, Bm, Cm, A, D, *state):
         return selective_scan_reference(u, dt, Bm, Cm, A, D, init_state)
-    K.require_no_grad("ssm_scan", u, dt, Bm, Cm, A, D, *state)
     if u.shape[1] < 1:
         raise ValueError(f"ssm_scan: kernel takes L >= 1, got {u.shape[1]}")
-    return with_state_padding(_launch, u, dt, Bm, Cm, A, D, init_state)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u, dt, Bm, Cm, A, D, *state))
+    if not grad:
+        return with_state_padding(_launch, u, dt, Bm, Cm, A, D, init_state)
+    u, dt, Bm, Cm, A, D = (t.float() for t in (u, dt, Bm, Cm, A, D))
+    if init_state is not None:
+        init_state = init_state.float()
+    return with_state_padding(_launch_with_grad, u, dt, Bm, Cm, A, D,
+                              init_state)
 
 
 ssm_scan.launches = 0
 # (B, L, d_in, N) -> launches at that shape (N as launched, padded)
 ssm_scan.launches_by_shape = collections.Counter()
+ssm_scan_backward.launches = 0
+# (B, L, d_in, N) -> backward launches (a scan and a reduction kernel
+# each) at that shape (N as launched, padded)
+ssm_scan_backward.launches_by_shape = collections.Counter()
 
-__all__ = ["kernel_state_size", "selective_scan_reference", "ssm_scan",
+__all__ = ["kernel_state_size", "selective_scan_backward_reference",
+           "selective_scan_reference", "ssm_scan", "ssm_scan_backward",
            "with_state_padding"]

@@ -9,6 +9,10 @@ Layout: u/dt (B, L, d_in); Bm/Cm (B, L, N); A (d_in, N); D (d_in,);
 
 Returns y (B, L, d_in) and the final state (B, d_in, N).
 
+``selective_scan_backward_reference`` is the plain version of the
+backward kernel (``csrc/ssm_scan_bwd.cu``): an explicit reverse loop in
+f32 that gives the gradients of all seven inputs.
+
 Also, for the tests only, ``selective_scan_lanes``: the kernel's own
 arithmetic, each channel's states split over lanes, in plain torch.
 """
@@ -31,6 +35,57 @@ def selective_scan_reference(u, dt, Bm, Cm, A, D, init_state=None):
         ys.append(torch.einsum("bdn,bn->bd", s, Cm[:, t]))
     y = torch.stack(ys, dim=1) + u * D
     return y, s
+
+
+def selective_scan_backward_reference(u, dt, Bm, Cm, A, D, init_state=None,
+                                      dy=None, dstate=None):
+    """The gradients of ``selective_scan_reference`` for cotangents ``dy``
+    of y (B, L, d_in) and ``dstate`` of the final state (B, d_in, N)
+    (either may be None: zeros) -> (du, ddt, dBm, dCm, dA, dD,
+    d init_state), each f32 in its input's shape (d init_state (B, d_in,
+    N) also where ``init_state`` is None, the gradient of its zeros).
+
+    The states are recomputed from the inputs as the forward computes
+    them, then a reverse loop carries g_t, the gradient of s_t:
+    g_L = C_L dy_L + dstate, g_t = C_t dy_t + a_{t+1} g_{t+1}, with
+    a_t = exp(dt_t A), and
+
+        du_t  = D dy_t + dt_t sum_n g_t B_t
+        ddt_t = sum_n g_t (A a_t s_{t-1} + B_t u_t)
+        dB_t  = sum_d g_t dt_t u_t          dC_t = sum_d dy_t s_t
+        dA    = sum_{b,t} g_t dt_t a_t s_{t-1}
+        dD    = sum_{b,t} dy_t u_t          d init_state = a_1 g_1
+    """
+    u, dt, Bm, Cm, A, D = (t.float() for t in (u, dt, Bm, Cm, A, D))
+    B, L, d_in = u.shape
+    N = A.shape[1]
+    zeros = torch.zeros((B, d_in, N), dtype=torch.float32, device=u.device)
+    s = zeros if init_state is None else init_state.float()
+    states = [s]
+    for t in range(L):
+        dt_t = dt[:, t, :, None]
+        s = torch.exp(dt_t * A) * s + \
+            dt_t * Bm[:, t, None, :] * u[:, t, :, None]
+        states.append(s)
+    dy = torch.zeros_like(u) if dy is None else dy.float()
+    carry = zeros if dstate is None else dstate.float()
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(L)):
+        dt_t = dt[:, t, :, None]
+        a = torch.exp(dt_t * A)                          # (B, d_in, N)
+        g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
+        a_prev = a * states[t]
+        du[:, t] = D * dy[:, t] + dt[:, t] * (g * Bm[:, t, None, :]).sum(-1)
+        ddt[:, t] = (g * (A * a_prev + Bm[:, t, None, :]
+                          * u[:, t, :, None])).sum(-1)
+        dB[:, t] = (g * (dt[:, t] * u[:, t])[..., None]).sum(1)
+        dC[:, t] = (dy[:, t, :, None] * states[t + 1]).sum(1)
+        dA += (g * dt_t * a_prev).sum(0)
+        carry = a * g
+    dD = (dy * u).sum((0, 1))
+    return du, ddt, dB, dC, dA, dD, carry
 
 
 def selective_scan_lanes(u, dt, Bm, Cm, A, D, init_state=None,

@@ -15,7 +15,9 @@ weights of whichever slot is active:
                  "norm2", "mlp" | "moe": {...} unless the ffn is none},
                 ...]}
 
-``blocks`` holds one dict per layer, layer l of kind ``pattern[l % P]``:
+``blocks`` holds one dict per layer, layer l of kind ``pattern[l % P]``
+(a model of fewer layers than one period, a depth cut that JAX's scan
+over whole periods cannot take, runs the period's first layers):
 the JAX package's ``lax.scan`` over stacked period parameters is a
 Python loop here (``repro_torch.bridge`` unstacks JAX weights into this
 layout).  Caches are lists with one entry per layer (``layers.KVCache``
@@ -116,10 +118,11 @@ class LM:
         self.cfg = cfg
         self.mlstm_mode = mlstm_mode
         self.pattern = block_pattern(cfg)
-        if cfg.num_layers % len(self.pattern):
+        if cfg.num_layers > len(self.pattern) and \
+                cfg.num_layers % len(self.pattern):
             raise ValueError(
-                f"num_layers {cfg.num_layers} is not a whole number of "
-                f"{len(self.pattern)}-layer periods")
+                f"num_layers {cfg.num_layers} is neither a whole number "
+                f"of {len(self.pattern)}-layer periods nor less than one")
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)          # activations

@@ -13,13 +13,19 @@ The JAX package's ``train/trainer.py`` for one device:
     in the checkpoint, a stateless data source
 
 On the card attention differentiates through the flash kernel's backward
-(``kernels/flash_attention``).  The MoE, hybrid and xLSTM families'
-kernels (gmm, the selective scan, the chunkwise mLSTM) have no backward
-kernel yet: on the card ``make_train_step`` refuses them before the
+(``kernels/flash_attention``) and the Mamba layers through the selective
+scan's (``kernels/ssm_scan``); the MoE layers of a model without a mesh
+run the dense reference, plain matmuls.  So the dense, MoE and hybrid
+families train on one card.  The xLSTM family's chunkwise mLSTM kernel
+has no backward yet, nor has the grouped matmul that a meshed model's
+MoE layers run: on the card ``make_train_step`` refuses them before the
 first step (``MissingBackwardKernel``); on the CPU every family trains,
-through the plain versions, as in JAX.  The int8 error-feedback
-compression across a ``pod`` axis and the sharded state need several
-cards: asking for them raises ``MultiCardTrainingNotPorted``.
+through the plain versions, as in JAX.  ``Trainer`` donates the state
+to each step, as JAX's jitted step does (``make_train_step(donate=
+True)``: parameters and moments updated in place).  The int8
+error-feedback compression across a ``pod`` axis and the sharded state
+need several cards: asking for them raises
+``MultiCardTrainingNotPorted``.
 """
 from __future__ import annotations
 
@@ -43,9 +49,8 @@ class MultiCardTrainingNotPorted(NotImplementedError):
     """A training feature that needs several cards (ROADMAP §A item 7)."""
 
 
-# the kernel without a backward on each family's training path
-_NO_BACKWARD = {"moe": "gmm (B7)", "hybrid": "ssm_scan (B8) and gmm (B7)",
-                "ssm": "mlstm_chunk (B9)"}
+# the kernel without a backward on each family's one-card training path
+_NO_BACKWARD = {"ssm": "mlstm_chunk (B9)"}
 
 
 # ---------------------------------------------------------------------------
@@ -187,21 +192,35 @@ def check_trainable(model: LM, run_cfg: RunConfig) -> None:
             f"data/tensor/pod parallel training (dp={pcfg.dp}, "
             f"tp={pcfg.tp}, pods={pcfg.pods}) needs several cards: not "
             "yet ported to repro_torch (ROADMAP §A item 7)")
-    family = model.cfg.family
-    if model.device.type == "cuda" and family in _NO_BACKWARD:
+    if model.device.type != "cuda":
+        return
+    cfg = model.cfg
+    if cfg.family in _NO_BACKWARD:
         raise MissingBackwardKernel(
-            f"{model.cfg.name}: the {family} family trains through "
-            f"{_NO_BACKWARD[family]}, whose backward kernel is not ported "
-            "yet; on the card only the dense family trains (train it on "
-            "the CPU, where the plain versions are differentiable)")
+            f"{cfg.name}: the {cfg.family} family trains through "
+            f"{_NO_BACKWARD[cfg.family]}, whose backward kernel is not "
+            "ported yet; on the card the dense, MoE and hybrid families "
+            "train (train it on the CPU, where the plain versions are "
+            "differentiable)")
+    if model.mesh is not None and any(
+            model.kind(i)[1] == "moe" for i in range(cfg.num_layers)):
+        raise MissingBackwardKernel(
+            f"{cfg.name}: under a mesh its MoE layers run expert-parallel "
+            "through gmm (B7), whose backward kernel is not ported yet; "
+            "train it on one card without a mesh, where they run the "
+            "dense reference (ROADMAP §A item 7)")
 
 
-def make_train_step(model: LM, run_cfg: RunConfig) -> Callable:
+def make_train_step(model: LM, run_cfg: RunConfig,
+                    donate: bool = False) -> Callable:
     """-> ``train_step(state, batch) -> (new state, metrics)``: the
     gradient of ``lm_loss_fn`` over ``microbatches`` slices of the batch,
     then one ``adamw_update``.  Functional, as JAX's: the input state is
-    left as it was.  Metrics: loss, ce, aux (the last microbatch's),
-    grad_norm, lr, as () tensors on the device."""
+    left as it was; with ``donate`` (JAX's ``donate_argnums``) the input
+    state's parameters and moments are updated in place and belong to
+    the new state, the same numbers in the memory of one state.  Metrics:
+    loss, ce, aux (the last microbatch's), grad_norm, lr, as () tensors
+    on the device."""
     check_trainable(model, run_cfg)
     pcfg = run_cfg.parallel
     ocfg = run_cfg.optimizer
@@ -237,7 +256,8 @@ def make_train_step(model: LM, run_cfg: RunConfig) -> Callable:
     def train_step(state, batch):
         loss, m, grads = accum_grads(state["params"], batch)
         new_p, new_opt, om = adamw_update(grads, state["opt"],
-                                          state["params"], ocfg, sched)
+                                          state["params"], ocfg, sched,
+                                          donate=donate)
         out = {"params": new_p, "opt": new_opt, "step": state["step"] + 1}
         if "ef" in state:
             out["ef"] = state["ef"]
@@ -261,8 +281,10 @@ class Trainer:
     steps (``metrics_log``: loss, ce, aux, grad_norm, lr, step,
     sec_per_step) and checkpoints every ``checkpoint_every`` steps and at
     the end (JAX's saves the last step twice when it falls on a
-    checkpoint step; the port once); ``init_or_restore`` resumes from the
-    newest valid checkpoint.
+    checkpoint step; the port once), unless ``train(checkpoint=False)``;
+    ``init_or_restore`` resumes from the newest valid checkpoint.  Each
+    step takes the state donated, as JAX's jitted step does: the state
+    passed to ``train`` is updated in place.
     Refuses before any step what ``check_trainable`` refuses."""
 
     def __init__(self, model: LM, run_cfg: RunConfig, data):
@@ -273,7 +295,7 @@ class Trainer:
                                       keep=run_cfg.keep_checkpoints)
         self.metrics_log: list[dict] = []
         self.start_step = 0
-        self._step = make_train_step(model, run_cfg)
+        self._step = make_train_step(model, run_cfg, donate=True)
 
     def init_or_restore(self, seed: int,
                         init_std: float | None = None) -> dict:
@@ -286,7 +308,8 @@ class Trainer:
             self.start_step = 0
         return state
 
-    def train(self, state: dict, steps: int, log_cb: Callable | None = None):
+    def train(self, state: dict, steps: int, log_cb: Callable | None = None,
+              checkpoint: bool = True):
         rc = self.run_cfg
         dev = self.model.device
         t0 = time.perf_counter()
@@ -302,11 +325,11 @@ class Trainer:
                 self.metrics_log.append(m)
                 if log_cb:
                     log_cb(m)
-            if (i + 1) % rc.checkpoint_every == 0:
+            if checkpoint and (i + 1) % rc.checkpoint_every == 0:
                 self.ckpt.save(i + 1, state, extra={"step": i + 1,
                                                     "cursor": i + 1})
         end = step + steps
-        if steps and end % rc.checkpoint_every:      # else saved above
+        if checkpoint and steps and end % rc.checkpoint_every:  # else above
             self.ckpt.save(end, state, extra={"step": end, "cursor": end})
         self.ckpt.wait()
         return state

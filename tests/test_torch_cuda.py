@@ -28,9 +28,13 @@ engines, one alone and two over a shared bank, are bit for bit their
 single-step twins with one capture each.  Training: flash attention's
 backward kernel through autograd against the float32 backward of
 ``mha_reference`` (each gradient within 2**-7 relative L2, bit for bit
-run to run), every wrapper without a backward kernel refusing a gradient
-by name, and one train step on the card against the same step on the
-CPU.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
+run to run); the selective scan's backward kernel against its plain
+reverse loop (each of the seven gradients within 1e-4 relative L2 and
+each element within 1e-4 of its largest value, bit for bit run to run),
+also through autograd; every wrapper without a backward kernel refusing
+a gradient by name; one train step of reduced tinyllama-1.1b,
+jamba-v0.1-52b and mixtral-8x7b on the card against the same step on
+the CPU; only xLSTM refused.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1669,8 +1673,6 @@ def _no_backward_calls(gen):
     bk, bv = _rn(gen, B, 4, Hkv, hd), _rn(gen, B, 4, Hkv, hd)
     x = _rn(gen, 2, 8, 64).requires_grad_()
     w = _rn(gen, 2, 64, 32)
-    d_in, N, L = 16, 4, 8
-    u = torch.randn(1, L, d_in, device="cuda", requires_grad=True)
     f32 = lambda *s: torch.randn(s, device="cuda")  # noqa: E731
     mq = torch.randn(1, 2, 32, 16, device="cuda", requires_grad=True)
     return {
@@ -1683,9 +1685,6 @@ def _no_backward_calls(gen):
         "paged_decode_partial": lambda: paged_decode_partial(
             q, kp, vp, table, pos, 0),
         "gmm": lambda: gmm(x, w),
-        "ssm_scan": lambda: ssm_scan(u, f32(1, L, d_in).abs(),
-                                     f32(1, L, N), f32(1, L, N),
-                                     -f32(d_in, N).abs(), f32(d_in)),
         "mlstm_chunk": lambda: mlstm_chunk(mq, f32(1, 2, 32, 16),
                                            f32(1, 2, 32, 16), f32(1, 2, 32),
                                            f32(1, 2, 32), 16),
@@ -1695,7 +1694,7 @@ def _no_backward_calls(gen):
 @pytest.mark.parametrize("name", ["decode_attention", "verify_attention",
                                   "paged_decode_attention",
                                   "paged_verify_attention",
-                                  "paged_decode_partial", "gmm", "ssm_scan",
+                                  "paged_decode_partial", "gmm",
                                   "mlstm_chunk"])
 def test_wrappers_without_a_backward_refuse_a_gradient(gen, name):
     """A gradient asked of a kernel with no backward kernel raises its
@@ -1710,20 +1709,95 @@ def test_wrappers_without_a_backward_refuse_a_gradient(gen, name):
     torch.cuda.synchronize()
 
 
-def test_train_step_on_the_card_matches_the_cpu(gen):
-    """One ``make_train_step`` step of reduced tinyllama-1.1b (2 layers,
+# B8's backward at chip_smoke.py's record shapes, (B, L, d_in, N,
+# init_state, final-state cotangent): jamba-v0.1-52b's training pass, and
+# N 12 (padded) off the kernel's tiles with both states
+SCAN_BWD_CASES = [(4, 512, 8192, 16, False, False),
+                  (2, 100, 1000, 12, True, True)]
+SCAN_BWD_RTOL = 1e-4          # chip_smoke.py's limit, each of 7 gradients
+
+
+def _scan_bwd_args(gen, B, L, d_in, N, init, ds):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u, Bm, Cm = rn(B, L, d_in), rn(B, L, N), rn(B, L, N)
+    dt = torch.nn.functional.softplus(rn(B, L, d_in) - 2.0)
+    A, D = -torch.exp(rn(d_in, N) * 0.5), rn(d_in)
+    return (u, dt, Bm, Cm, A, D, rn(B, d_in, N) if init else None,
+            rn(B, L, d_in), rn(B, d_in, N) if ds else None)
+
+
+def _scan_grads_close(got, want):
+    """Each gradient within ``SCAN_BWD_RTOL`` relative L2 of the plain one
+    and each element within ``SCAN_BWD_RTOL`` x its largest value."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert float((g - w).norm()) <= SCAN_BWD_RTOL * float(w.norm())
+        torch.testing.assert_close(g, w, rtol=0, atol=SCAN_BWD_RTOL
+                                   * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES)
+def test_ssm_scan_backward_kernel_matches_plain(gen, case):
+    """The scan's backward kernel against its plain reverse loop on the
+    same CUDA tensors, all seven gradients, and two launches bit for
+    bit."""
+    from repro_torch.kernels.ssm_scan.ops import (
+        selective_scan_backward_reference, ssm_scan_backward)
+    kernels.reset_launch_counts()
+    args = _scan_bwd_args(gen, *case)
+    got = ssm_scan_backward(*args)
+    again = ssm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_backward.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _scan_grads_close(got, selective_scan_backward_reference(*args))
+
+
+def test_ssm_scan_autograd_on_the_card_matches_the_plain_backward(gen):
+    """Autograd through ``ssm_scan`` on CUDA tensors (its Function: the
+    forward kernel, then the backward kernel) gives the plain backward's
+    gradients, at N 12 (padded: the pad and crop differentiated as
+    ordinary ops) from a carried state, with cotangents on y and on the
+    final state; under ``torch.no_grad()`` it launches as serving does."""
+    from repro_torch.kernels.ssm_scan.ops import (
+        selective_scan_backward_reference, ssm_scan_backward)
+    kernels.reset_launch_counts()
+    args = _scan_bwd_args(gen, 2, 100, 1000, 12, True, True)
+    leaves = [t.clone().requires_grad_() for t in args[:7]]
+    y, s = ssm_scan(*leaves)
+    torch.autograd.backward((y, s), (args[7], args[8]))
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan_backward.launches) == (1, 1)
+    _scan_grads_close([t.grad for t in leaves],
+                      selective_scan_backward_reference(*args))
+    with torch.no_grad():
+        ssm_scan(*leaves)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan_backward.launches) == (2, 1)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "jamba-v0.1-52b",
+                                  "mixtral-8x7b"])
+def test_train_step_on_the_card_matches_the_cpu(gen, name):
+    """One ``make_train_step`` step of a reduced model (tinyllama-1.1b: 2
+    layers; jamba-v0.1-52b: one 8-layer period of Mamba, attention, MLP
+    and MoE layers; mixtral-8x7b: 2 layers of attention and 4-expert MoE;
     llama's N(0, 0.02) init, eps=1.0) on the card (bf16 activations, the
-    flash kernel and its backward) against the same step on the CPU in
-    float32, from the same state and batch: loss and gradient norm within
-    2e-2 relative, every parameter after the step within 1e-5 (at eps=1.0
-    the update is lr times the clipped gradient, lr 1e-3)."""
+    flash kernel and its backward, the scan kernel and its backward)
+    against the same step on the CPU in float32, from the same state and
+    batch: loss and gradient norm within 2e-2 relative, every parameter
+    after the step within 1e-5 (at eps=1.0 the update is lr times the
+    clipped gradient, lr 1e-3)."""
     from repro_torch.configs import get_arch, override, reduced
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig)
     from repro_torch.models.model import build_model
     from repro_torch.train import trainer as ttr
     from repro_torch.core.context import tree_leaves, tree_map
-    cfg = reduced(get_arch("tinyllama-1.1b"))
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_backward
+    cfg = reduced(get_arch(name))
+    kernels.reset_launch_counts()
     rc = RunConfig(optimizer=OptimizerConfig(lr=1e-3, total_steps=10,
                                              warmup_steps=1, eps=1.0),
                    parallel=ParallelConfig())
@@ -1741,14 +1815,19 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
     assert flash_attention_backward.launches > 0
+    assert (ssm_scan_backward.launches > 0) == (name == "jamba-v0.1-52b")
 
 
 def test_card_refuses_to_train_a_family_without_backward_kernels(gen):
+    """Only the xLSTM family is refused on one card (B9 has no backward
+    kernel); the dense, MoE and hybrid families build their step."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.configs.base import RunConfig
     from repro_torch.models.model import build_model
     from repro_torch.train import trainer as ttr
-    for name in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"):
-        m = build_model(reduced(get_arch(name)), device="cuda")
-        with pytest.raises(kernels.MissingBackwardKernel):
-            ttr.make_train_step(m, RunConfig())
+    m = build_model(reduced(get_arch("xlstm-125m")), device="cuda")
+    with pytest.raises(kernels.MissingBackwardKernel, match="mlstm_chunk"):
+        ttr.make_train_step(m, RunConfig())
+    for name in ("mixtral-8x7b", "jamba-v0.1-52b"):
+        ttr.make_train_step(build_model(reduced(get_arch(name)),
+                                        device="cuda"), RunConfig())
