@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                 in the SASS of the flash, gmm, paged and verify libraries,
                 of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
                 paged, partial and mLSTM libraries, of cp.async in the
-                scan library and of the exponential unit (MUFU.EX2) in
-                the scan's backward (nonzero).
+                scan library and of the exponential unit (MUFU.EX2) and
+                cp.async in the scan's backward (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -217,14 +217,18 @@ Phases, in order; any failure exits non-zero before the result lines:
                 (``ssm_scan_bwd.cu``) at jamba-v0.1-52b's training batch
                 (B=4, L=512, d_in=8192, N=16, a cotangent of y alone)
                 and at N=12 (padded) with d_in=1000, L=100, a carried
-                state and a final-state cotangent, against its plain
-                reverse loop: each of the seven gradients within 1e-4
-                relative L2 and each element within 1e-4 of its largest
-                plain value, limits shown to catch the carry dropped at
-                a chunk boundary, one channel tile left out of dB, D
-                left out of du and a_t one step late; two launches bit
-                for bit; timed beside the plain backward, its bound the
-                bytes or the exponentials.  ``train_jamba`` and
+                state and a final-state cotangent, from the checkpoints
+                that the forward kernel writes (as training calls it),
+                against its plain reverse loop: each of the seven
+                gradients within 1e-4 relative L2 and each element
+                within 1e-4 of its largest plain value, limits shown to
+                catch the carry dropped at a chunk boundary, one channel
+                tile left out of dB, D left out of du, a_t one step late
+                and a chunk recomputed from the checkpoint before its
+                own; two launches bit for bit, and bit for bit the
+                backward that makes its own checkpoints; timed beside
+                the plain backward, its bound the bytes or the
+                exponentials.  ``train_jamba`` and
                 ``train_mixtral``: ``Trainer`` in process on
                 jamba-v0.1-52b (Mamba + MLP, Mamba + 16-expert MoE) and
                 mixtral-8x7b (two attention + 8-expert MoE layers) at
@@ -1521,8 +1525,8 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 # loads (UTMALDG) in the flash (forward and backward), gmm and verify
 # bodies; mma.sync (HMMA) and cp.async (LDGSTS) in the decode body (the row
 # and paged decode and the shard partial) and the mLSTM's 3xTF32 products;
-# cp.async in the scan; the exponential unit (ex2.approx) in the scan's
-# backward
+# cp.async in the scan; the exponential unit (ex2.approx) and cp.async
+# in the scan's backward
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "flash_attention_bwd": ("HGMMA", "UTMALDG"),
             "gmm": ("HGMMA", "UTMALDG"),
@@ -1532,7 +1536,7 @@ SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "paged_partial": ("HMMA", "LDGSTS"),
             "mlstm_chunk": ("HMMA", "LDGSTS"),
             "ssm_scan": ("LDGSTS",),
-            "ssm_scan_bwd": ("MUFU.EX2",)}
+            "ssm_scan_bwd": ("MUFU.EX2", "LDGSTS")}
 
 
 def sass_counts() -> None:
@@ -4033,7 +4037,9 @@ SCAN_BWD_RTOL = 1e-4
 SCAN_BWD_FAULTS = ("carry dropped at a chunk boundary",
                    "a channel tile left out of dB",
                    "the D term dropped from du",
-                   "a_t taken one step late")
+                   "a_t taken one step late",
+                   "a chunk's states from the checkpoint of the chunk "
+                   "before")
 
 
 def scan_bwd_inputs(dev, gen, shape) -> tuple:
@@ -4054,38 +4060,52 @@ def scan_bwd_inputs(dev, gen, shape) -> tuple:
 def scan_bwd_faulty(args, fault):
     """The plain backward (``selective_scan_backward_reference``'s
     formulas) with one of ``SCAN_BWD_FAULTS`` planted: the carry a_{t+1}
-    g_{t+1} into step t = L/2 - 1 dropped; dB without the first 32
-    channels' share (the kernel's tile at N = 16); du without D dy; the
-    carry into step t - 1 taken as a_{t-1} g_t (a_t one step late)."""
+    g_{t+1} into step t = L/2 - 1 dropped; dB without the first 64
+    channels' share (a block's tile at N = 16); du without D dy; the
+    carry into step t - 1 taken as a_{t-1} g_t (a_t one step late); the
+    states of chunk c = L / 32 (16-step chunks, the middle one) recomputed
+    from the checkpoint of chunk c - 1 (the reverse of chunk c reads them,
+    the next chunk its own)."""
     import torch
+    from repro_torch.kernels.ssm_scan.ops import CHECKPOINT_STEPS as T
     u, dt, Bm, Cm, A, D, s0, dy, ds = args
     B, L, d_in = u.shape
+
+    def step(s, t):
+        return torch.exp(dt[:, t, :, None] * A) * s + \
+            dt[:, t, :, None] * Bm[:, t, None, :] * u[:, t, :, None]
     s = torch.zeros_like(A).expand(B, -1, -1) if s0 is None else s0
     states = [s]
     for t in range(L):
-        s = torch.exp(dt[:, t, :, None] * A) * s + \
-            dt[:, t, :, None] * Bm[:, t, None, :] * u[:, t, :, None]
-        states.append(s)
+        states.append(step(states[-1], t))
+    # states[t] and states[t + 1] as the reverse step t reads them
+    before, after = list(states[:-1]), list(states[1:])
+    if fault == SCAN_BWD_FAULTS[4]:
+        c = max(1, L // (2 * T))
+        s = states[(c - 1) * T]
+        for t in range(c * T, min(L, (c + 1) * T)):
+            before[t] = s
+            s = after[t] = step(s, t)
     carry = torch.zeros_like(s) if ds is None else ds
     du, ddt = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dA = torch.zeros_like(A)
     keep = torch.ones(d_in, device=u.device)
     if fault == SCAN_BWD_FAULTS[1]:
-        keep[:32] = 0.0
+        keep[:64] = 0.0
     for t in reversed(range(L)):
         dt_t = dt[:, t, :, None]
         a = torch.exp(dt_t * A)
         if fault == SCAN_BWD_FAULTS[0] and t == L // 2 - 1:
             carry = torch.zeros_like(carry)
         g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
-        a_prev = a * states[t]
+        a_prev = a * before[t]
         Dterm = 0.0 if fault == SCAN_BWD_FAULTS[2] else D * dy[:, t]
         du[:, t] = Dterm + dt[:, t] * (g * Bm[:, t, None, :]).sum(-1)
         ddt[:, t] = (g * (A * a_prev + Bm[:, t, None, :]
                           * u[:, t, :, None])).sum(-1)
         dB[:, t] = (g * (keep * dt[:, t] * u[:, t])[..., None]).sum(1)
-        dC[:, t] = (dy[:, t, :, None] * states[t + 1]).sum(1)
+        dC[:, t] = (dy[:, t, :, None] * after[t]).sum(1)
         dA += (g * dt_t * a_prev).sum(0)
         if fault == SCAN_BWD_FAULTS[3]:
             a = torch.exp(dt[:, max(t - 1, 0), :, None] * A)
@@ -4110,22 +4130,31 @@ def scan_backward_records(dev, flush, record) -> None:
     the same inputs (``SCAN_BWD_RTOL``), each planted fault of
     ``SCAN_BWD_FAULTS`` (at the first shape) shown to leave the limits;
     deterministic (a second launch bit for bit the first); timed beside
-    the plain backward.  No single library call computes it.  The bound
-    is the larger of the bytes (each input read once, each gradient
-    written once) over the HBM rate and the function's exponentials (one
-    a_t per (row, step, channel, state)) at ``EXP_PER_S``."""
+    the plain backward.  The kernel runs from the checkpoints of one
+    forward launch, as the training step's backward does (and must give
+    the bits of the backward that makes its own).  No single library
+    call computes it.  The bound is the larger of the bytes (each input
+    read once, each gradient written once) over the HBM rate and the
+    function's exponentials (one a_t per (row, step, channel, state)) at
+    ``EXP_PER_S``."""
     import torch
     from repro_torch.kernels.ssm_scan.ops import (
-        selective_scan_backward_reference, ssm_scan_backward)
+        selective_scan_backward_reference, ssm_scan_backward,
+        ssm_scan_checkpointed)
     gen = torch.Generator(device=dev).manual_seed(11)
     for name, shape in SCAN_BWD_SHAPES.items():
         B, L, d_in, N = shape[:4]
         args = scan_bwd_inputs(dev, gen, shape)
-        got = ssm_scan_backward(*args)
-        again = ssm_scan_backward(*args)
+        ck = ssm_scan_checkpointed(*args[:7])[2]
+        fn = functools.partial(ssm_scan_backward, *args, checkpoints=ck)
+        got, again, own = fn(), fn(), ssm_scan_backward(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{name}: two launches differ")
+        if not all(torch.equal(a, b) for a, b in zip(got, own)):
+            raise AssertionError(f"{name}: the backward from the forward's "
+                                 "checkpoints differs from the one that "
+                                 "makes its own")
         ref = selective_scan_backward_reference(*args)
         labels = ("du", "ddt", "dB", "dC", "dA", "dD", "dinit")
         log(f"kernel {name}: relative L2 " + ", ".join(
@@ -4147,7 +4176,6 @@ def scan_backward_records(dev, flush, record) -> None:
         nbytes = 4 * (5 * B * L * d_in + 4 * B * L * N + 2 * d_in * N
                       + 2 * d_in + states * B * d_in * N)
         tols = tuple(SCAN_BWD_RTOL * float(r.abs().max()) for r in ref)
-        fn = functools.partial(ssm_scan_backward, *args)
         record(name, SCAN_BWD_SRC, "src/repro/kernels/ssm_scan/kernel.py:64",
                tuple(got), tuple(ref), time_ms(fn, flush=flush),
                time_ms(lambda: selective_scan_backward_reference(*args),
@@ -4155,7 +4183,7 @@ def scan_backward_records(dev, flush, record) -> None:
                None, nbytes, B * L * d_in * N, peak=EXP_PER_S, tol=tols,
                outputs=labels)
         log_kernel_time(name, fn, flush)
-        del args, got, again, ref
+        del args, ck, fn, got, again, own, ref
 
 
 def moe_train_state_gb(cfg, batch: int) -> dict:
@@ -4166,8 +4194,12 @@ def moe_train_state_gb(cfg, batch: int) -> dict:
     gradient beside the largest expert tensor's running sum (autograd's
     select backward); each MoE layer's kept expert activations (4 (T, F)
     bf16 a expert); the f32 logits, their log-sum-exp and gradient (3 (T,
-    V) f32)."""
+    V) f32); each Mamba layer's scan checkpoints, held from the forward
+    to the backward (f32 (batch, ceil(seq / 16), d_in, N), 67 MB at
+    jamba's)."""
     from repro_torch.core.context import tree_leaves
+    from repro_torch.kernels.ssm_scan.ops import (checkpoint_shape,
+                                                  kernel_state_size)
     from repro_torch.models.model import LM
     m = LM(cfg, device="cpu")
     sizes = [math.prod(spec.shape) for spec in tree_leaves(m.param_specs())]
@@ -4175,10 +4207,16 @@ def moe_train_state_gb(cfg, batch: int) -> dict:
     T = batch * MOE_TRAIN_SEQ
     moe_layers = sum(m.kind(i)[1] == "moe" for i in range(cfg.num_layers))
     acts = moe_layers * cfg.moe.num_experts * 4 * T * cfg.moe.d_ff_expert * 2
+    mamba_layers = sum(m.kind(i)[0] == "mamba"
+                       for i in range(cfg.num_layers))
+    ckpts = 0 if not mamba_layers else mamba_layers * 4 * math.prod(
+        checkpoint_shape(batch, MOE_TRAIN_SEQ, cfg.ssm.expand * cfg.d_model,
+                         kernel_state_size(cfg.ssm.d_state)))
     out = {"params": n, "state_gb": 12 * n / 1e9, "grads_gb": 4 * n / 1e9,
            "bf16_weights_gb": 2 * n / 1e9, "expert_grad_gb": 4 * big / 1e9,
            "moe_activations_gb": acts / 1e9,
-           "logits_gb": 3 * 4 * T * cfg.vocab_size / 1e9}
+           "logits_gb": 3 * 4 * T * cfg.vocab_size / 1e9,
+           "scan_checkpoints_gb": ckpts / 1e9}
     out["peak_gb"] = sum(v for k, v in out.items() if k.endswith("_gb"))
     return out
 

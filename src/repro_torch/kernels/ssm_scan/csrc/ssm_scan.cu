@@ -6,7 +6,11 @@
 // What it computes, per row b and channel d, in f32:
 //   s_t = exp(dt_t * A[d]) * s_{t-1} + dt_t * u_t * B_t      (s: N values)
 //   y_t = s_t . C_t + u_t * D[d]
-// from s_0 = init_state (or zeros); it returns every y_t and the last s.
+// from s_0 = init_state (or zeros); it returns every y_t and the last s,
+// and, where it is given the pointer (a forward that a backward follows),
+// checkpoints: the state before every CKPT_T = 16 steps, (B, ceil(L / 16),
+// d_in, N), which ssm_scan_bwd.cu reads instead of running the
+// recurrence again.  Serving passes no pointer.
 //
 // What bounds it on an H100: bytes, and beside them the exponentials.
 // u, dt and y move 12 bytes per (row, step, channel) against about 7 N
@@ -34,6 +38,9 @@
 //     state as it is (exp(0) s + 0) and the ragged last tile needs no
 //     branch.  The tile's y is gathered in shared memory and stored
 //     coalesced.
+//   * Checkpoints: at steps 0 and 16 of a tile each lane stores its 4
+//     states (a float4) before it updates them; the arithmetic is the
+//     same with or without the pointer, so y and the last state are too.
 // Not done: splitting the time axis over blocks (a chunked scan that
 // passes each chunk's state on); at jamba's d_in = 8192 the grid fills
 // the card's SMs at B = 1.
@@ -50,6 +57,9 @@ using hopper::cp_async4;
 constexpr int CH = 32;          // channels per block
 constexpr int SPL = 4;          // states per lane
 constexpr int T = 32;           // time steps per staged tile
+constexpr int CKPT_T = 16;      // steps between checkpoints: the
+                                // backward's chunk (ssm_scan_bwd.cu T)
+static_assert(T % CKPT_T == 0, "a checkpoint falls on a tile's step");
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int N>
@@ -67,7 +77,8 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
                 const float* __restrict__ A, const float* __restrict__ D,
                 const float* __restrict__ s0, float* __restrict__ y,
-                float* __restrict__ s_out, int L, int d_in) {
+                float* __restrict__ s_out, float* __restrict__ ckpt, int L,
+                int d_in) {
   using C = Cfg<N>;
   constexpr int G = C::G, THREADS = C::THREADS;
   extern __shared__ __align__(16) float smem[];
@@ -115,6 +126,11 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
   };
 
   const int tiles = (L + T - 1) / T;
+  const int chunks = (L + CKPT_T - 1) / CKPT_T;
+  // this lane's checkpoint before step t (a multiple of CKPT_T)
+  float* ck = ckpt == nullptr || !live
+                  ? nullptr
+                  : ckpt + ((size_t)b * chunks * d_in + d) * N + g * SPL;
   load(0, 0);
   hopper::cp_async_commit();
   float a2[SPL], s[SPL];
@@ -148,6 +164,10 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
       const float4 cv = *reinterpret_cast<const float4*>(cs + j * N + g * SPL);
       const float bb[SPL] = {bv.x, bv.y, bv.z, bv.w};
       const float cc[SPL] = {cv.x, cv.y, cv.z, cv.w};
+      if (j % CKPT_T == 0 && ck != nullptr && k * T + j < L)
+        *reinterpret_cast<float4*>(
+            ck + (size_t)((k * T + j) / CKPT_T) * d_in * N) =
+            make_float4(s[0], s[1], s[2], s[3]);
       float p = 0.f;
 #pragma unroll
       for (int i = 0; i < SPL; ++i) {
@@ -184,33 +204,35 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
 template <int N>
 int launch(const float* u, const float* dt, const float* Bm, const float* Cm,
            const float* A, const float* D, const float* s0, float* y,
-           float* s_out, int B, int L, int d_in, cudaStream_t stream) {
+           float* s_out, float* ckpt, int B, int L, int d_in,
+           cudaStream_t stream) {
   using C = Cfg<N>;
   cudaError_t rc = hopper::allow_smem<ssm_scan_kernel<N>>(C::SMEM);
   if (rc != cudaSuccess) return (int)rc;
   const dim3 grid((d_in + CH - 1) / CH, B);
   ssm_scan_kernel<N><<<grid, C::THREADS, C::SMEM, stream>>>(
-      u, dt, Bm, Cm, A, D, s0, y, s_out, L, d_in);
+      u, dt, Bm, Cm, A, D, s0, y, s_out, ckpt, L, d_in);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // u/dt (B, L, d_in), Bm/Cm (B, L, N), A (d_in, N), D (d_in,), init_state
-// (B, d_in, N) or NULL (zeros), y (B, L, d_in), s_out (B, d_in, N); all
+// (B, d_in, N) or NULL (zeros), y (B, L, d_in), s_out (B, d_in, N), the
+// checkpoints ckpt (B, ceil(L / 16), d_in, N) or NULL (none written); all
 // f32, contiguous and 16-byte aligned.  N is 8, 16, 32 or 64 (the wrapper
 // pads any other N with zero state columns).  Returns a cudaError_t.
 extern "C" int ssm_scan_f32(const void* u, const void* dt, const void* Bm,
                             const void* Cm, const void* A, const void* D,
-                            const void* s0, void* y, void* s_out, int B,
-                            int L, int d_in, int N, void* stream) {
+                            const void* s0, void* y, void* s_out, void* ckpt,
+                            int B, int L, int d_in, int N, void* stream) {
   if (B < 1 || B > 65535 || L < 1 || d_in < 1)
     return (int)cudaErrorInvalidValue;
 #define LAUNCH(N_)                                                         \
   return launch<N_>((const float*)u, (const float*)dt, (const float*)Bm,  \
                     (const float*)Cm, (const float*)A, (const float*)D,   \
-                    (const float*)s0, (float*)y, (float*)s_out, B, L, d_in, \
-                    (cudaStream_t)stream)
+                    (const float*)s0, (float*)y, (float*)s_out,           \
+                    (float*)ckpt, B, L, d_in, (cudaStream_t)stream)
   switch (N) {
     case 8: LAUNCH(8);
     case 16: LAUNCH(16);

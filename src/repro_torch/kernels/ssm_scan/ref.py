@@ -12,9 +12,13 @@ Returns y (B, L, d_in) and the final state (B, d_in, N).
 ``selective_scan_backward_reference`` is the plain version of the
 backward kernel (``csrc/ssm_scan_bwd.cu``): an explicit reverse loop in
 f32 that gives the gradients of all seven inputs.
+``selective_scan_checkpoints`` adds to the scan the states that the
+kernel's forward saves for the backward: the state before every
+``steps`` steps.
 
-Also, for the tests only, ``selective_scan_lanes``: the kernel's own
-arithmetic, each channel's states split over lanes, in plain torch.
+Also, for the tests only, ``selective_scan_lanes`` and
+``selective_scan_backward_chunked``: the forward and the backward
+kernel's own arithmetic in plain torch.
 """
 from __future__ import annotations
 
@@ -35,6 +39,27 @@ def selective_scan_reference(u, dt, Bm, Cm, A, D, init_state=None):
         ys.append(torch.einsum("bdn,bn->bd", s, Cm[:, t]))
     y = torch.stack(ys, dim=1) + u * D
     return y, s
+
+
+def selective_scan_checkpoints(u, dt, Bm, Cm, A, D, init_state=None,
+                               steps: int = 16):
+    """``selective_scan_reference``'s (y, final state) and its checkpoints:
+    the state before steps 0, ``steps``, 2 ``steps``, ... (B,
+    ceil(L / steps), d_in, N), init_state (or zeros) first."""
+    u, dt, Bm, Cm, A, D = (t.float() for t in (u, dt, Bm, Cm, A, D))
+    B, L, d_in = u.shape
+    s = (torch.zeros((B, d_in, A.shape[1]), dtype=torch.float32,
+                     device=u.device)
+         if init_state is None else init_state.float())
+    ys, cks = [], []
+    for t in range(L):
+        if t % steps == 0:
+            cks.append(s)
+        dt_t = dt[:, t, :, None]
+        s = torch.exp(dt_t * A) * s + \
+            dt_t * Bm[:, t, None, :] * u[:, t, :, None]
+        ys.append(torch.einsum("bdn,bn->bd", s, Cm[:, t]))
+    return torch.stack(ys, dim=1) + u * D, s, torch.stack(cks, dim=1)
 
 
 def selective_scan_backward_reference(u, dt, Bm, Cm, A, D, init_state=None,
@@ -117,3 +142,71 @@ def selective_scan_lanes(u, dt, Bm, Cm, A, D, init_state=None,
             off *= 2
         ys.append(p[..., 0] + u[:, t] * D)
     return torch.stack(ys, dim=1), s
+
+
+def selective_scan_backward_chunked(u, dt, Bm, Cm, A, D, checkpoints,
+                                    dy=None, dstate=None, steps: int = 16,
+                                    tile: int = 64, warp: int = 8,
+                                    cluster: int = 2):
+    """The backward kernel's arithmetic: the seven gradients of
+    ``selective_scan_backward_reference`` from the forward's
+    ``checkpoints`` (``selective_scan_checkpoints``) instead of a
+    recurrence over all L steps.  The chunks of ``steps`` steps run back
+    to front: each recomputes its states from its checkpoint (exp(dt A)
+    as 2^(dt (A log2 e))), then steps back with the carry a_{t+1} g_{t+1}
+    kept across chunks.  dB and dC are summed as the kernel sums them:
+    over each warp's ``warp`` channels in channel order, then over a
+    block's ``tile / warp`` warps, then over a cluster's ``cluster``
+    blocks in rank order, then over the clusters, in order.  d init_state
+    is the carry after the first step."""
+    u, dt, Bm, Cm, A, D = (t.float() for t in (u, dt, Bm, Cm, A, D))
+    B, L, d_in = u.shape
+    N = A.shape[1]
+    a2 = A * 1.4426950408889634
+    dy = torch.zeros_like(u) if dy is None else dy.float()
+    carry = (torch.zeros((B, d_in, N), dtype=torch.float32, device=u.device)
+             if dstate is None else dstate.float())
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA = torch.zeros((B, d_in, N), dtype=torch.float32, device=u.device)
+    tiles = -(-d_in // tile)
+    blocks = -(-tiles // cluster) * cluster
+
+    def channel_sum(p):                   # (B, d_in, N) -> (B, N)
+        p = torch.nn.functional.pad(p, (0, 0, 0, blocks * tile - d_in))
+        p = p.reshape(B, blocks // cluster, cluster, tile // warp, warp, N)
+        out = 0.0
+        for c in range(blocks // cluster):
+            part = 0.0
+            for r in range(cluster):
+                block = 0.0
+                for w in range(tile // warp):
+                    wsum = 0.0
+                    for ch in range(warp):
+                        wsum = wsum + p[:, c, r, w, ch]
+                    block = block + wsum
+                part = part + block
+            out = out + part
+        return out
+
+    for k in reversed(range(-(-L // steps))):
+        t0, t1 = k * steps, min(L, (k + 1) * steps)
+        states = [checkpoints[:, k].float()]
+        for t in range(t0, t1):
+            du_t = (dt[:, t] * u[:, t])[..., None]
+            states.append(torch.exp2(dt[:, t, :, None] * a2) * states[-1]
+                          + du_t * Bm[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            dt_t = dt[:, t, :, None]
+            a = torch.exp2(dt_t * a2)
+            g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
+            a_prev = a * states[t - t0]
+            du[:, t] = D * dy[:, t] + \
+                dt[:, t] * (g * Bm[:, t, None, :]).sum(-1)
+            ddt[:, t] = (g * (A * a_prev + Bm[:, t, None, :]
+                              * u[:, t, :, None])).sum(-1)
+            dB[:, t] = channel_sum(g * (dt[:, t] * u[:, t])[..., None])
+            dC[:, t] = channel_sum(dy[:, t, :, None] * states[t - t0 + 1])
+            dA += g * dt_t * a_prev
+            carry = a * g
+    return du, ddt, dB, dC, dA.sum(0), (dy * u).sum((0, 1)), carry

@@ -31,7 +31,9 @@ backward kernel through autograd against the float32 backward of
 run to run); the selective scan's backward kernel against its plain
 reverse loop (each of the seven gradients within 1e-4 relative L2 and
 each element within 1e-4 of its largest value, bit for bit run to run),
-also through autograd; every wrapper without a backward kernel refusing
+also through autograd, and the forward's checkpoints (the forward's
+bits unchanged, each checkpoint the prefix's final state bit for bit,
+none written under ``torch.no_grad()``); every wrapper without a backward kernel refusing
 a gradient by name; one train step of reduced tinyllama-1.1b,
 jamba-v0.1-52b and mixtral-8x7b on the card against the same step on
 the CPU; only xLSTM refused.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
@@ -1775,6 +1777,75 @@ def test_ssm_scan_autograd_on_the_card_matches_the_plain_backward(gen):
         ssm_scan(*leaves)
     torch.cuda.synchronize()
     assert (ssm_scan.launches, ssm_scan_backward.launches) == (2, 1)
+
+
+# the forward with its checkpoint output: jamba's training shape, the
+# padded record's (N 12, a carried state) and one chunk and a step
+SCAN_CKPT_CASES = [(4, 512, 8192, 16, False), (2, 100, 1000, 12, True),
+                   (1, 17, 64, 16, True)]
+
+
+@pytest.mark.parametrize("B,L,d_in,N,init", SCAN_CKPT_CASES)
+def test_ssm_scan_checkpoints_leave_the_forward_unchanged(gen, B, L, d_in, N,
+                                                          init):
+    """The forward launched with its checkpoint pointer set gives y and
+    the final state bit for bit as the forward without it."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_checkpointed
+    args = _scan_bwd_args(gen, B, L, d_in, N, init, False)[:7]
+    kernels.reset_launch_counts()
+    y, s, ck = ssm_scan_checkpointed(*args)
+    want_y, want_s = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan.launches_checkpointed) == (2, 1)
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+    assert ck.shape == (B, -(-L // 16), d_in, -(-N // 16) * 16)
+
+
+@pytest.mark.parametrize("B,L,d_in,N,init", SCAN_CKPT_CASES)
+def test_ssm_scan_checkpoints_are_the_states_before_each_chunk(gen, B, L,
+                                                               d_in, N, init):
+    """Checkpoint k is the plain recurrence's state before step 16 k
+    (within the scan's limit, 1e-4 of its largest value; zero past N),
+    and bit for bit the state the forward kernel ends with after the
+    first 16 k steps; the backward from them gives the bits of the
+    backward that makes its own."""
+    from repro_torch.kernels.ssm_scan.ops import (
+        selective_scan_checkpoints, ssm_scan_backward, ssm_scan_checkpointed)
+    args = _scan_bwd_args(gen, B, L, d_in, N, init, True)
+    ck = ssm_scan_checkpointed(*args[:7])[2]
+    want = selective_scan_checkpoints(*args[:7])[2]
+    torch.testing.assert_close(ck[..., :N], want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(ck[..., N:], torch.zeros_like(ck[..., N:]))
+    u, dt, Bm, Cm, A, D, s0 = args[:7]
+    for k in range(1, ck.shape[1]):
+        t = 16 * k
+        prefix = ssm_scan(u[:, :t], dt[:, :t], Bm[:, :t], Cm[:, :t], A, D,
+                          s0)[1]
+        assert torch.equal(ck[:, k, :, :N], prefix)
+    kernels.reset_launch_counts()
+    given = ssm_scan_backward(*args, checkpoints=ck)
+    own = ssm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches_checkpointed, ssm_scan_backward.launches) == \
+        (1, 2)
+    assert all(torch.equal(a, b) for a, b in zip(given, own))
+
+
+def test_ssm_scan_under_no_grad_writes_no_checkpoints(gen):
+    """A forward with a gradient writes checkpoints (one launch); the same
+    call under ``torch.no_grad()`` launches as serving does, and so does
+    a call whose inputs need no gradient."""
+    args = _scan_bwd_args(gen, 2, 100, 1000, 16, True, False)[:7]
+    leaves = [t.clone().requires_grad_() for t in args]
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        ssm_scan(*leaves)
+    ssm_scan(*args)
+    assert (ssm_scan.launches, ssm_scan.launches_checkpointed) == (2, 0)
+    ssm_scan(*leaves)
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan.launches_checkpointed) == (3, 1)
 
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "jamba-v0.1-52b",

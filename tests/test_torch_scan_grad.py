@@ -11,8 +11,14 @@ final state, with and without a carried initial state, at N 16 and at
 N 12 (which the card runs zero-padded to 16), in float32 within
 ``atol=2e-5, rtol=1e-3`` (``test_torch_flash_grad.py``'s limit).  Also:
 the gradients through ``with_state_padding`` equal the unpadded ones in
-the kept columns.  The backward kernel itself is held on the card by
-``test_torch_cuda.py`` and ``chip_smoke.py``.
+the kept columns.  The backward kernel's own arithmetic in plain torch
+(``ref.selective_scan_backward_chunked``: chunks of 16 steps back to
+front from the forward's checkpoints, dB and dC summed by warp, channel
+tile, cluster and cluster tile) is held to the same ``jax.grad`` within the
+same limits, from checkpoints that ``ssm_scan_checkpointed`` gives on
+the CPU and that are held to JAX's scan over each prefix.  The backward
+kernel itself is held on the card by ``test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -26,8 +32,11 @@ from repro.kernels.ssm_scan.ref import (  # noqa: E402
     selective_scan_reference as jax_scan)
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import (  # noqa: E402
-    selective_scan_backward_reference, selective_scan_reference, ssm_scan,
-    ssm_scan_backward, with_state_padding)
+    CHECKPOINT_STEPS, kernel_state_size, selective_scan_backward_reference,
+    selective_scan_reference, ssm_scan, ssm_scan_backward,
+    ssm_scan_checkpointed, with_state_padding)
+from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
+    selective_scan_backward_chunked)
 
 ATOL, RTOL = 2e-5, 1e-3
 NAMES = ("du", "ddt", "dBm", "dCm", "dA", "dD", "dinit")
@@ -148,3 +157,61 @@ def test_state_padding_keeps_the_gradients(N, init):
     plain = grads(selective_scan_reference)
     for name, g, w in zip(NAMES, padded, plain):
         torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6, msg=name)
+
+
+# the chunked backward at lengths over one, two and three chunks (ragged
+# and whole), with channel tiles and clusters small enough that d_in
+# spans several clusters and leaves a ragged last tile
+CHUNKED_CASES = [
+    # B, L, d_in, N, init, dy, dstate, tile, warp, cluster
+    (2, 13, 24, 16, False, True, False, 32, 8, 8),  # one chunk, one tile
+    (1, 40, 20, 16, True, True, True, 4, 2, 2),     # 3 chunks, 3 clusters
+    (2, 32, 12, 12, True, False, True, 4, 4, 4),    # 2 whole chunks, N 12
+    (2, 17, 10, 12, False, True, True, 2, 1, 8),    # a one-step last chunk
+]
+
+
+@pytest.mark.parametrize("B,L,d_in,N,init,dy,dstate,tile,warp,cluster",
+                         CHUNKED_CASES)
+def test_chunked_backward_from_checkpoints_matches_jax_grad(
+        B, L, d_in, N, init, dy, dstate, tile, warp, cluster):
+    """The backward kernel's arithmetic from the forward's checkpoints
+    (the CPU's, at the padded state size as the card keeps them, cropped
+    back) gives JAX's gradient of all seven inputs."""
+    x = _inputs(B, L, d_in, N, seed=3)
+    want = _jax_grads(x, init, dy, dstate)
+    args = _t(x, *ARGS)
+    s0 = torch.from_numpy(x["init"]) if init else None
+    ck = ssm_scan_checkpointed(*args, s0)[2][..., :N]
+    got = selective_scan_backward_chunked(
+        *args, ck, torch.from_numpy(x["dy"]) if dy else None,
+        torch.from_numpy(x["dstate"]) if dstate else None,
+        steps=CHECKPOINT_STEPS, tile=tile, warp=warp, cluster=cluster)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("L,N,init", [(40, 16, True), (16, 12, False),
+                                      (5, 8, True)])
+def test_checkpoints_are_the_states_before_each_chunk(L, N, init):
+    """``ssm_scan_checkpointed`` on the CPU: y and the final state are the
+    plain scan's, and checkpoint k is JAX's final state after the first
+    16 k steps (init_state, or zeros, for k = 0), zero-padded to the
+    kernel's state size."""
+    B, d_in = 2, 8
+    x = _inputs(B, L, d_in, N, seed=4)
+    args = _t(x, *ARGS)
+    s0 = torch.from_numpy(x["init"]) if init else None
+    y, s, ck = ssm_scan_checkpointed(*args, s0)
+    want_y, want_s = selective_scan_reference(*args, s0)
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+    chunks = -(-L // CHECKPOINT_STEPS)
+    assert ck.shape == (B, chunks, d_in, kernel_state_size(N))
+    assert torch.equal(ck[..., N:], torch.zeros_like(ck[..., N:]))
+    start = x["init"] if init else np.zeros_like(x["init"])
+    np.testing.assert_array_equal(ck[:, 0, :, :N].numpy(), start)
+    for k in range(1, chunks):
+        t = k * CHECKPOINT_STEPS
+        _, js = jax_scan(*(x[a][:, :t] if x[a].ndim == 3 and a in (
+            "u", "dt", "Bm", "Cm") else x[a] for a in ARGS), start)
+        np.testing.assert_allclose(ck[:, k, :, :N].numpy(), np.asarray(js),
+                                   atol=ATOL, rtol=RTOL)

@@ -3,7 +3,7 @@
 ``chip_smoke.py``'s records (the same inputs and calls), for the port tree
 given, so that two trees can be held side by side in one run on one card:
 
-    python3 tools/kernel_times.py --records decode|scan|backward
+    python3 tools/kernel_times.py --records decode|scan|backward|scan_backward
                                   [--src DIR] [--label NAME]
     python3 tools/kernel_times.py --ptxas KERNEL [--src DIR]
 
@@ -11,7 +11,13 @@ given, so that two trees can be held side by side in one run on one card:
 (``decode_cases``), ``--records scan`` the selective-scan and
 chunkwise-mLSTM records (``scan_cases`` and ``mlstm_cases``),
 ``--records backward`` B1's backward records (``BWD_SHAPES``, through
-``backward_case``).  ``--src``
+``backward_case``), ``--records scan_backward`` B8's backward records
+(``SCAN_BWD_SHAPES``, through ``scan_bwd_inputs``) as the training step
+calls them: the backward (from the forward's checkpoints where the tree's
+forward saves them) and, as ``<record>_forward``, the forward that
+precedes it (with its checkpoint output where the tree has one), plus a
+digest of the serving forward's y and final state (``serving_digest``,
+the same in two trees whose serving bits agree).  ``--src``
 is the ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's).  Prints one JSON line: the card's name and power limit, the
 label, and for each record its profiler kernel time (``kernel_ms``, every
@@ -147,6 +153,40 @@ def launch_warps(fn) -> dict:
     return warps
 
 
+def scan_backward_cases(cs, dev, gen) -> tuple:
+    """B8's backward records as the tree's training step calls them: record
+    name -> (call, None), and -> the serving forward's call."""
+    import functools
+
+    from repro_torch.kernels.ssm_scan import ops
+    calls, serving = {}, {}
+    for name, shape in cs.SCAN_BWD_SHAPES.items():
+        args = cs.scan_bwd_inputs(dev, gen, shape)
+        fwd = args[:7]
+        if hasattr(ops, "ssm_scan_checkpointed"):   # the forward saves them
+            ck = ops.ssm_scan_checkpointed(*fwd)[2]
+            calls[name] = (functools.partial(ops.ssm_scan_backward, *args,
+                                             checkpoints=ck), None)
+            calls[name + "_forward"] = (
+                functools.partial(ops.ssm_scan_checkpointed, *fwd), None)
+        else:                                       # the backward makes them
+            calls[name] = (functools.partial(ops.ssm_scan_backward, *args),
+                           None)
+            calls[name + "_forward"] = (functools.partial(ops.ssm_scan, *fwd),
+                                        None)
+        serving[name] = functools.partial(ops.ssm_scan, *fwd)
+    return calls, serving
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def cases(records: str, cs, dev, gen) -> dict:
     """Record name -> (the port's call, SDPA's call or None)."""
     import torch
@@ -174,7 +214,8 @@ def cases(records: str, cs, dev, gen) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--records", choices=("decode", "scan", "backward"))
+    ap.add_argument("--records",
+                    choices=("decode", "scan", "backward", "scan_backward"))
     ap.add_argument("--ptxas", metavar="KERNEL")
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
@@ -205,8 +246,12 @@ def main() -> int:
         l2.zero_()
 
     kernels.build_all()
-    out = {}
-    for name, (fn, sdpa) in cases(args.records, cs, dev, gen).items():
+    out, serving = {}, {}
+    if args.records == "scan_backward":
+        calls, serving = scan_backward_cases(cs, dev, gen)
+    else:
+        calls = cases(args.records, cs, dev, gen)
+    for name, (fn, sdpa) in calls.items():
         fn()
         torch.cuda.synchronize()
         by_name = kernel_ms_by_name(cs, fn, flush)
@@ -219,6 +264,9 @@ def main() -> int:
             out[name]["sdpa_kernel_ms"] = cs.device_ms(sdpa, iters=20,
                                                        flush=flush)
             out[name]["sdpa_events_ms"] = cs.time_ms(sdpa, flush=flush)
+    for name, fn in serving.items():
+        with torch.no_grad():
+            out[name]["serving_digest"] = digest(fn())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
