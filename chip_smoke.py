@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
                 in the SASS of the flash, gmm, paged and verify libraries,
                 of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
-                paged, partial and mLSTM libraries, of cp.async in the
-                scan library and of the exponential unit (MUFU.EX2) and
-                cp.async in the scan's backward (nonzero).
+                paged, partial and mLSTM libraries (the mLSTM's
+                backward too), of cp.async in the scan library and of
+                the exponential unit (MUFU.EX2) and cp.async in the
+                scan's backward (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
                 plain PyTorch version on the card, timed with CUDA events
                 beside its plain version, one PyTorch call for the same
@@ -239,7 +240,28 @@ Phases, in order; any failure exits non-zero before the result lines:
                 3 steps bit for bit, the scan's backward (jamba) and
                 flash's (mixtral) must launch; the reckoned and the
                 measured peak memory, seconds a step and tokens/s
-                logged.
+                logged.  B9's backward kernel (``mlstm_chunk_bwd.cu``)
+                at xlstm-125m's training batch (B=8, H=4, L=512,
+                dh=384, chunk 256) and at dh 96 (padded to 128) over 16
+                chunks of 64 (B=2, L=1024, forget gates near 1),
+                through autograd on ``mlstm_chunk`` (as training
+                reaches it: the backward from the forward kernel's
+                saves), against its plain version (autograd through the chunkwise form):
+                each of the five gradients within 1e-4 relative L2 and
+                each element within 1e-4 of its largest plain value,
+                limits shown to catch dC's carry dropped at a chunk
+                boundary, the decay term left out of dlf (the padded
+                record, its forget gates near 1: at two chunks the
+                term is 0), w left out of the inter
+                term, den's sign branch dropped and one 64-key tile left
+                out of dk; two backward launches from one forward's
+                saves bit for bit; timed beside the plain backward,
+                its bound at the 3xTF32 rate.  ``train_xlstm``:
+                ``Trainer`` in process on xlstm-125m at published widths
+                (all 12 layers), 8 x 512, 10 steps, as ``train_jamba``
+                (the loss must fall by 0.5, the first 3 steps repeat bit
+                for bit), the mLSTM forward and its backward must
+                launch.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1535,6 +1557,7 @@ SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "decode_attention": ("HMMA", "LDGSTS"),
             "paged_partial": ("HMMA", "LDGSTS"),
             "mlstm_chunk": ("HMMA", "LDGSTS"),
+            "mlstm_chunk_bwd": ("HMMA", "LDGSTS"),
             "ssm_scan": ("LDGSTS",),
             "ssm_scan_bwd": ("MUFU.EX2", "LDGSTS")}
 
@@ -1823,7 +1846,8 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_backward)
     from repro_torch.kernels.gmm.ops import gmm
-    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ops import (mlstm_chunk,
+                                                     mlstm_chunk_backward)
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
@@ -1875,6 +1899,10 @@ def _launch_counters() -> dict:
             "ssm_scan_backward_padded":
                 lambda: ssm_scan_backward.launches_by_shape[
                     scan_bwd_shape("ssm_scan_backward_padded")],
+            "mlstm_chunk_backward": lambda: mlstm_chunk_backward.launches,
+            "mlstm_chunk_backward_padded":
+                lambda: mlstm_chunk_backward.launches_by_shape[
+                    mlstm_bwd_shape("mlstm_chunk_backward_padded")],
             **{name: functools.partial(
                 flash_attention_backward.launches_by_shape.__getitem__,
                 shape) for name, shape in BWD_SHAPES.items()
@@ -2126,6 +2154,15 @@ def scan_bwd_shape(name: str) -> tuple:
     from repro_torch.kernels.ssm_scan.ops import kernel_state_size
     B, L, d_in, N = SCAN_BWD_SHAPES[name][:4]
     return (B, L, d_in, kernel_state_size(N))
+
+
+def mlstm_bwd_shape(name: str) -> tuple:
+    """(B, H, L, dh, chunk) of a ``MLSTM_BWD_SHAPES`` record as the
+    backward counts it (``launches_by_shape``: dh padded to the
+    kernel's)."""
+    from repro_torch.kernels.mlstm_chunk.ops import kernel_width
+    B, Hx, L, dh, c = MLSTM_BWD_SHAPES[name][:5]
+    return (B, Hx, L, kernel_width(dh), c)
 
 
 def scan_serving_shape() -> tuple:
@@ -4006,7 +4043,7 @@ SCAN_BWD_SRC = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu"
 # the MoE and hybrid training passes: published widths, the first
 # MOE_TRAIN_LAYERS layers (jamba-v0.1-52b: Mamba + MLP, Mamba + 16-expert
 # MoE; mixtral-8x7b: two attention + 8-expert MoE layers), batch x 512
-# tokens (80 GB holds 4: the reckoned peak, moe_train_state_gb, is 76.5 GB
+# tokens (80 GB holds 4: the reckoned peak, train_state_gb, is 76.5 GB
 # for jamba), llama's N(0, 0.02) init, lr MOE_TRAIN_LR after 2 warmup
 # steps: at d_model 4096 a step of lr moves a head logit by about 4096 lr,
 # and 1e-3 drove both losses up on an H100 80GB HBM3 (11.9 -> 11.6
@@ -4034,6 +4071,32 @@ SCAN_BWD_SHAPES = {
 # the kernel's ex2.approx and its summation orders move a gradient by
 # about 1e-6 relative
 SCAN_BWD_RTOL = 1e-4
+MLSTM_BWD_SRC = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk_bwd.cu"
+# the xLSTM training pass: xlstm-125m at published widths, all 12 layers
+# (nine mLSTM, three sLSTM), 8 x 512 tokens (two chunks of 256 a row, so
+# every mLSTM layer runs B9 and its backward), lr 8e-4 after 2 warmup
+# steps: at d_model 768 a step of lr moves a (tied) head logit by about
+# 768 lr, as far as MOE_TRAIN_LR's at 4096
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_LR = 8, 8e-4
+# B9's backward records, (B, H, L, dh, chunk, forget bias): xlstm-125m's
+# training pass, its forget gates drawn as mlstm_cases draws them (lf =
+# logsigmoid(N(0, 1) + 1): a 256-token chunk forgets its carried state by
+# about exp(-80), so the state's decay term is below f32's resolution),
+# and a shape that no training pass launches: dh 96 (padded to 128), 16
+# chunks of 64, forget gates near 1 (logsigmoid(N(0, 1) + 6): a chunk
+# keeps about 0.85 of its carried state), so that the reverse combine
+# and the decay term carry over all 15 boundaries
+MLSTM_BWD_SHAPES = {
+    "mlstm_chunk_backward": (XLSTM_TRAIN_BATCH, MLSTM_H, MOE_TRAIN_SEQ,
+                             MLSTM_DH, MLSTM_C, 1.0),
+    "mlstm_chunk_backward_padded": (2, MLSTM_H, 1024, 96, 64, 6.0)}
+# each of the five gradients within MLSTM_BWD_RTOL relative L2 of the
+# plain backward (autograd through the chunkwise form, f32 products) on
+# the same inputs, and each element within MLSTM_BWD_RTOL x the largest
+# plain value of its gradient: the kernel's 3xTF32 products and its
+# summation orders move a gradient by about 6e-6 relative (H100 80GB
+# HBM3), so the scan backward's limit and not the forward's 5e-4
+MLSTM_BWD_RTOL = 1e-4
 SCAN_BWD_FAULTS = ("carry dropped at a chunk boundary",
                    "a channel tile left out of dB",
                    "the D term dropped from du",
@@ -4186,17 +4249,152 @@ def scan_backward_records(dev, flush, record) -> None:
         del args, ck, fn, got, again, own, ref
 
 
-def moe_train_state_gb(cfg, batch: int) -> dict:
-    """The reckoned peak device memory (GB) of ``train_moe_family`` before
-    it runs, an upper bound: f32 parameters, AdamW's two moments and the
-    gradients (16 bytes a parameter); the bf16 weight copies that the
-    products keep for the backward (2); one expert slice's full-size
-    gradient beside the largest expert tensor's running sum (autograd's
-    select backward); each MoE layer's kept expert activations (4 (T, F)
-    bf16 a expert); the f32 logits, their log-sum-exp and gradient (3 (T,
-    V) f32); each Mamba layer's scan checkpoints, held from the forward
-    to the backward (f32 (batch, ceil(seq / 16), d_in, N), 67 MB at
-    jamba's)."""
+def mlstm_bwd_inputs(dev, gen, shape) -> tuple:
+    """One record of ``MLSTM_BWD_SHAPES``: (q, k, v, li, lf, dh_out),
+    f32, li as N(0, 0.25) and lf as logsigmoid(N(0, 1) + the record's
+    forget bias)."""
+    import torch
+    B, Hx, L, dh, _, fbias = shape
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+    q, k, v = rn(B, Hx, L, dh), rn(B, Hx, L, dh), rn(B, Hx, L, dh)
+    li = rn(B, Hx, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, Hx, L) + fbias)
+    return q, k, v, li, lf, rn(B, Hx, L, dh)
+
+
+def mlstm_bwd_call(args, chunk: int):
+    """B9's backward for ``args`` (``mlstm_bwd_inputs``) as the training
+    step reaches it: one forward launch through ``mlstm_chunk`` under
+    autograd (its Function writes the saves), then a call that runs the
+    backward alone on the kept graph (one backward launch) and returns
+    the five gradients."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    with torch.enable_grad():
+        h, _ = mlstm_chunk(*leaves, chunk=chunk)
+
+    def fn():
+        return torch.autograd.grad(h, leaves, args[5], retain_graph=True)
+    return fn
+
+
+def mlstm_bwd_ratio(got, ref) -> float:
+    """The largest error over its limit of the five gradients: relative
+    L2 over ``MLSTM_BWD_RTOL``, or an element's error over
+    ``MLSTM_BWD_RTOL`` x the plain gradient's largest value (at most 1
+    within the limits)."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        elem = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel / MLSTM_BWD_RTOL, elem / MLSTM_BWD_RTOL)
+    return worst
+
+
+def mlstm_backward_records(dev, flush, record) -> None:
+    """B9's backward at ``MLSTM_BWD_SHAPES`` against its plain version
+    (autograd through the plain chunkwise form) on the same inputs
+    (``MLSTM_BWD_RTOL``), each planted fault of ``BACKWARD_FAULTS``
+    (``mlstm_chunk_backward_split`` with the fault, on the record's own
+    inputs) shown to leave the limits wherever it changes the gradients
+    (the decay term is 0 at two chunks: the first chunk carries no
+    state and the last takes no cotangent; from three chunks on it
+    shows where the forget gates keep the state), and every fault caught
+    at one record at least; deterministic (a second backward launch
+    from the same saves bit for bit the first); timed beside the plain
+    backward.  The kernel is reached as the training step reaches it:
+    autograd through ``mlstm_chunk``, whose Function's forward launch
+    writes the saves and whose backward hands them to
+    ``mlstm_chunk_backward``; the timed call is that backward alone (the
+    graph kept).  No single library call computes it.
+    The bound counts, per (row, head), the products over the causal
+    pairs s <= l only: the scores and dnum v^T, and dq's, dk's and dv's
+    intra products, 5 c (c + 1) dh a chunk; the inter terms (dq's and
+    each chunk's own E_j) 4 c dh^2 for every chunk but the first and the
+    state-update terms (dk's and dv's) 4 c dh^2 for every chunk but the
+    last, dh the true width, at the kernel's 3xTF32 rate; the bytes are
+    q, k, v, li, lf, dh and the forward's saves (h, each chunk's carried
+    C and n, the gates and dsum) read and the five gradients written."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk.ops import (
+        kernel_width, mlstm_chunk_backward_reference)
+    from repro_torch.kernels.mlstm_chunk.ref import (
+        BACKWARD_FAULTS, mlstm_chunk_backward_split)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    labels = ("dq", "dk", "dv", "dli", "dlf")
+    caught = set()
+    for name, shape in MLSTM_BWD_SHAPES.items():
+        B, Hx, L, dh, c, _ = shape
+        args = mlstm_bwd_inputs(dev, gen, shape)
+        fn = mlstm_bwd_call(args, c)
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two launches differ")
+        ref = mlstm_chunk_backward_reference(*args[:5], c, args[5])
+        log(f"kernel {name}: relative L2 " + ", ".join(
+            f"{n} {float((g - r).norm() / r.norm()):.3e}"
+            for n, g, r in zip(labels, got, ref))
+            + f" (limit {MLSTM_BWD_RTOL:.1e}); worst error/limit "
+            f"{mlstm_bwd_ratio(got, ref):.3f}")
+        if not mlstm_bwd_ratio(got, ref) <= 1.0:
+            raise AssertionError(f"{name}: past the limits")
+        sound = mlstm_chunk_backward_split(*args[:5], c, args[5])
+        for fault in BACKWARD_FAULTS:
+            bad = mlstm_chunk_backward_split(*args[:5], c, args[5],
+                                             fault=fault)
+            if all(torch.equal(a, b) for a, b in zip(bad, sound)):
+                log(f"kernel {name}: fault '{fault}' changes nothing at "
+                    f"{L // c} chunks")
+                continue
+            moved = mlstm_bwd_ratio(bad, ref)
+            log(f"kernel {name}: fault '{fault}' moves the worst error to "
+                f"{moved:.1f} times its limit")
+            if not moved > 1.0:
+                raise AssertionError(f"{name}: the limits do not catch the "
+                                     f"fault '{fault}'")
+            caught.add(fault)
+        del sound, bad
+        nc = L // c
+        ops = B * Hx * (5 * nc * c * (c + 1) * dh
+                        + 8 * (nc - 1) * c * dh * dh)
+        width = kernel_width(dh)
+        nbytes = 4 * (8 * B * Hx * L * dh + 9 * B * Hx * L
+                      + B * Hx * nc * (width * width + width + 1))
+        tols = tuple(MLSTM_BWD_RTOL * float(r.abs().max()) for r in ref)
+        record(name, MLSTM_BWD_SRC,
+               "src/repro/kernels/mlstm_chunk/kernel.py:95", tuple(got),
+               tuple(ref), time_ms(fn, flush=flush),
+               time_ms(lambda: mlstm_chunk_backward_reference(
+                   *args[:5], c, args[5]), iters=3, flush=flush),
+               None, nbytes, ops, peak=TF32X3_FLOPS, tol=tols,
+               outputs=labels)
+        log(f"kernel {name}: bound at the f32 rate outside the tensor "
+            f"cores ms={bound_ms(nbytes, ops, F32_FLOPS)[0]:.4f}")
+        log_kernel_time(name, fn, flush)
+        del args, fn, got, again, ref
+    if set(BACKWARD_FAULTS) - caught:
+        raise AssertionError("B9's backward records catch no change from "
+                             f"{sorted(set(BACKWARD_FAULTS) - caught)}")
+
+
+def train_state_gb(cfg, batch: int) -> dict:
+    """The parameter count and the reckoned peak device memory (GB) of
+    ``train_family`` before it runs, an upper bound: f32 parameters,
+    AdamW's two moments and the gradients (16 bytes a parameter); the
+    bf16 weight copies that the products keep for the backward (2); one
+    expert slice's full-size gradient beside the largest expert tensor's
+    running sum (autograd's select backward); each MoE layer's kept
+    expert activations (4 (T, F) bf16 a expert); the f32 logits, their
+    log-sum-exp and gradient (3 (T, V) f32); each Mamba layer's scan
+    checkpoints, held from the forward to the backward (f32 (batch,
+    ceil(seq / 16), d_in, N), 67 MB at jamba's).  No reckoning
+    (``peak_gb`` None) for a model with xLSTM layers, whose kept
+    activations it does not count: its pass logs the measured peak
+    alone."""
     from repro_torch.core.context import tree_leaves
     from repro_torch.kernels.ssm_scan.ops import (checkpoint_shape,
                                                   kernel_state_size)
@@ -4204,6 +4402,8 @@ def moe_train_state_gb(cfg, batch: int) -> dict:
     m = LM(cfg, device="cpu")
     sizes = [math.prod(spec.shape) for spec in tree_leaves(m.param_specs())]
     n, big = sum(sizes), max(sizes)
+    if any(m.kind(i)[0] in ("mlstm", "slstm") for i in range(cfg.num_layers)):
+        return {"params": n, "peak_gb": None}
     T = batch * MOE_TRAIN_SEQ
     moe_layers = sum(m.kind(i)[1] == "moe" for i in range(cfg.num_layers))
     acts = moe_layers * cfg.moe.num_experts * 4 * T * cfg.moe.d_ff_expert * 2
@@ -4221,10 +4421,14 @@ def moe_train_state_gb(cfg, batch: int) -> dict:
     return out
 
 
-def train_moe_family(dev, name: str, used: list) -> dict:
+def train_family(dev, name: str, used: list,
+                 layers: int | None = MOE_TRAIN_LAYERS,
+                 batch: int | None = None,
+                 lr: float = MOE_TRAIN_LR) -> dict:
     """``Trainer`` in process on ``name`` at its published widths, cut to
-    its first ``MOE_TRAIN_LAYERS`` layers: ``MOE_TRAIN_STEPS`` steps of
-    ``MOE_TRAIN_BATCH`` x 512 tokens from llama's N(0, 0.02) init, no
+    its first ``layers`` layers (all of them where None):
+    ``MOE_TRAIN_STEPS`` steps of ``batch`` (``MOE_TRAIN_BATCH``'s where
+    None) x 512 tokens at peak lr ``lr`` from llama's N(0, 0.02) init, no
     checkpoint written; then, from a fresh init of the same seed, the
     first ``MOE_REPEAT_STEPS`` steps again, whose loss, gradient norm and
     lr must equal the first run's bit for bit.  The loss must fall by
@@ -4241,9 +4445,10 @@ def train_moe_family(dev, name: str, used: list) -> dict:
     from repro_torch.train.data import SyntheticTokens
     from repro_torch.train.trainer import Trainer
     label = "train_" + name.split("-")[0]
-    batch = MOE_TRAIN_BATCH[name]
-    cfg = override(get_arch(name), num_layers=MOE_TRAIN_LAYERS)
-    plan = moe_train_state_gb(cfg, batch)
+    batch = MOE_TRAIN_BATCH[name] if batch is None else batch
+    cfg = (get_arch(name) if layers is None
+           else override(get_arch(name), num_layers=layers))
+    plan = train_state_gb(cfg, batch)
     gc.collect()                       # the earlier passes' cached blocks
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -4252,7 +4457,7 @@ def train_moe_family(dev, name: str, used: list) -> dict:
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated")
     ck = ROOT / "build" / f"chip_smoke_{label}"
     shutil.rmtree(ck, ignore_errors=True)
-    rc = RunConfig(optimizer=OptimizerConfig(lr=MOE_TRAIN_LR,
+    rc = RunConfig(optimizer=OptimizerConfig(lr=lr,
                                              total_steps=MOE_TRAIN_STEPS,
                                              warmup_steps=MOE_TRAIN_WARMUP),
                    parallel=ParallelConfig(), checkpoint_dir=str(ck),
@@ -4288,7 +4493,7 @@ def train_moe_family(dev, name: str, used: list) -> dict:
             for a, b in zip(whole, whole[1:])]
     steady = sorted(secs)[len(secs) // 2]
     keys = ("loss", "grad_norm", "lr")
-    out = {"layers": MOE_TRAIN_LAYERS, "batch": batch,
+    out = {"layers": cfg.num_layers, "batch": batch,
            "seq": MOE_TRAIN_SEQ, "params": plan["params"],
            "losses": losses, "grad_norms": [m["grad_norm"] for m in whole],
            "step_seconds": [whole[0]["sec_per_step"]] + secs,
@@ -4313,11 +4518,12 @@ def train_moe_family(dev, name: str, used: list) -> dict:
 
 
 def training_phase(dev, records: list) -> dict:
-    """Phase 7: B1's and B8's backward records (appended to ``records``),
-    then tinyllama-1.1b's training with its resume, the Super-Sub members
-    trained and cascaded, and jamba-v0.1-52b and mixtral-8x7b trained
-    at published widths, two layers each; -> the passes' launch counts,
-    summed."""
+    """Phase 7: B1's, B8's and B9's backward records (appended to
+    ``records``), then tinyllama-1.1b's training with its resume, the
+    Super-Sub members trained and cascaded, jamba-v0.1-52b and
+    mixtral-8x7b trained at published widths, two layers each, and
+    xlstm-125m at published widths, all 12 layers; -> the passes' launch
+    counts, summed."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(7)
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -4327,6 +4533,7 @@ def training_phase(dev, records: list) -> dict:
     record = recorder(records)
     flash_backward_records(dev, gen, rn, l2.zero_, record)
     scan_backward_records(dev, l2.zero_, record)
+    mlstm_backward_records(dev, l2.zero_, record)
     del l2
     totals = train_tinyllama(dev)
     for n, c in train_cascade(dev).items():
@@ -4334,8 +4541,13 @@ def training_phase(dev, records: list) -> dict:
     for name, used in (("jamba-v0.1-52b", ["ssm_scan", "ssm_scan_backward"]),
                        ("mixtral-8x7b", ["flash_attention",
                                          "flash_attention_backward"])):
-        for n, c in train_moe_family(dev, name, used).items():
+        for n, c in train_family(dev, name, used).items():
             totals[n] += c
+    for n, c in train_family(dev, "xlstm-125m",
+                                 ["mlstm_chunk", "mlstm_chunk_backward"],
+                                 layers=None, batch=XLSTM_TRAIN_BATCH,
+                                 lr=XLSTM_TRAIN_LR).items():
+        totals[n] += c
     return totals
 
 

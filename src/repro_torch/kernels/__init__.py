@@ -15,13 +15,13 @@ and a CUDA card that is not sm_90 (or an input the kernel does not take)
 raises.  There is no fallback from a CUDA tensor to the plain version.
 Sources compile on first use (``_build``).
 
-Gradients: flash attention (B1) and the selective scan (B8) have
-backward kernels (each a ``torch.autograd.Function`` on the card).  No
-other kernel has one yet: on a CUDA tensor with grad enabled and an
-input that requires grad, every other wrapper raises
-``MissingBackwardKernel`` rather than return a tensor that silently
-carries no gradient (``require_no_grad``).  On the CPU autograd
-differentiates every plain version.
+Gradients: flash attention (B1), the selective scan (B8) and the
+chunkwise mLSTM (B9) have backward kernels (each a
+``torch.autograd.Function`` on the card).  No other kernel has one yet:
+on a CUDA tensor with grad enabled and an input that requires grad,
+every other wrapper raises ``MissingBackwardKernel`` rather than return
+a tensor that silently carries no gradient (``require_no_grad``).  On
+the CPU autograd differentiates every plain version.
 """
 from __future__ import annotations
 
@@ -251,7 +251,8 @@ def _counted() -> tuple:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_backward)
     from repro_torch.kernels.gmm.ops import gmm
-    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ops import (mlstm_chunk,
+                                                     mlstm_chunk_backward)
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_partial, paged_verify_attention)
     from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_backward
@@ -260,7 +261,7 @@ def _counted() -> tuple:
             verify_attention,
             paged_decode_attention, paged_verify_attention,
             paged_decode_partial, ssm_scan, ssm_scan_backward, mlstm_chunk,
-            gmm)
+            mlstm_chunk_backward, gmm)
 
 
 def launch_counts() -> dict:
@@ -305,8 +306,8 @@ def reset_launch_counts() -> None:
     paged wrappers count apart, in ``launches_int8``, the paged verify's
     tree route in ``launches_tree``, and the ring routes of the row
     decode and verify wrappers in ``launches_ring``; flash, gmm, the
-    paged decode and verify, the scan and the mLSTM, and the flash and
-    scan backwards also count by shape, in ``launches_by_shape``)."""
+    paged decode and verify, the scan and the mLSTM, and the flash, scan
+    and mLSTM backwards also count by shape, in ``launches_by_shape``)."""
     for (fn, attr), v in launch_counts().items():
         if isinstance(v, int):
             setattr(fn, attr, 0)

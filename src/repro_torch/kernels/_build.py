@@ -39,6 +39,7 @@ SOURCES = {
     "ssm_scan": "ssm_scan/csrc/ssm_scan.cu",
     "ssm_scan_bwd": "ssm_scan/csrc/ssm_scan_bwd.cu",
     "mlstm_chunk": "mlstm_chunk/csrc/mlstm_chunk.cu",
+    "mlstm_chunk_bwd": "mlstm_chunk/csrc/mlstm_chunk_bwd.cu",
     "gmm": "gmm/csrc/gmm.cu",
 }
 

@@ -63,6 +63,9 @@
 // Memory: the chunks' states take chunks x B x H x dh^2 floats of
 // scratch; the wrapper runs the chunks in spans that fit a budget, a
 // span's first carried state being the previous span's final one.
+// Under a gradient it runs them in one span and keeps the scratch (the
+// gates and every chunk's carried state) with each token's signed den
+// (`dsum`): the backward's saves (mlstm_chunk_bwd.cu).
 // Not done: each block of a cluster streams the whole query tile for q C_p
 // (a TMA multicast would read it once a cluster), the scores' exchange
 // waits on two cluster barriers a key tile, and the combine is a launch
@@ -74,13 +77,15 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
+using tf32x3::mma3;
+using tf32x3::stage;
 
 constexpr float NEG_INF = -1e30f;   // JAX's NEG_INF: m_p + g stays finite
 constexpr int TILE = 64;            // query rows, key rows, C rows/columns
@@ -88,76 +93,6 @@ constexpr int MAX_C = 256;          // chunk length of the gates' scans
 constexpr int MAX_DH = 512;         // a cluster holds at most 8 blocks
 constexpr int SQ = TILE + 4;        // row stride of [row][depth] tiles
 constexpr int SV = TILE + 8;        // row stride of [depth or key][col] tiles
-
-// ------------------------------------------------------------ 3xTF32
-
-// x = hi + lo: hi is x with the low 13 mantissa bits cleared (a TF32
-// value), lo the rest, exact in f32; an mma reads only the top 19 bits
-// of its TF32 operands, so lo enters truncated to TF32 (x - hi - lo below
-// 2^-20 |x|).  Two integer/f32 operations, where cvt.rna costs more.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), TF32 in, f32 out
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A warp's (16 MT) x (8 NT) block of acc += A B over a depth of K, in
-// 3xTF32: A[m][kk] = fa(m, kk) and B[kk][n] = fb(kk, n), m and n counted
-// from the warp's block.  acc[i][j] is the m16n8 fragment of rows 16 i..,
-// columns 8 j..: element e at row gq + 8 (e / 2), column 2 tq + e % 2.
-template <int MT, int NT, int K, class FA, class FB>
-__device__ __forceinline__ void mma3(float (&acc)[MT][NT][4], FA fa, FB fb) {
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      split_tf32(fa(16 * i + gq, k0 + tq), ah[i][0], al[i][0]);
-      split_tf32(fa(16 * i + gq + 8, k0 + tq), ah[i][1], al[i][1]);
-      split_tf32(fa(16 * i + gq, k0 + tq + 4), ah[i][2], al[i][2]);
-      split_tf32(fa(16 * i + gq + 8, k0 + tq + 4), ah[i][3], al[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(fb(k0 + tq, 8 * j + gq), bh0, bl0);
-      split_tf32(fb(k0 + tq + 4, 8 * j + gq), bh1, bl1);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {     // the small terms first
-        mma_tf32(acc[i][j], al[i], bh0, bh1);
-        mma_tf32(acc[i][j], ah[i], bl0, bl1);
-        mma_tf32(acc[i][j], ah[i], bh0, bh1);
-      }
-    }
-  }
-}
-
-// rows [row0, row0 + rows) x `cols` floats (a multiple of 4) of a matrix
-// with rows of `ld` floats, into dst (row stride `stride`) by cp.async;
-// rows at or past `lim` zero-filled
-__device__ __forceinline__ void stage(float* dst, int stride,
-                                      const float* src, size_t ld, int row0,
-                                      int rows, int cols, int lim,
-                                      int threads) {
-  const int cpr = cols / 4;
-  for (int i = threadIdx.x; i < rows * cpr; i += threads) {
-    const int r = i / cpr, c4 = 4 * (i % cpr);
-    const bool in = row0 + r < lim;
-    cp_async16(dst + r * stride + c4,
-               src + (in ? (size_t)(row0 + r) * ld : 0) + c4, in ? 16 : 0);
-  }
-}
 
 // ------------------------------------------------------------ 1. gates
 
@@ -439,8 +374,9 @@ __global__ void __launch_bounds__(OUT_THREADS, 2)
 mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ li,
           const float* __restrict__ gates, const float* __restrict__ Us,
-          const float* __restrict__ Un, float* __restrict__ h, int BH, int L,
-          int dh, int c, int j0, int ns, int span, float scale) {
+          const float* __restrict__ Un, float* __restrict__ h,
+          float* __restrict__ dsum, int BH, int L, int dh, int c, int j0,
+          int ns, int span, float scale) {
   using S = OutSmem;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -646,8 +582,10 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int rr = 16 * wm + gq + 8 * i, l = r0 + rr;
     if (l >= c) continue;
-    const float dd = fmaxf(fabsf((den2[rr] + den2[TILE + rr]) + qn[rr]),
-                           expf(-rowm[rr]));
+    const float ds = (den2[rr] + den2[TILE + rr]) + qn[rr];
+    const float dd = fmaxf(fabsf(ds), expf(-rowm[rr]));
+    if (dsum != nullptr && rank == 0 && wn == 0 && tq == 0)
+      dsum[(size_t)bh * L + t0 + l] = ds;
 #pragma unroll
     for (int jn = 0; jn < 4; ++jn)
       *reinterpret_cast<float2*>(hb + (size_t)l * dh + 32 * wn + 8 * jn +
@@ -661,6 +599,11 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
 
 // q/k/v (B, H, L, dh), li/lf (B, H, L) -> h (B, H, L, dh), C (B, H, dh,
 // dh), n (B, H, dh), m (B, H); all f32, contiguous and 16-byte aligned.
+// `dsum` (B, H, L), or null: each token's den before its max, sum_s
+// S[l,s] + w_l q_l . n_p, signed -- what the backward
+// (mlstm_chunk_bwd.cu) reads beside `gates` and, run in one span of all
+// the chunks, `states` (each chunk's carried C_j and n_j).  Null leaves
+// every other output's bits as they are.
 // dh a multiple of 64 up to 512 (the wrapper pads any other width with
 // zero columns and passes the true width's scale, 1/sqrt(dh)); the chunk
 // c divides L and is at most 256.  Scratch: `gates` 4 B H L + B H (L/c)
@@ -669,8 +612,8 @@ mlstm_out(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
                                const void* li, const void* lf, void* h,
                                void* C, void* n, void* m, void* gates,
-                               void* states, int B, int H, int L, int dh,
-                               int c, int span, float scale,
+                               void* states, void* dsum, int B, int H, int L,
+                               int dh, int c, int span, float scale,
                                void* stream) {
   const long long BH = (long long)B * H;
   if (B < 1 || H < 1 || L < 1 || dh < TILE || dh % TILE || dh > MAX_DH ||
@@ -716,8 +659,8 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v,
     rc = cudaLaunchKernelEx(&cfg, mlstm_out, (const float*)q, (const float*)k,
                             (const float*)v, (const float*)li,
                             (const float*)gt, (const float*)Us,
-                            (const float*)Un, (float*)h, (int)BH, L, dh, c,
-                            j0, ns, span, scale);
+                            (const float*)Un, (float*)h, (float*)dsum,
+                            (int)BH, L, dh, c, j0, ns, span, scale);
     if (rc != cudaSuccess) return (int)rc;
   }
   return (int)cudaGetLastError();

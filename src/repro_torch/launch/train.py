@@ -12,9 +12,9 @@ and runs what is left of the ``--steps`` (the JAX launcher runs
 ``--steps`` more, past its schedule's end, where the learning rate is
 0).  ``--dp``
 and ``--tp`` other than 1 need several cards and raise
-``MultiCardTrainingNotPorted``; on the card the MoE, hybrid and xLSTM
-families raise ``MissingBackwardKernel`` (their kernels have no backward
-yet) before the first step.
+``MultiCardTrainingNotPorted``.  On the card every family trains (the
+dense, MoE, hybrid and xLSTM ones: ``--arch xlstm-125m --full`` through
+the chunkwise mLSTM's backward kernel).
 """
 from __future__ import annotations
 

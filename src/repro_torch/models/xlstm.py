@@ -88,10 +88,11 @@ def slstm_specs(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _fresh(q, dv):
+    """No history, in q's dtype (f32 on every model path)."""
     B, H, _, dk = q.shape
-    return (torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device),
-            torch.zeros((B, H, dk), dtype=torch.float32, device=q.device),
-            torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device))
+    return (torch.zeros((B, H, dk, dv), dtype=q.dtype, device=q.device),
+            torch.zeros((B, H, dk), dtype=q.dtype, device=q.device),
+            torch.full((B, H), NEG_INF, dtype=q.dtype, device=q.device))
 
 
 def chunk_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -13,14 +13,15 @@ The JAX package's ``train/trainer.py`` for one device:
     in the checkpoint, a stateless data source
 
 On the card attention differentiates through the flash kernel's backward
-(``kernels/flash_attention``) and the Mamba layers through the selective
-scan's (``kernels/ssm_scan``); the MoE layers of a model without a mesh
-run the dense reference, plain matmuls.  So the dense, MoE and hybrid
-families train on one card.  The xLSTM family's chunkwise mLSTM kernel
-has no backward yet, nor has the grouped matmul that a meshed model's
-MoE layers run: on the card ``make_train_step`` refuses them before the
-first step (``MissingBackwardKernel``); on the CPU every family trains,
-through the plain versions, as in JAX.  ``Trainer`` donates the state
+(``kernels/flash_attention``), the Mamba layers through the selective
+scan's (``kernels/ssm_scan``) and the mLSTM layers through the chunkwise
+mLSTM's (``kernels/mlstm_chunk``); the MoE layers of a model without a
+mesh run the dense reference, plain matmuls.  So the dense, MoE, hybrid
+and xLSTM families train on one card.  The grouped matmul that a meshed
+model's MoE layers run has no backward yet: on the card
+``make_train_step`` refuses such a model before the first step
+(``MissingBackwardKernel``); on the CPU every family trains, through the
+plain versions, as in JAX.  ``Trainer`` donates the state
 to each step, as JAX's jitted step does (``make_train_step(donate=
 True)``: parameters and moments updated in place).  The int8
 error-feedback compression across a ``pod`` axis and the sharded state
@@ -46,11 +47,8 @@ from repro_torch.train.optimizer import (adamw_init, adamw_update,
 
 
 class MultiCardTrainingNotPorted(NotImplementedError):
-    """A training feature that needs several cards (ROADMAP §A item 7)."""
+    """A training feature that needs several cards (ROADMAP §A item 6)."""
 
-
-# the kernel without a backward on each family's one-card training path
-_NO_BACKWARD = {"ssm": "mlstm_chunk (B9)"}
 
 
 # ---------------------------------------------------------------------------
@@ -178,37 +176,31 @@ def init_state(model: LM, seed: int, run_cfg: RunConfig,
 
 
 def check_trainable(model: LM, run_cfg: RunConfig) -> None:
-    """Raise before any step what this run cannot do: a family whose
-    kernels have no backward on the card (``MissingBackwardKernel``), or
-    a multi-card feature (``MultiCardTrainingNotPorted``)."""
+    """Raise before any step what this run cannot do: a meshed model's
+    MoE layers, whose kernel has no backward on the card
+    (``MissingBackwardKernel``), or a multi-card feature
+    (``MultiCardTrainingNotPorted``)."""
     pcfg = run_cfg.parallel
     if pcfg.grad_compression == "int8_ef" and pcfg.pods > 1:
         raise MultiCardTrainingNotPorted(
             "int8 error-feedback gradient compression across a pod axis "
             f"(pods={pcfg.pods}) needs several cards: not yet ported to "
-            "repro_torch (ROADMAP §A item 7)")
+            "repro_torch (ROADMAP §A item 6)")
     if max(pcfg.dp, pcfg.tp, pcfg.pods) > 1:
         raise MultiCardTrainingNotPorted(
             f"data/tensor/pod parallel training (dp={pcfg.dp}, "
             f"tp={pcfg.tp}, pods={pcfg.pods}) needs several cards: not "
-            "yet ported to repro_torch (ROADMAP §A item 7)")
+            "yet ported to repro_torch (ROADMAP §A item 6)")
     if model.device.type != "cuda":
         return
     cfg = model.cfg
-    if cfg.family in _NO_BACKWARD:
-        raise MissingBackwardKernel(
-            f"{cfg.name}: the {cfg.family} family trains through "
-            f"{_NO_BACKWARD[cfg.family]}, whose backward kernel is not "
-            "ported yet; on the card the dense, MoE and hybrid families "
-            "train (train it on the CPU, where the plain versions are "
-            "differentiable)")
     if model.mesh is not None and any(
             model.kind(i)[1] == "moe" for i in range(cfg.num_layers)):
         raise MissingBackwardKernel(
             f"{cfg.name}: under a mesh its MoE layers run expert-parallel "
             "through gmm (B7), whose backward kernel is not ported yet; "
             "train it on one card without a mesh, where they run the "
-            "dense reference (ROADMAP §A item 7)")
+            "dense reference (ROADMAP §A item 6)")
 
 
 def make_train_step(model: LM, run_cfg: RunConfig,

@@ -33,10 +33,16 @@ reverse loop (each of the seven gradients within 1e-4 relative L2 and
 each element within 1e-4 of its largest value, bit for bit run to run),
 also through autograd, and the forward's checkpoints (the forward's
 bits unchanged, each checkpoint the prefix's final state bit for bit,
-none written under ``torch.no_grad()``); every wrapper without a backward kernel refusing
-a gradient by name; one train step of reduced tinyllama-1.1b,
-jamba-v0.1-52b and mixtral-8x7b on the card against the same step on
-the CPU; only xLSTM refused.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
+none written under ``torch.no_grad()``); the chunkwise mLSTM's backward
+kernel against its plain version (autograd through the plain chunkwise
+form: each of the five gradients within 1e-4 relative L2 and each
+element within 1e-4 of its largest value; bit for bit run to run) at chip_smoke.py's record shapes and over its
+domain, also through autograd, a final-state cotangent refused by name,
+and the forward's saves leaving its outputs' bits as they are; every
+wrapper without a backward kernel refusing a gradient by name; one train
+step of reduced tinyllama-1.1b, jamba-v0.1-52b, mixtral-8x7b and
+xlstm-125m on the card against the same step on the CPU; only a meshed
+model's MoE layers refused.  Every test here is marked ``cuda`` and skips without a card.  This file imports neither JAX nor
 the JAX package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1675,8 +1681,6 @@ def _no_backward_calls(gen):
     bk, bv = _rn(gen, B, 4, Hkv, hd), _rn(gen, B, 4, Hkv, hd)
     x = _rn(gen, 2, 8, 64).requires_grad_()
     w = _rn(gen, 2, 64, 32)
-    f32 = lambda *s: torch.randn(s, device="cuda")  # noqa: E731
-    mq = torch.randn(1, 2, 32, 16, device="cuda", requires_grad=True)
     return {
         "decode_attention": lambda: decode_attention(q, k, v, pos),
         "verify_attention": lambda: verify_attention(qv, k, v, bk, bv, pos),
@@ -1687,17 +1691,13 @@ def _no_backward_calls(gen):
         "paged_decode_partial": lambda: paged_decode_partial(
             q, kp, vp, table, pos, 0),
         "gmm": lambda: gmm(x, w),
-        "mlstm_chunk": lambda: mlstm_chunk(mq, f32(1, 2, 32, 16),
-                                           f32(1, 2, 32, 16), f32(1, 2, 32),
-                                           f32(1, 2, 32), 16),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention", "verify_attention",
                                   "paged_decode_attention",
                                   "paged_verify_attention",
-                                  "paged_decode_partial", "gmm",
-                                  "mlstm_chunk"])
+                                  "paged_decode_partial", "gmm"])
 def test_wrappers_without_a_backward_refuse_a_gradient(gen, name):
     """A gradient asked of a kernel with no backward kernel raises its
     named error (rather than return a tensor with no ``grad_fn``); the
@@ -1848,24 +1848,170 @@ def test_ssm_scan_under_no_grad_writes_no_checkpoints(gen):
     assert (ssm_scan.launches, ssm_scan.launches_checkpointed) == (3, 1)
 
 
+# B9's backward at chip_smoke.py's record shapes, (B, H, L, dh, chunk,
+# forget bias): xlstm-125m's training batch, and dh 96 (padded to 128)
+# over 16 chunks, its forget gates near 1 (the state carried across
+# every boundary)
+MLSTM_BWD_CASES = [(8, 4, 512, 384, 256, 1.0), (2, 4, 1024, 96, 64, 6.0)]
+# each of the five gradients, relative L2 and elementwise over the largest
+# value (chip_smoke.py's limit)
+MLSTM_BWD_RTOL = 1e-4
+
+
+def _mlstm_bwd_args(gen, B, H, L, dh, fbias=1.0):
+    """(q, k, v, li, lf, dh_out), drawn as chip_smoke.py draws them."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = rn(B, H, L, dh), rn(B, H, L, dh), rn(B, H, L, dh)
+    li = rn(B, H, L) * 0.5
+    lf = torch.nn.functional.logsigmoid(rn(B, H, L) + fbias)
+    return q, k, v, li, lf, rn(B, H, L, dh)
+
+
+def _mlstm_grads_close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert float((g - w).norm()) <= MLSTM_BWD_RTOL * float(w.norm())
+        torch.testing.assert_close(g, w, rtol=0, atol=MLSTM_BWD_RTOL
+                                   * float(w.abs().max()))
+
+
+def _mlstm_card_grads(args, chunk, times=1):
+    """The five gradients of h for the cotangent ``args[5]``, by autograd
+    through ``mlstm_chunk`` on the card as training takes them (its
+    Function: one forward launch writing its saves, then ``times``
+    backward launches from them)."""
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    h, _ = mlstm_chunk(*leaves, chunk=chunk)
+    return [torch.autograd.grad(h, leaves, args[5], retain_graph=True)
+            for _ in range(times)]
+
+
+@pytest.mark.parametrize("case", MLSTM_BWD_CASES)
+def test_mlstm_chunk_backward_kernel_matches_plain(gen, case):
+    """The mLSTM's backward kernel from the forward's saves, reached
+    through autograd as training reaches it, against the plain backward
+    on the same CUDA tensors, all five gradients; two backward launches
+    from one forward's saves bit for bit."""
+    from repro_torch.kernels.mlstm_chunk.ops import (
+        mlstm_chunk_backward, mlstm_chunk_backward_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, L, dh, c, fbias = case
+    args = _mlstm_bwd_args(gen, B, H, L, dh, fbias)
+    kernels.reset_launch_counts()
+    got, again = _mlstm_card_grads(args, c, times=2)
+    torch.cuda.synchronize()
+    assert mlstm_chunk_backward.launches == 2
+    assert (mlstm_chunk.launches, mlstm_chunk.launches_saved) == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _mlstm_grads_close(got, mlstm_chunk_backward_reference(*args[:5], c,
+                                                           args[5]))
+
+
+@pytest.mark.parametrize("B,H,L,dh,chunk", [
+    (1, 2, 200, 64, 256),       # one ragged chunk: tiles of 8 rows
+    (2, 2, 100, 48, 64),        # 25 chunks of 4, dh padded to 64
+    (1, 1, 768, 384, 256),      # three chunks
+    (1, 2, 384, 128, 256),      # a chunk of 256 shrunk to 128
+    (2, 1, 320, 200, 64),       # 5 chunks, dh padded to 256
+    (1, 1, 1024, 512, 256)])    # the widest dh, four chunks
+@pytest.mark.parametrize("fbias", [1.0, 6.0])
+def test_mlstm_chunk_backward_kernel_over_its_domain(gen, B, H, L, dh,
+                                                     chunk, fbias):
+    """The backward kernel over the forward's domain: any chunk up to 256
+    (ragged tiles), one to 25 chunks, any dh up to 512 (zero-padded);
+    forget gates as the forward's tests draw them and near 1 (the state
+    carried across the chunks)."""
+    from repro_torch.kernels.mlstm_chunk.ops import (
+        mlstm_chunk_backward_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _mlstm_bwd_args(gen, B, H, L, dh, fbias)
+    c = min(chunk, L)
+    while L % c:
+        c //= 2
+    got, = _mlstm_card_grads(args, chunk)
+    _mlstm_grads_close(got, mlstm_chunk_backward_reference(*args[:5], c,
+                                                           args[5]))
+
+
+def test_mlstm_chunk_autograd_on_the_card_matches_the_plain_backward(gen):
+    """Autograd through ``mlstm_chunk`` on CUDA tensors (its Function: the
+    forward kernel with its saves, then the backward kernel) gives the
+    plain backward's gradients at dh 96 (the Function pads to 128 and
+    the backward crops the gradients); a cotangent of the final state
+    raises its named error, and ``mlstm_chunk_backward`` called on CUDA
+    tensors without the forward's saves raises; under
+    ``torch.no_grad()`` the forward launches as serving does, writing no
+    saves."""
+    from repro_torch.kernels.mlstm_chunk.ops import (
+        FinalStateCotangent, mlstm_chunk_backward,
+        mlstm_chunk_backward_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _mlstm_bwd_args(gen, 2, 4, 256, 96, 6.0)
+    kernels.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    h, (C, n, m) = mlstm_chunk(*leaves, chunk=64)
+    h.backward(args[5])
+    torch.cuda.synchronize()
+    assert (mlstm_chunk.launches_saved, mlstm_chunk_backward.launches) == \
+        (1, 1)
+    _mlstm_grads_close([t.grad for t in leaves],
+                       mlstm_chunk_backward_reference(*args[:5], 64,
+                                                      args[5]))
+    for i in range(3):
+        out = mlstm_chunk(*leaves, chunk=64)
+        with pytest.raises(FinalStateCotangent, match="final state"):
+            (out[1][i].sum() + out[0].sum()).backward()
+    with pytest.raises(ValueError, match="saves"):
+        mlstm_chunk_backward(*args, chunk=64)
+    with torch.no_grad():
+        mlstm_chunk(*leaves, chunk=64)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.launches_saved == 4
+
+
+@pytest.mark.parametrize("B,H,L,dh,chunk", [case[:5] for case in
+                                             MLSTM_BWD_CASES]
+                         + [(1, 2, 200, 64, 256)])
+def test_mlstm_chunk_saves_leave_the_forward_unchanged(gen, B, H, L, dh,
+                                                       chunk):
+    """The forward with its saves set (under a gradient) gives h and the
+    final (C, n, m) bit for bit as the serving forward under
+    ``torch.no_grad()``, which writes no saves."""
+    q, k, v, li, lf, _ = _mlstm_bwd_args(gen, B, H, L, dh)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        want = mlstm_chunk(q, k, v, li, lf, chunk=chunk)
+    assert mlstm_chunk.launches_saved == 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
+    got = mlstm_chunk(*leaves, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (mlstm_chunk.launches, mlstm_chunk.launches_saved) == (2, 1)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "jamba-v0.1-52b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "xlstm-125m"])
 def test_train_step_on_the_card_matches_the_cpu(gen, name):
     """One ``make_train_step`` step of a reduced model (tinyllama-1.1b: 2
     layers; jamba-v0.1-52b: one 8-layer period of Mamba, attention, MLP
     and MoE layers; mixtral-8x7b: 2 layers of attention and 4-expert MoE;
-    llama's N(0, 0.02) init, eps=1.0) on the card (bf16 activations, the
-    flash kernel and its backward, the scan kernel and its backward)
-    against the same step on the CPU in float32, from the same state and
-    batch: loss and gradient norm within 2e-2 relative, every parameter
-    after the step within 1e-5 (at eps=1.0 the update is lr times the
-    clipped gradient, lr 1e-3)."""
+    xlstm-125m: 4 layers, three mLSTM and an sLSTM, chunk 16, so that the
+    64 tokens make 4 chunks; llama's N(0, 0.02) init, eps=1.0) on the
+    card (bf16 activations, the flash kernel and its backward, the scan
+    kernel and its backward, the mLSTM kernel and its backward) against
+    the same step on the CPU in float32, from the same state and batch:
+    loss and gradient norm within 2e-2 relative, every parameter after
+    the step within 1e-5 (at eps=1.0 the update is lr times the clipped
+    gradient, lr 1e-3)."""
     from repro_torch.configs import get_arch, override, reduced
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig)
     from repro_torch.models.model import build_model
     from repro_torch.train import trainer as ttr
     from repro_torch.core.context import tree_leaves, tree_map
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_backward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_backward
     cfg = reduced(get_arch(name))
     kernels.reset_launch_counts()
@@ -1885,20 +2031,24 @@ def test_train_step_on_the_card_matches_the_cpu(gen, name):
         assert abs(float(gm[k]) - float(wm[k])) <= 2e-2 * abs(float(wm[k]))
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
-    assert flash_attention_backward.launches > 0
+    assert (flash_attention_backward.launches > 0) == (name != "xlstm-125m")
     assert (ssm_scan_backward.launches > 0) == (name == "jamba-v0.1-52b")
+    assert (mlstm_chunk_backward.launches > 0) == (name == "xlstm-125m")
 
 
 def test_card_refuses_to_train_a_family_without_backward_kernels(gen):
-    """Only the xLSTM family is refused on one card (B9 has no backward
-    kernel); the dense, MoE and hybrid families build their step."""
+    """Every family builds its step on one card (the xLSTM family through
+    B9's backward kernel); only a model whose MoE layers run under a mesh
+    (B7, the grouped matmul, has no backward kernel) is refused."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.mesh import Mesh
     from repro_torch.models.model import build_model
     from repro_torch.train import trainer as ttr
-    m = build_model(reduced(get_arch("xlstm-125m")), device="cuda")
-    with pytest.raises(kernels.MissingBackwardKernel, match="mlstm_chunk"):
-        ttr.make_train_step(m, RunConfig())
-    for name in ("mixtral-8x7b", "jamba-v0.1-52b"):
+    for name in ("xlstm-125m", "mixtral-8x7b", "jamba-v0.1-52b"):
         ttr.make_train_step(build_model(reduced(get_arch(name)),
                                         device="cuda"), RunConfig())
+    m = build_model(reduced(get_arch("mixtral-8x7b")), device="cuda",
+                    mesh=Mesh((torch.device("cuda", 0),) * 4))
+    with pytest.raises(kernels.MissingBackwardKernel, match="gmm"):
+        ttr.make_train_step(m, RunConfig())

@@ -8,8 +8,9 @@ reference path (``REPRO_PALLAS=off``):
     and state (``rtol=1e-6``: the same f32 formula, the global norm's
     leaves summed in another order);
   * ``lm_loss_fn``'s loss and gradients for reduced tinyllama-1.1b
-    (chunked and not), reduced mixtral-8x7b (the MoE aux loss) and
-    reduced jamba-v0.1-52b (Mamba, MLP and MoE layers), and
+    (chunked and not), reduced mixtral-8x7b (the MoE aux loss), reduced
+    jamba-v0.1-52b (Mamba, MLP and MoE layers) and reduced xlstm-125m
+    (mLSTM layers through the chunkwise form: 32 tokens, chunk 16), and
     ``chunked_lm_loss`` over several chunks, within the north star's
     ``atol=5e-4, rtol=1e-3``;
   * one and two ``make_train_step`` steps from a bridged JAX state
@@ -165,7 +166,8 @@ def test_adamw_update_matches_jax(scale):
 @pytest.mark.parametrize("name,chunked", [("tinyllama-1.1b", False),
                                           ("tinyllama-1.1b", True),
                                           ("mixtral-8x7b", None),
-                                          ("jamba-v0.1-52b", None)])
+                                          ("jamba-v0.1-52b", None),
+                                          ("xlstm-125m", None)])
 def test_lm_loss_and_grads_match_jax(name, chunked, tiny):
     tm, jm, jp = tiny if name == "tinyllama-1.1b" else _pair(name)
     rc, jrc = _run_cfgs()
@@ -180,7 +182,7 @@ def test_lm_loss_and_grads_match_jax(name, chunked, tiny):
     for k in ("ce", "aux"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]),
                                    atol=ATOL, rtol=RTOL)
-    if name != "tinyllama-1.1b":                  # MoE layers
+    if name in ("mixtral-8x7b", "jamba-v0.1-52b"):     # MoE layers
         assert float(aux["aux"]) > 0
     _close_trees(grads, _port(jg))
 
@@ -374,7 +376,7 @@ def test_train_classifier_matches_jax_example():
 
 @pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"]])
 def test_launcher_refuses_several_cards(argv):
-    with pytest.raises(ttr.MultiCardTrainingNotPorted, match="§A item 7"):
+    with pytest.raises(ttr.MultiCardTrainingNotPorted, match="§A item 6"):
         launch_train.main(argv + ["--device", "cpu"])
 
 
@@ -395,19 +397,18 @@ def test_launcher_has_no_cpu_fallback():
     ("tinyllama-1.1b", False, None),
     ("mixtral-8x7b", False, None),
     ("jamba-v0.1-52b", False, None),
-    ("xlstm-125m", False, "mlstm_chunk"),
+    ("xlstm-125m", False, None),
     ("mixtral-8x7b", True, "gmm"),          # expert-parallel MoE layers
     ("tinyllama-1.1b", True, None)])        # a mesh, no MoE layer
 def test_card_refuses_families_without_backward_kernels(name, mesh,
                                                         refused):
-    """On the card the dense, MoE and hybrid families train (B1 and B8
-    have backward kernels; one card's MoE layers run the dense
-    reference); the xLSTM family's chunkwise mLSTM (B9) has none, nor
-    has the grouped matmul (B7) that a meshed model's MoE layers run, and
-    the step refuses those before it starts, naming the kernel (the
-    model's device is set to the card without one: the check reads only
-    the device, the family, the mesh and the layers).  On the CPU every
-    family trains."""
+    """On the card the dense, MoE, hybrid and xLSTM families train (B1,
+    B8 and B9 have backward kernels; one card's MoE layers run the dense
+    reference); the grouped matmul (B7) that a meshed model's MoE layers
+    run has none, and the step refuses such a model before it starts,
+    naming the kernel (the model's device is set to the card without
+    one: the check reads only the device, the family, the mesh and the
+    layers).  On the CPU every family trains."""
     from repro_torch.distributed.mesh import Mesh
     tm = build_model(reduced(get_arch(name)), device="cpu",
                      mesh=Mesh(("cpu",) * 4) if mesh else None)

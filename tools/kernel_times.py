@@ -3,8 +3,9 @@
 ``chip_smoke.py``'s records (the same inputs and calls), for the port tree
 given, so that two trees can be held side by side in one run on one card:
 
-    python3 tools/kernel_times.py --records decode|scan|backward|scan_backward
-                                  [--src DIR] [--label NAME]
+    python3 tools/kernel_times.py
+        --records decode|scan|backward|scan_backward|mlstm_backward
+        [--src DIR] [--label NAME]
     python3 tools/kernel_times.py --ptxas KERNEL [--src DIR]
 
 ``--records decode`` times the one-token decode records
@@ -17,7 +18,10 @@ calls them: the backward (from the forward's checkpoints where the tree's
 forward saves them) and, as ``<record>_forward``, the forward that
 precedes it (with its checkpoint output where the tree has one), plus a
 digest of the serving forward's y and final state (``serving_digest``,
-the same in two trees whose serving bits agree).  ``--src``
+the same in two trees whose serving bits agree); ``--records
+mlstm_backward`` B9's backward records (``MLSTM_BWD_SHAPES``, through
+``mlstm_bwd_call``: the backward alone on a graph kept from one
+forward).  ``--src``
 is the ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's).  Prints one JSON line: the card's name and power limit, the
 label, and for each record its profiler kernel time (``kernel_ms``, every
@@ -203,6 +207,10 @@ def cases(records: str, cs, dev, gen) -> dict:
             c = cs.backward_case(dev, rn, shape)
             calls[name] = (c["fn"], c["sdpa"])
         return calls
+    if records == "mlstm_backward":
+        return {name: (cs.mlstm_bwd_call(cs.mlstm_bwd_inputs(dev, gen, shape),
+                                         shape[4]), None)
+                for name, shape in cs.MLSTM_BWD_SHAPES.items()}
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     calls = {name: (lambda a=c[0]: ssm_scan(*a), None)
@@ -215,7 +223,8 @@ def cases(records: str, cs, dev, gen) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records",
-                    choices=("decode", "scan", "backward", "scan_backward"))
+                    choices=("decode", "scan", "backward", "scan_backward",
+                             "mlstm_backward"))
     ap.add_argument("--ptxas", metavar="KERNEL")
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
