@@ -9,10 +9,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                 hand-written kernel built from the sources in this
                 checkout (one nvcc per source, all in parallel), and the
                 count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions
-                in the SASS of the flash, gmm, paged and verify libraries,
-                of mma.sync (HMMA) and cp.async (LDGSTS) in the decode,
-                paged, partial and mLSTM libraries (the mLSTM's
-                backward too), of cp.async in the scan library and of
+                in the SASS of the flash, gmm, paged and verify libraries
+                and the mLSTM's backward, of mma.sync (HMMA) and cp.async
+                (LDGSTS) in the decode, paged, partial and mLSTM
+                libraries, of cp.async in the scan library and of
                 the exponential unit (MUFU.EX2) and cp.async in the
                 scan's backward (nonzero).
   2. kernels  — each kernel body at the main path's shapes against its
@@ -253,10 +253,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                 boundary, the decay term left out of dlf (the padded
                 record, its forget gates near 1: at two chunks the
                 term is 0), w left out of the inter
-                term, den's sign branch dropped and one 64-key tile left
-                out of dk; two backward launches from one forward's
-                saves bit for bit; timed beside the plain backward,
-                its bound at the 3xTF32 rate.  ``train_xlstm``:
+                term, den's sign branch dropped, one 64-key tile left
+                out of dk and the 3xTF32 correction terms dropped
+                (plain TF32 products); two backward launches from one
+                forward's saves bit for bit; timed beside the plain
+                backward, its bound at the 3xTF32 rate.  ``train_xlstm``:
                 ``Trainer`` in process on xlstm-125m at published widths
                 (all 12 layers), 8 x 512, 10 steps, as ``train_jamba``
                 (the loss must fall by 0.5, the first 3 steps repeat bit
@@ -1545,8 +1546,9 @@ def log_kernel_time(name, fn, flush, library=None) -> None:
 
 # the instructions each library's SASS must hold: wgmma (HGMMA) and TMA
 # loads (UTMALDG) in the flash (forward and backward), gmm and verify
-# bodies; mma.sync (HMMA) and cp.async (LDGSTS) in the decode body (the row
-# and paged decode and the shard partial) and the mLSTM's 3xTF32 products;
+# bodies and the mLSTM's backward (3xTF32 on wgmma); mma.sync (HMMA) and
+# cp.async (LDGSTS) in the decode body (the row and paged decode and the
+# shard partial) and the mLSTM's forward 3xTF32 products;
 # cp.async in the scan; the exponential unit (ex2.approx) and cp.async
 # in the scan's backward
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
@@ -1557,7 +1559,7 @@ SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"),
             "decode_attention": ("HMMA", "LDGSTS"),
             "paged_partial": ("HMMA", "LDGSTS"),
             "mlstm_chunk": ("HMMA", "LDGSTS"),
-            "mlstm_chunk_bwd": ("HMMA", "LDGSTS"),
+            "mlstm_chunk_bwd": ("HGMMA", "UTMALDG"),
             "ssm_scan": ("LDGSTS",),
             "ssm_scan_bwd": ("MUFU.EX2", "LDGSTS")}
 
@@ -3653,7 +3655,61 @@ def context_delta(dev, tiny) -> dict:
 
 
 # the order of each (dynamic, conventional) pair of live schedule runs
-LIVE_ORDERS = ((True, False), (False, True)) * 2 + ((True, False),)
+LIVE_ORDERS = ((True, False), (False, True)) * 12 + ((True, False),)
+
+
+def live_setup(dev, tiny):
+    """The live schedule's three contexts at their published widths:
+    -> (``engine(telemetry=None)``, a fresh two-slot engine with
+    tinyllama-1.1b, supersub-super and supersub-sub registered, their
+    (8, 256) input, {context: load s}, {context: run s} (each the median
+    of 3), {"case2": schedule, "case3": schedule})."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.core.context import ContextDescriptor, ContextSwitchEngine
+    from repro_torch.core.scheduler import Run
+    from repro_torch.launch.serve import _to_host
+    from repro_torch.models.model import build_model
+    nets = {"tinyllama-1.1b": tiny}
+    for i, name in enumerate(("supersub-super", "supersub-sub")):
+        m = build_model(_bf16_arch(name), device=dev)
+        nets[name] = (m, _to_host(m.init(seed=71 + i)))
+    x = torch.randint(0, 512, (8, 256), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(72))
+
+    def engine(telemetry=None):
+        eng = ContextSwitchEngine(num_slots=2, device=dev,
+                                  telemetry=telemetry)
+        for n, (m, host) in nets.items():
+            eng.register(ContextDescriptor(
+                n, lambda p, t, m=m: m.forward(p, t), lambda h=host: h))
+        return eng
+
+    eng = engine()
+    loads, execs = {}, {}
+    for n in nets:
+        lt, et = [], []
+        for _ in range(3):
+            eng.deactivate()
+            eng.evict(n)
+            t0 = time.perf_counter()
+            eng.preload(n, block=True)
+            lt.append(time.perf_counter() - t0)
+            eng.switch(n)
+            eng.run(x)                              # warm
+            t0 = time.perf_counter()
+            eng.run(x)
+            et.append(time.perf_counter() - t0)
+        loads[n], execs[n] = statistics.median(lt), statistics.median(et)
+    eng.shutdown()
+    tiny_n, a, b = list(nets)
+    reps = max(1, min(50, math.ceil(loads[tiny_n] / execs[b])))
+    cases = {
+        "case2": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a])] * 3,
+        "case3": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a], reps),
+                  Run(b, execs[b], reps)] * 2}
+    return engine, x, loads, execs, cases
 
 
 def schedule_live(dev, tiny) -> dict:
@@ -3665,62 +3721,24 @@ def schedule_live(dev, tiny) -> dict:
     both preloaded) and case 3 (the three nets cycled twice, the two
     small ones run R times, R about tinyllama's load over a run of
     supersub-sub), each ``dynamic=True`` against ``dynamic=False`` in
-    five pairs of alternating order (``LIVE_ORDERS``): the runs are
-    host-bound and a single pair's totals differ by about as much as
-    case 3 can save.  Dynamic's median total must be below
+    twenty-five pairs of alternating order (``LIVE_ORDERS``): the runs
+    are host-bound and a single pair's totals differ by about as much as
+    case 3 can save (``tools/live_schedule_times.py`` reckons how often
+    a number of pairs would decide the check wrongly).  Dynamic's median total must be below
     conventional's in both cases; every run's total is logged, and the
     simulators' savings from the measured times beside the measured
     ones (of the median runs), and each run's device allocations."""
-    import math
-    import statistics
     import torch
-    from repro_torch.core.context import ContextDescriptor, ContextSwitchEngine
-    from repro_torch.core.scheduler import (Run, run_schedule_live,
+    from repro_torch.core.scheduler import (run_schedule_live,
                                             simulate_conventional,
                                             simulate_dynamic,
                                             simulate_preloaded, time_saving)
-    from repro_torch.launch.serve import _to_host
-    from repro_torch.models.model import build_model
-    nets = {"tinyllama-1.1b": tiny}
-    for i, name in enumerate(("supersub-super", "supersub-sub")):
-        m = build_model(_bf16_arch(name), device=dev)
-        nets[name] = (m, _to_host(m.init(seed=71 + i)))
-    x = torch.randint(0, 512, (8, 256), device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(72))
-    inputs = {n: (x,) for n in nets}
     res = {}
 
-    def engine():
-        eng = ContextSwitchEngine(num_slots=2, device=dev)
-        for n, (m, host) in nets.items():
-            eng.register(ContextDescriptor(
-                n, lambda p, t, m=m: m.forward(p, t), lambda h=host: h))
-        return eng
-
     def drive():
-        eng = engine()
-        loads, execs = {}, {}
-        for n in nets:
-            lt, et = [], []
-            for _ in range(3):
-                eng.deactivate()
-                eng.evict(n)
-                t0 = time.perf_counter()
-                eng.preload(n, block=True)
-                lt.append(time.perf_counter() - t0)
-                eng.switch(n)
-                eng.run(x)                          # warm
-                t0 = time.perf_counter()
-                eng.run(x)
-                et.append(time.perf_counter() - t0)
-            loads[n], execs[n] = statistics.median(lt), statistics.median(et)
-        eng.shutdown()
-        tiny_n, a, b = list(nets)
-        reps = max(1, min(50, math.ceil(loads[tiny_n] / execs[b])))
-        cases = {
-            "case2": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a])] * 3,
-            "case3": [Run(tiny_n, execs[tiny_n]), Run(a, execs[a], reps),
-                      Run(b, execs[b], reps)] * 2}
+        engine, x, loads, execs, cases = live_setup(dev, tiny)
+        inputs = {n: (x,) for n in loads}
+        tiny_n, a = list(loads)[:2]
         for case, sched in cases.items():
             runs = {True: [], False: []}
             for order in LIVE_ORDERS:             # pairs, alternating

@@ -440,14 +440,16 @@ inline cudaError_t allow_smem(int bytes) {
   return rc;
 }
 
-// A bf16 TMA descriptor over a tensor of `rank` dimensions (innermost
-// first: sizes `dims`, byte strides of dimensions 1.. in `strides`), read
-// in boxes of `box` elements, with the given swizzle.  cuTensorMapEncodeTiled
-// comes from the driver through the runtime's entry-point query, so the
-// libraries need no link against libcuda.  -> false if it fails.
-inline bool encode_map(CUtensorMap* map, const void* base, int rank,
-                       const uint64_t* dims, const uint64_t* strides,
-                       const uint32_t* box, CUtensorMapSwizzle swizzle) {
+// A TMA descriptor over a tensor of `rank` dimensions (innermost first:
+// sizes `dims`, byte strides of dimensions 1.. in `strides`) of `type`
+// (bf16 unless given), read in boxes of `box` elements, with the given
+// swizzle.  cuTensorMapEncodeTiled comes from the driver through the
+// runtime's entry-point query, so the libraries need no link against
+// libcuda.  -> false if it fails.
+inline bool encode_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -471,7 +473,7 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   auto encode_once = [&]() {
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+    return encode(map, type, rank,
                   const_cast<void*>(base), dims, strides, box, ones,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -136,7 +136,29 @@ BACKWARD_FAULTS = ("dC's carry dropped at a chunk boundary",
                    "the decay term left out of dlf",
                    "w left out of the inter term",
                    "den's sign branch dropped",
-                   "one 64-key tile left out of dk")
+                   "one 64-key tile left out of dk",
+                   "the 3xTF32 correction terms dropped")
+
+# the backward kernel's output strips: dh in 192-column strips and a
+# remainder, each strip's gate terms summed apart and the strips in order
+BACKWARD_STRIP = 192
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with each operand truncated to TF32 and no correction
+    terms: plain TF32 products, the planted fault of 3xTF32."""
+    return tf32_truncate(a) @ tf32_truncate(b)
+
+
+def _strip_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over its last dimension as the kernel sums a gate
+    term: each ``BACKWARD_STRIP``-column strip apart, then the strips in
+    order."""
+    parts = [p.sum(-1) for p in x.split(BACKWARD_STRIP, dim=-1)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
 
 
 def mlstm_chunk_backward_split(q, k, v, li, lf, chunk: int, dh_out,
@@ -154,15 +176,18 @@ def mlstm_chunk_backward_split(q, k, v, li, lf, chunk: int, dh_out,
     E_j back over the chunks, the last chunk's dC' 0 (the final state
     takes no cotangent), with each chunk's decay term <dC', C_p> + <dn',
     n_p>; (4) per chunk S = scale q k^T D, dS = dnum v^T + ddsum, dP = dS
-    D and da = dS S; (5) dq, dk and dv from dP, S and the inter and
-    state-update terms, with the gate terms q . dq_inter and k .
-    dk_state; (6) dg from da's row and column sums and those terms, dli,
-    and dlf as dg's reverse cumulative sum in the chunk.  ``fault`` plants
-    one of ``BACKWARD_FAULTS``: the reverse combine's carry zeroed into
-    chunk nc/2 - 1, the decay term dropped from dg, the inter term
-    without its factor w, ddsum without sign(dsum), or the first 64 keys
-    of every chunk without dk's intra term.  -> (dq, dk, dv, dli, dlf)
-    in the inputs' dtype."""
+    D, kept as dP' = scale dP, and da = dS S; (5) dq, dk and dv: first
+    the inter or state-update term, with its gate term (q . dq_inter, k .
+    dk_state) summed strip by strip (``BACKWARD_STRIP``), then the intra
+    product from dP' or S added on top; (6) dg from da's row and column
+    sums and those terms, dli, and dlf as dg's reverse cumulative sum in
+    the chunk.  ``fault`` plants one of ``BACKWARD_FAULTS``: the reverse
+    combine's carry zeroed into chunk nc/2 - 1, the decay term dropped
+    from dg, the inter term without its factor w, ddsum without
+    sign(dsum), the first 64 keys of every chunk without dk's intra
+    term, or every product of the backward in plain TF32 (each operand
+    truncated, no correction terms).  -> (dq, dk, dv, dli, dlf) in the
+    inputs' dtype."""
     if fault is not None and fault not in BACKWARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     B, H, L, dh = q.shape
@@ -180,8 +205,9 @@ def mlstm_chunk_backward_split(q, k, v, li, lf, chunk: int, dh_out,
     ddsum = torch.where(dsum.abs() >= floor,
                         -sign * (doc * hc).sum(-1) / den, 0.0)
     w, wk, decay = f["w"], f["wk"], f["decay"]
+    mm = matmul_tf32 if fault == BACKWARD_FAULTS[5] else torch.matmul
     # (2) every chunk's inter term (the first chunk's w are 0)
-    E = torch.matmul((w[..., None] * qc).transpose(-1, -2), dnum)
+    E = mm((w[..., None] * qc).transpose(-1, -2), dnum)
     En = ((w * ddsum)[..., None] * qc).sum(-2)
     # (3) the reverse combine: the cotangent of the state after each chunk
     G = torch.zeros_like(E[:, :, 0])
@@ -198,27 +224,27 @@ def mlstm_chunk_backward_split(q, k, v, li, lf, chunk: int, dh_out,
     dCn, dnn, Xd = (torch.stack(t, dim=2) for t in (dCn, dnn, Xd))
     # (4) the scores and their cotangents
     D = f["D"]
-    S = torch.matmul(qc, kc.transpose(-1, -2)) * scale * D
-    dS = torch.where(D > 0, torch.matmul(dnum, vc.transpose(-1, -2))
+    S = mm(qc, kc.transpose(-1, -2)) * scale * D
+    dS = torch.where(D > 0, mm(dnum, vc.transpose(-1, -2))
                      + ddsum[..., None], 0.0)
-    dP = dS * D
+    dPs = scale * (dS * D)
     da = dS * S
-    # (5) the products
+    # (5) the products: the inter or state term, then the intra product
     wq = torch.ones_like(w) if fault == BACKWARD_FAULTS[2] else w
-    dq_inter = wq[..., None] * (torch.matmul(dnum, f["Cp"].transpose(-1, -2))
+    dq_inter = wq[..., None] * (mm(dnum, f["Cp"].transpose(-1, -2))
                                 + ddsum[..., None] * f["np"][..., None, :])
-    dq = scale * torch.matmul(dP, kc) + dq_inter
-    dk_state = scale * wk[..., None] * (torch.matmul(vc, dCn.transpose(-1, -2))
+    dq = dq_inter + mm(dPs, kc)
+    dk_state = scale * wk[..., None] * (mm(vc, dCn.transpose(-1, -2))
                                         + dnn[..., None, :])
-    dPk = dP
+    dPk = dPs
     if fault == BACKWARD_FAULTS[4]:
-        dPk = dP.clone()
+        dPk = dPs.clone()
         dPk[..., :64] = 0.0
-    dk = scale * torch.matmul(dPk.transpose(-1, -2), qc) + dk_state
-    dv = torch.matmul(S.transpose(-1, -2), dnum) + \
-        scale * wk[..., None] * torch.matmul(kc, dCn)
-    Xw = (qc * dq_inter).sum(-1)
-    Xk = (kc * dk_state).sum(-1)
+    dk = dk_state + mm(dPk.transpose(-1, -2), qc)
+    dv = scale * wk[..., None] * mm(kc, dCn) + \
+        mm(S.transpose(-1, -2), dnum)
+    Xw = _strip_sum(qc * dq_inter)
+    Xk = _strip_sum(kc * dk_state)
     # (6) the gates
     col = da.sum(-2)
     dg = da.sum(-1) - col + Xw - Xk
@@ -230,7 +256,8 @@ def mlstm_chunk_backward_split(q, k, v, li, lf, chunk: int, dh_out,
             dlf.reshape(B, H, L))
 
 
-__all__ = ["BACKWARD_FAULTS", "chunk_cumsum", "matmul_3xtf32",
+__all__ = ["BACKWARD_FAULTS", "BACKWARD_STRIP", "chunk_cumsum",
+           "matmul_3xtf32", "matmul_tf32",
            "mlstm_chunk_backward_reference",
            "mlstm_chunk_backward_split", "mlstm_chunk_reference",
            "mlstm_chunk_split",

@@ -1914,12 +1914,15 @@ def test_mlstm_chunk_backward_kernel_matches_plain(gen, case):
     (1, 1, 768, 384, 256),      # three chunks
     (1, 2, 384, 128, 256),      # a chunk of 256 shrunk to 128
     (2, 1, 320, 200, 64),       # 5 chunks, dh padded to 256
-    (1, 1, 1024, 512, 256)])    # the widest dh, four chunks
+    (1, 1, 1024, 512, 256),     # the widest dh, four chunks
+    (1, 2, 512, 320, 128),      # dh 320: a 192-column strip and 128
+    (1, 1, 768, 448, 256)])     # dh 448: two strips of 192 and 64
 @pytest.mark.parametrize("fbias", [1.0, 6.0])
 def test_mlstm_chunk_backward_kernel_over_its_domain(gen, B, H, L, dh,
                                                      chunk, fbias):
     """The backward kernel over the forward's domain: any chunk up to 256
-    (ragged tiles), one to 25 chunks, any dh up to 512 (zero-padded);
+    (ragged tiles), one to 25 chunks, any dh up to 512 (zero-padded;
+    widths that leave a column remainder after 192-column strips);
     forget gates as the forward's tests draw them and near 1 (the state
     carried across the chunks)."""
     from repro_torch.kernels.mlstm_chunk.ops import (
